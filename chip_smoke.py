@@ -8,10 +8,11 @@ these phases, printing one JSON line per phase:
 1. env      — torch / CUDA / nvcc versions, the card's name and power
               limit, which optional host packages import.
 2. kernels  — each kernel at the shapes the main path gives it, against its
-              plain PyTorch version on the card (stated bf16 tolerance) and
-              against an f32 plain run; CUDA-event medians of the kernel,
-              the plain version and one PyTorch library call, and their
-              device times from torch.profiler.
+              plain PyTorch version on the card (stated bf16 tolerance and
+              an f32 plain run for the attention kernels; bitwise for the
+              PQ scan); CUDA-event medians of the kernel, the plain version
+              and one PyTorch library call, and their device times from
+              torch.profiler.
 3. encode   — the Encoder at ViT-B/32 full width (seeded random weights):
               1,024 seeded images in batches of 128, then one batch of 1;
               launch counts checked; a few images against the port's CPU f32
@@ -20,14 +21,20 @@ these phases, printing one JSON line per phase:
 5. search   — the phase-3 embeddings through the port's KV store and
               images.index writer and back; exact and int8-seg ("quant")
               search at 1,000,000 x 512 + those rows, k=50, 16 queries.
-6. profile  — torch.profiler over two 128-image encodes: device time by
+6. coded    — the same corpus as images.index plus images.index.codes for
+              int8, int4 and pq (encode seconds, bytes), each loaded with
+              the sidecar and codes-only, and bf16: search p50, recall@50
+              and top-1 against phase 5's exact ids; then a pq capacity
+              scan over 2^24 seeded random codes (the chunked scan).
+7. profile  — torch.profiler over two 128-image encodes: device time by
               kernel name, and the card's busy share of the host's wall
               per batch without the profiler (and with it).
-7. cli      — build_index and a scripted query_index REPL at ViT-B/32 on a
-              few fixture images (only when PIL or cv2 imports).
+8. cli      — build_index and a scripted query_index REPL at ViT-B/32 on a
+              few fixture images, then the same with --corpus-dtype pq
+              (only when PIL or cv2 imports).
 
-Phases 3-5 are the main path: every launch count is set to 0 just before
-phase 3 and read just after phase 5. The line before the last lists every
+Phases 3-6 are the main path: every launch count is set to 0 just before
+phase 3 and read just after phase 6. The line before the last lists every
 kernel ({"kernels": [...]}) with those counts; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the run exits
 non-zero and prints no result line; so does a machine without a GPU, or a
@@ -54,6 +61,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # them, HBM bandwidth
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 SEED = 0
@@ -292,11 +300,76 @@ def phase_kernels(device) -> dict:
     check(torch.equal(ps.packed_sdpa(q, k, v, heads=h),
                       ps.packed_sdpa_rows(q, k, v, heads=h)),
           "packed_sdpa and packed_sdpa_rows disagree")
+    results["pq_scan_scores"] = _kernel_b11(device)
     emit({"phase": "kernels", "build_s": build_s, "ptxas": ptxas,
           "tolerance": {"vs_plain": [ATOL_PLAIN, RTOL_PLAIN],
-                        "vs_f32": [ATOL_F32, RTOL_F32]},
+                        "vs_f32": [ATOL_F32, RTOL_F32],
+                        "pq_scan_scores": "bitwise"},
           "results": results})
     return results
+
+
+# B11 at the path's shapes: the 1,001,024-row corpus pads to a 2^20-row
+# bucket; D = 512 gives M = 256 subspaces at dsub 2 (128 code bytes a row)
+# and M = 128 at dsub 4 (64 bytes); a search sends Q <= 16 queries
+PQ_ROWS = 1 << 20
+
+
+def _kernel_b11(device) -> dict:
+    """pq_scan_scores against its plain version, BITWISE (integer sums), at
+    the flat pq search's shapes: (2^20, 128) codes x a (4096, 16) int8 LUT,
+    the same with a bf16 LUT, (2^20, 64) at Q = 1 (dsub 4), and a row count
+    that is not a multiple of the 256-row tile. Times at the first shape;
+    the library yardstick is torch._int_mm of a prebuilt (N, 4096) int8
+    one-hot by the LUT (the port never calls it)."""
+    from clipx_torch.ops import pq_scan as pqs
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def codes(n, half):
+        return torch.randint(-128, 128, (n, half), generator=gen,
+                             dtype=torch.int8, device=device)
+
+    def lut(half, q):
+        return torch.randint(-127, 128, (half * 32, q), generator=gen,
+                             dtype=torch.int8, device=device)
+
+    cases = {}
+    for name, (n, half, q, dt) in {
+            "dsub2_q16": (PQ_ROWS, 128, 16, torch.int8),
+            "dsub2_q16_bf16_lut": (PQ_ROWS, 128, 16, torch.bfloat16),
+            "dsub4_q1": (PQ_ROWS, 64, 1, torch.int8),
+            "dsub2_q3_ragged": (1_000_037, 128, 3, torch.int8)}.items():
+        p, t = codes(n, half), lut(half, q).to(dt)
+        out = pqs.pq_scan_scores(p, t)
+        ref = pqs.pq_scan_scores_plain(p, t)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        check(torch.equal(out, ref),
+              f"pq_scan_scores {name} differs from plain: max err {err}")
+        cases[name] = {"shape": [n, half, q], "max_abs_err": err}
+        del p, t, out, ref
+
+    n, half, q = PQ_ROWS, 128, 16
+    p, t = codes(n, half), lut(half, q)
+    onehot = (pqs.unpack_codes4(p)[:, :, None] == torch.arange(
+        16, dtype=torch.uint8, device=device)).to(torch.int8).reshape(n, -1)
+    check(torch.equal(torch._int_mm(onehot, t).float().T,
+                      pqs.pq_scan_scores(p, t)),
+          "pq_scan_scores differs from the int8 one-hot product")
+    m = 2 * half
+    nbytes = n * half + m * 16 * q + 4 * q * n   # codes, LUT, scores
+    ops = n * m * q                              # one add per lookup
+    bms, by = bound(ops, nbytes, PEAK_INT8_OPS)
+    info = {"shape": [n, half, q], "max_abs_err": cases["dsub2_q16"][
+                "max_abs_err"], "cases": cases,
+            **_times(lambda: pqs.pq_scan_scores(p, t),
+                     lambda: pqs.pq_scan_scores_plain(p, t),
+                     lambda: torch._int_mm(onehot, t)),
+            "bound_ms": bms, "bound_by": by, "ops": ops, "bytes": nbytes}
+    del onehot
+    torch.cuda.empty_cache()
+    return info
 
 
 KERNEL_TABLE = (
@@ -307,6 +380,8 @@ KERNEL_TABLE = (
      "clipx/ops/packed_sdpa.py:763"),
     ("packed_sdpa_rows", "clipx_torch/csrc/short_sdpa.cu",
      "clipx/ops/packed_sdpa.py:548"),
+    ("pq_scan_scores", "clipx_torch/csrc/pq_scan.cu",
+     "clipx/ops/pq_scan.py:106"),
 )
 
 
@@ -486,7 +561,178 @@ def phase_search(embs: np.ndarray, device) -> dict:
             "quant_rows_near_dup_exception": int((~same).sum()),
             "max_abs_score_diff": float(np.abs(Dq - De).max())}
     emit(info)
+    quant.quantized = False
+    return {"index": exact, "queries": queries, "ids": Ie,
+            "picks": picks.cpu().numpy()}
+
+
+# ---------------------------------------------------------------------------
+# phase: the coded tiers
+# ---------------------------------------------------------------------------
+
+CODED_TIERS = ("int8", "int4", "pq")
+CAPACITY_ROWS = 1 << 24   # 2 GiB of dsub-2 pq codes; f32 would need 32 GiB
+
+
+def _tier_checks(tier, D, I, exact_ids, picks, total) -> dict:
+    check(I.shape == (NQ, K) and bool((I >= 0).all())
+          and bool((I < total).all()) and bool(np.isfinite(D).all()),
+          f"{tier}: result shape/ids out of range")
+    check(bool((np.diff(D, axis=1) <= 0).all()), f"{tier}: scores not sorted")
+    check(bool((I[NQ // 2:, 0] == picks).all()),
+          f"{tier}: a perturbed corpus row did not find itself first")
+    recall = np.array([len(set(a) & set(b)) / K
+                       for a, b in zip(I, exact_ids)])
+    top1 = I[:, 0] == exact_ids[:, 0]
+    # queries 0-7 are encoded images (their neighbours: the other tightly
+    # clustered image rows), 8-15 perturbed corpus rows
+    return {"recall_at_50": float(recall.mean()),
+            "top1": float(top1.mean()),
+            "recall_at_50_image_queries": float(recall[:NQ // 2].mean()),
+            "recall_at_50_row_queries": float(recall[NQ // 2:].mean()),
+            "top1_image_queries": float(top1[:NQ // 2].mean())}
+
+
+def _search_profile(index, queries, p50_ms: float) -> dict:
+    """torch.profiler over 5 searches: device ms per search, the card's
+    busy share of the unprofiled p50, and the top kernels by device time."""
+    kernels, _ = _profiled(lambda: index.search(queries, K), 5)
+    busy = sum(ms for _, ms, _ in kernels)
+    return {"device_ms": busy, "device_busy_share": busy / p50_ms,
+            "top_kernels": [{"name": name[:60], "ms": ms, "calls": n}
+                            for name, ms, n in kernels[:4]]}
+
+
+def phase_coded(search: dict, device) -> dict:
+    """The coded tiers on phase search's corpus: images.index written, the
+    port's write_codes_file for int8, int4 and pq (dsub 2, trained OPQ),
+    each loaded through load_coded_index with the sidecar present and then
+    codes-only with it deleted; bf16 through build_index_from_vectors.
+    Search p50 of phase search's 16 queries at k = 50 per tier, recall@50
+    and top-1 against its exact ids (no floor). Then a capacity scan: a
+    seeded random-code pq payload of 2^24 rows placed through
+    VectorIndex.from_codes (the chunked scan branch), Q = 1 and 16."""
+    import argparse
+
+    from clipx_torch.cli import common
+    from clipx_torch.search import codes_io
+    from clipx_torch.search.engine import IndexWriter, corpus_rotation
+
+    exact, queries = search["index"], search["queries"]
+    exact_ids, picks = search["ids"], search["picks"]
+    rows = exact.vectors()
+    total = rows.shape[0]
+    del exact, search["index"]
+    torch.cuda.empty_cache()
+    tiers = {}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # one index path per tier (an index has one codes file), each a
+        # hard link to the same images.index
+        def path(tier):
+            return os.path.join(tmp, f"{tier}.index")
+
+        def args(tier):
+            return argparse.Namespace(index=path(tier), corpus_dtype=tier,
+                                      search_mode="auto", device=device)
+
+        sidecar = os.path.join(tmp, "images.index")
+        writer = IndexWriter(sidecar, total, DIM)
+        writer.write(rows)
+        writer.close()
+        for tier in CODED_TIERS:
+            os.link(sidecar, path(tier))
+            t0 = time.perf_counter()
+            codes_io.write_codes_file(path(tier), rows, tier,
+                                      rot=corpus_rotation(DIM),
+                                      content_hash=writer.content_hash)
+            tiers[tier] = {"encode_s": time.perf_counter() - t0,
+                           "codes_bytes": os.path.getsize(
+                               codes_io.codes_path(path(tier)))}
+        results = {}
+        for tier in CODED_TIERS:
+            written = os.stat(codes_io.codes_path(path(tier))).st_mtime_ns
+            t0 = time.perf_counter()
+            idx = common.load_coded_index(args(tier))
+            tiers[tier]["load_s"] = time.perf_counter() - t0
+            check(idx is not None and idx.ntotal == total
+                  and idx.dtype == tier, f"{tier}: codes file did not load")
+            check(os.stat(codes_io.codes_path(path(tier))).st_mtime_ns
+                  == written, f"{tier}: the load re-encoded the codes file")
+            D, I, p50 = _search_p50(idx, queries, K)
+            tiers[tier].update(p50_ms=p50, **_tier_checks(
+                tier, D, I, exact_ids, picks, total),
+                **_search_profile(idx, queries, p50))
+            results[tier] = (D, I)
+            del idx
+        t0 = time.perf_counter()
+        bf16 = common.build_index_from_vectors(rows, args("bf16"))
+        tiers["bf16"] = {"build_s": time.perf_counter() - t0}
+        D, I, p50 = _search_p50(bf16, queries, K)
+        tiers["bf16"].update(p50_ms=p50, **_tier_checks(
+            "bf16", D, I, exact_ids, picks, total),
+            **_search_profile(bf16, queries, p50))
+        del bf16, rows
+        for tier in CODED_TIERS:
+            os.remove(path(tier))
+            t0 = time.perf_counter()
+            idx = common.load_coded_index(args(tier))
+            tiers[tier]["codes_only_load_s"] = time.perf_counter() - t0
+            D, I = idx.search(queries, K)
+            check(np.array_equal(I, results[tier][1])
+                  and np.array_equal(D, results[tier][0]),
+                  f"{tier}: codes-only boot searches differently")
+            del idx
+    torch.cuda.empty_cache()
+    info = {"phase": "coded", "rows": total, "dim": DIM, "k": K,
+            "queries": NQ, "tiers": tiers,
+            "capacity": _capacity_scan(device)}
+    emit(info)
     return info
+
+
+def _capacity_scan(device) -> dict:
+    from clipx_torch.search import pq as pq_lib
+    from clipx_torch.search.engine import VectorIndex
+
+    rng = np.random.default_rng(SEED)
+    half = DIM // 2 // 2
+    t0 = time.perf_counter()
+    payload = {
+        "tier": "pq", "ntotal": CAPACITY_ROWS, "dim": DIM, "code_dim": half,
+        "codes": np.frombuffer(rng.bytes(CAPACITY_ROWS * half),
+                               np.int8).reshape(CAPACITY_ROWS, half),
+        "centroids": rng.standard_normal((2 * half, pq_lib.PQ_K, 2),
+                                         dtype=np.float32) * 0.05,
+        "rot_matrix": None, "center": None}
+    make_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx = VectorIndex.from_codes(payload, device=device)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    check(idx._codes.shape[0] % pq_lib._PQ_PALLAS_CHUNK == 0
+          and idx._codes.shape[0] > pq_lib._PQ_PALLAS_ONESHOT,
+          "the capacity scan does not take the chunked branch")
+    out = {"rows": CAPACITY_ROWS, "codes_gib": CAPACITY_ROWS * half / 2**30,
+           "make_s": make_s, "place_s": place_s}
+    q_all = rng.standard_normal((NQ, DIM), dtype=np.float32)
+    for nq in (1, NQ):
+        D, I, p50 = _search_p50(idx, q_all[:nq], K, reps=10)
+        check(I.shape == (nq, K) and bool((I >= 0).all())
+              and bool((I < CAPACITY_ROWS).all())
+              and bool(np.isfinite(D).all())
+              and bool((np.diff(D, axis=1) <= 0).all()),
+              f"capacity scan Q={nq}: bad results")
+        # returned scores are the f32 PQ scores of the returned rows
+        want = np.einsum("qd,qkd->qk", q_all[:nq],
+                         np.stack([[idx.reconstruct(int(i)) for i in r[:4]]
+                                   for r in I]))
+        check(bool(np.allclose(D[:, :4], want, atol=1e-4, rtol=1e-4)),
+              f"capacity scan Q={nq}: scores differ from the decoded rows")
+        out[f"p50_ms_q{nq}"] = p50
+    del idx
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_profile(enc, images: np.ndarray, encode_info: dict) -> dict:
@@ -590,8 +836,47 @@ def phase_cli(info_env: dict) -> dict:
               "query_index: 'i 1' did not answer")
         # 6 images, rank 0 skipped: 5 rows for the text query, 5 for 'i 1'
         check(len(rows) == 10, f"query_index printed {len(rows)} rows")
+
+        # the same library as a pq index: the rebuild encodes no image again
+        # and writes images.index.codes; the REPL loads it. Six rows train
+        # six centroids per subspace, so the codes reproduce the rows and
+        # each search shows the f32 run's rows (ids and paths; the order of
+        # scores closer than f32 rounding may differ)
+        pq = ["--device", "cuda", "--corpus-dtype", "pq"]
+        t0 = time.perf_counter()
+        build = subprocess.run(
+            [sys.executable, "-m", "clipx_torch.cli.build_index", *pq,
+             *decode, photos], cwd=work, env=env, capture_output=True,
+            text=True, timeout=600)
+        pq_build_s = time.perf_counter() - t0
+        check(build.returncode == 0, f"build_index pq failed:\n{build.stderr}")
+        check("Encoding pq codes..." in build.stdout.splitlines(),
+              "build_index --corpus-dtype pq did not encode codes")
+        check(os.path.exists(os.path.join(work, "images.index.codes")),
+              "build_index --corpus-dtype pq wrote no codes file")
+        t0 = time.perf_counter()
+        query = subprocess.run(
+            [sys.executable, "-m", "clipx_torch.cli.query_index", *pq],
+            cwd=work, env=env, input="a photo of a cat\ni 1\nq\n",
+            capture_output=True, text=True, timeout=600)
+        pq_query_s = time.perf_counter() - t0
+        check(query.returncode == 0,
+              f"query_index pq failed:\n{query.stderr}")
+        check("(loaded 6 pq rows from images.index.codes)" in query.stderr,
+              "query_index --corpus-dtype pq did not load the codes file")
+        pq_rows = [ln for ln in query.stdout.splitlines()
+                   if len(ln.split()) == 3 and ln.split()[1].isdigit()
+                   and ln.split()[2].startswith(photos)]
+        def shown(rs):  # (id, path) per search: the text query, then 'i 1'
+            return [sorted(r.split()[1] + " " + r.split()[2]
+                           for r in rs[i: i + 5]) for i in (0, 5)]
+
+        check(len(pq_rows) == 10 and shown(pq_rows) == shown(rows),
+              f"pq result rows {pq_rows} differ from the f32 run's {rows}")
     info = {"phase": "cli", "fixtures": backend, "build_s": build_s,
-            "query_s": query_s, "result_rows": len(rows)}
+            "query_s": query_s, "result_rows": len(rows),
+            "pq_build_s": pq_build_s, "pq_query_s": pq_query_s,
+            "pq_result_rows": len(pq_rows)}
     emit(info)
     return info
 
@@ -620,10 +905,12 @@ def main() -> int:
     ps.reset_launches()
     encoded = phase_encode(enc, images)
     phase_text(enc)
-    phase_search(encoded["embs"], device)
+    search = phase_search(encoded["embs"], device)
+    phase_coded(search, device)
     launches = dict(ps.LAUNCHES)
     emit({"phase": "main_path_launches", "launches": launches})
-    check(launches["fused_attn_block"] > 0 and launches["packed_sdpa"] > 0,
+    check(launches["fused_attn_block"] > 0 and launches["packed_sdpa"] > 0
+          and launches["pq_scan_scores"] > 0,
           "a kernel of the main path was never launched")
     phase_profile(enc, images, encoded["info"])
     del enc

@@ -7,7 +7,8 @@ skip_db are skipped for good and files already in fn_db are not encoded
 again; a decode failure prints ``#`` and lands in skip_db, each encoded
 image prints ``.``; Ctrl-C (or SIGTERM) during encoding still builds the
 index over what was encoded; phase 2 assigns ids in byte-sorted path order
-into idx_db and streams the vectors into ``images.index``. Stdout is
+into idx_db and streams the vectors into ``images.index`` (and, with a coded
+``--corpus-dtype``, encodes ``images.index.codes`` from it). Stdout is
 clipx's, line for line; per-stage throughput goes to stderr.
 
 Images stream through a host decode pool into batched GPU encodes, with up
@@ -212,6 +213,32 @@ def _index_phase(args, env) -> None:
             writer.write(np.stack(chunk))
         print("Saving index...")
         writer.close()
+        _write_codes_phase(args, writer.content_hash)
+
+
+def _write_codes_phase(args, content_hash) -> None:
+    """With a coded --corpus-dtype, also persist ``<index>.codes``
+    (``search/codes_io.py``) so query starts load codes instead of
+    re-encoding. Reads the just-written sidecar back memmapped: host RAM
+    stays one encode chunk at any corpus size. Failure here is not fatal:
+    the f32 sidecar is already durable and the query side rebuilds codes
+    on first load."""
+    from clipx_torch.search import codes_io
+    from clipx_torch.search.engine import corpus_rotation, read_index_vectors
+
+    tier = codes_io.tier_of(common.corpus_dtype(args))
+    if tier is None or codes_io.codes_mode() == "off":
+        return
+    try:
+        vectors = read_index_vectors(args.index, mmap=True)
+        print(f"Encoding {tier} codes...")
+        codes_io.write_codes_file(
+            args.index, vectors, tier,
+            rot=corpus_rotation(vectors.shape[1]),
+            content_hash=content_hash)
+    except (OSError, ValueError) as exc:
+        print(f"(codes sidecar not written: {exc})", file=sys.stderr,
+              flush=True)
 
 
 def _flush_ids(env, idx_db, pending) -> None:

@@ -2,11 +2,11 @@
 
 Counterpart of ``clipx/cli/common.py``. The flags, their environment
 variables and the on-disk names are clipx's, so a command line (and a
-``vectors.lmdb`` + ``images.index`` pair) works with either package. The
-port adds ``--device {cuda,cpu}`` (default ``cuda``; no GPU and no
-``--device cpu`` is an error). Flag values whose code paths are not ported
-yet (``--corpus-dtype`` other than f32, ``--search-mode ivf``,
-``--compute int8``, ``--preprocess device``) exit with a message saying so.
+``vectors.lmdb`` + ``images.index`` + ``images.index.codes`` set) works with
+either package. The port adds ``--device {cuda,cpu}`` (default ``cuda``; no
+GPU and no ``--device cpu`` is an error). Flag values whose code paths are
+not ported yet (``--search-mode ivf``, ``--compute int8``, ``--preprocess
+device``) exit with a message saying so.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import os
 import sys
 
 from clipx_torch.runtime.device import DEVICES, resolve_device
+from clipx_torch.search.engine import DTYPES
 
 # Same on-disk names as the reference (reference:build-index.py:22,109)
 DEFAULT_DB_PATH = "vectors.lmdb"
@@ -29,10 +30,11 @@ IDX_DB = b"idx_db"
 # corpus size from which the int8 scan + exact-rescore path wins
 QUANT_AUTO_THRESHOLD = 100_000
 
-# flag values accepted (clipx's choices) whose paths are not ported yet
-_NOT_PORTED = {"corpus_dtype": ("bf16", "int8", "int4", "pq"),
-               "search_mode": ("ivf",), "compute": ("int8",),
-               "preprocess": ("device",)}
+# flag values accepted (clipx's choices) whose paths are not ported yet,
+# with the slice of the port (ROADMAP.md) that brings each
+_NOT_PORTED = {"search_mode": {"ivf": "slice 3"},
+               "compute": {"int8": "slice 5"},
+               "preprocess": {"device": "a later slice"}}
 
 
 def add_model_flags(parser: argparse.ArgumentParser) -> None:
@@ -53,16 +55,24 @@ def add_model_flags(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--index", default=os.environ.get("CLIPX_INDEX",
                                                           DEFAULT_INDEX_PATH))
     parser.add_argument("--corpus-dtype",
-                        choices=("f32", "bf16", "int8", "int4", "pq"),
+                        choices=DTYPES,
                         default=os.environ.get("CLIPX_CORPUS_DTYPE", "f32"),
-                        help="device storage dtype of the search corpus "
-                             "(only f32 is ported yet)")
+                        help="device storage dtype of the search corpus: "
+                             "f32; bf16 (half the bytes, f32 scores); "
+                             "int8 / int4 (per-row codes of the rotated, "
+                             "centred rows ARE the corpus: 1 / 0.5 B/dim, "
+                             "quantized scan, dequantized f32 rescore); pq "
+                             "(4-bit product quantization, 2 or 1 bit/dim "
+                             "per $CLIPX_PQ_DSUB, scanned by the PQ "
+                             "kernel). Coded tiers persist "
+                             "<index>.codes. The sidecar stays f32")
     parser.add_argument("--search-mode",
                         choices=("exact", "quant", "auto", "ivf"),
                         default=os.environ.get("CLIPX_SEARCH_MODE", "auto"),
-                        help="exact: f32 scan; quant: int8 scan + exact "
-                             "f32 rescore; auto: quant from 100k vectors "
-                             "(ivf is not ported yet)")
+                        help="exact: full scan; quant: int8 scan + exact "
+                             "rescore; auto: quant from 100k vectors (coded "
+                             "tiers always scan quantized; ivf is not "
+                             "ported yet)")
     parser.add_argument("--device", choices=DEVICES, default="cuda",
                         help="where the model and the index run (default "
                              "cuda; cpu must be asked for)")
@@ -74,17 +84,40 @@ def check_ported(args) -> None:
     for flag, values in _NOT_PORTED.items():
         value = getattr(args, flag, None)
         if value in values:
-            name = "--" + flag.replace("_", "-")
-            raise SystemExit(f"error: {name} {value} is not yet ported to "
-                             "clipx_torch (use the clipx package for it)")
+            raise SystemExit(_not_ported(flag, value, values[value]))
     try:
         resolve_device(args.device)
     except RuntimeError as exc:
         raise SystemExit(f"error: {exc}") from None
 
 
+def _not_ported(flag: str, value: str, when: str) -> str:
+    name = "--" + flag.replace("_", "-")
+    return (f"error: {name} {value} is not yet ported to clipx_torch ({when} "
+            "of the port; use the clipx package for it)")
+
+
+def _refuse_ivf(args) -> None:
+    if getattr(args, "search_mode", "auto") == "ivf":
+        raise SystemExit(_not_ported("search_mode", "ivf",
+                                     _NOT_PORTED["search_mode"]["ivf"]))
+
+
+def corpus_dtype(args) -> str:
+    """--corpus-dtype / $CLIPX_CORPUS_DTYPE: the storage tier's name."""
+    name = getattr(args, "corpus_dtype",
+                   os.environ.get("CLIPX_CORPUS_DTYPE", "f32"))
+    if name not in DTYPES:
+        raise SystemExit(f"unknown corpus dtype {name!r} "
+                         f"(f32, bf16, int8, int4 or pq)")
+    return name
+
+
 def apply_search_mode(index, mode: str):
-    """Configure an index's scan mode per the --search-mode flag."""
+    """Configure an index's scan mode per the --search-mode flag. Coded
+    storage keeps its quantized scan: the codes are the corpus."""
+    if index.coded_storage:
+        return index
     index.quantized = (mode == "quant" or
                        (mode == "auto"
                         and index.ntotal >= QUANT_AUTO_THRESHOLD))
@@ -92,12 +125,131 @@ def apply_search_mode(index, mode: str):
 
 
 def load_index(args):
-    """Read ``images.index`` and place it on the flag-selected device,
-    with --search-mode applied."""
-    from clipx_torch.search.engine import read_index
+    """Load the vector index per the flags on the flag-selected device,
+    with --search-mode applied. Coded tiers go through ``<index>.codes``
+    (``search/codes_io.py``): a fresh codes file loads directly, a missing
+    or stale one is rebuilt from the memmapped f32 sidecar and persisted
+    for the next start."""
+    idx = load_coded_index(args)
+    if idx is not None:
+        return idx
+    from clipx_torch.search.engine import read_index_vectors
 
-    return apply_search_mode(read_index(args.index, device=args.device),
-                             args.search_mode)
+    return build_index_from_vectors(read_index_vectors(args.index), args)
+
+
+def load_coded_index(args):
+    """The codes-file load path; None -> the caller uses the f32 path
+    (uncoded tier, CLIPX_CODES=off, or an unreadable sidecar). A fresh
+    codes file loads directly. With the f32 sidecar absent, the codes file
+    stands alone (codes-only boot, see ``_load_codes_only``). Otherwise the
+    codes are stream-encoded from the memmapped sidecar, written, and
+    loaded back."""
+    from clipx_torch.search import codes_io
+    from clipx_torch.search.engine import (corpus_rotation,
+                                           read_index_vectors,
+                                           rotation_enabled)
+
+    _refuse_ivf(args)
+    tier = codes_io.tier_of(corpus_dtype(args))
+    mode = codes_io.codes_mode()
+    if tier is None or mode == "off":
+        return None
+    if not os.path.exists(args.index):
+        if (mode == "on"
+                and os.path.exists(codes_io.codes_path(args.index))):
+            return _load_codes_only(args, tier)
+        return None
+    if mode == "on":
+        payload = codes_io.load_codes(args.index, tier,
+                                      rotated=rotation_enabled())
+        if payload is not None:
+            idx = build_index_from_codes(payload, args)
+            if idx is not None:
+                print(f"(loaded {payload['ntotal']} {tier} rows from "
+                      f"{codes_io.codes_path(args.index)})",
+                      file=sys.stderr, flush=True)
+                return idx
+    try:
+        vectors = read_index_vectors(args.index, mmap=True)
+        fp_at_open = codes_io.sidecar_sample_fp(args.index)
+        codes_io.write_codes_file(
+            args.index, vectors, tier,
+            rot=corpus_rotation(vectors.shape[1]),
+            content_hash=codes_io.sidecar_full_hash(args.index),
+            fp_sample=fp_at_open)
+    except (OSError, ValueError):
+        return None  # unwritable dir / corrupt or replaced sidecar
+    payload = codes_io.load_codes(args.index, tier,
+                                  rotated=rotation_enabled())
+    if payload is None:
+        return None
+    return build_index_from_codes(payload, args)
+
+
+def _load_codes_only(args, tier: str):
+    """Codes-only boot: ``<index>.codes`` exists but the f32 sidecar does
+    not. The codes file verifies against its own integrity footer and
+    becomes the source of truth. Lost without the sidecar: staleness
+    detection, re-encoding to other tiers, incremental reload; every
+    mismatch is therefore a hard, explained error."""
+    from clipx_torch.search import codes_io
+    from clipx_torch.search.engine import rotation_enabled
+
+    cpath = codes_io.codes_path(args.index)
+    payload = codes_io.load_codes(args.index, tier,
+                                  rotated=rotation_enabled(),
+                                  orphan=True)
+    if payload is None:
+        raise SystemExit(
+            f"{cpath} failed to load for --corpus-dtype {tier} and the "
+            f"f32 sidecar {args.index} is absent, so it cannot be "
+            "rebuilt. Causes: integrity-footer mismatch (corrupt "
+            "file), a different tier/rotation setting than the file "
+            "was built with, or a truncated file. Restore the f32 "
+            "sidecar or rebuild the codes file.")
+    idx = build_index_from_codes(payload, args, orphan=True)
+    print(f"(codes-only boot: loaded {payload['ntotal']} {tier} rows "
+          f"from {cpath}; f32 sidecar absent — staleness checks and "
+          "incremental reload unavailable)", file=sys.stderr,
+          flush=True)
+    return idx
+
+
+def build_index_from_codes(payload, args, orphan: bool = False):
+    """Place a loaded codes payload as a flat index on ``args.device``
+    (``load_coded_index`` refuses --search-mode ivf first). None when the
+    payload holds residual pq codes (IVF-only), so the caller re-encodes
+    flat from f32; with ``orphan`` (no sidecar to re-encode from) that is a
+    hard error instead."""
+    from clipx_torch.search.engine import VectorIndex
+
+    if payload.get("residual"):
+        # residual-pq codes only score inside the IVF probe (they need the
+        # segment coarse term)
+        if orphan:
+            raise SystemExit(
+                "this codes file holds RESIDUAL pq codes, which only "
+                "score under --search-mode ivf, and the f32 sidecar is "
+                "absent so they cannot be re-encoded flat. Pass "
+                "--search-mode ivf (the file's .ivf cache must be "
+                "present too).")
+        return None
+    return VectorIndex.from_codes(payload,
+                                  device=getattr(args, "device", None))
+
+
+def build_index_from_vectors(vectors, args):
+    """Place host vectors as a flat index of the flag-selected tier on
+    ``args.device``, with --search-mode applied."""
+    from clipx_torch.search.engine import VectorIndex
+
+    _refuse_ivf(args)
+    idx = VectorIndex(vectors.shape[1], device=getattr(args, "device", None),
+                      dtype=corpus_dtype(args))
+    if vectors.shape[0]:
+        idx.add(vectors)
+    return apply_search_mode(idx, getattr(args, "search_mode", "auto"))
 
 
 def make_encoder(args):

@@ -261,9 +261,14 @@ def main(argv: List[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     common.check_ported(args)
     if not os.path.exists(args.index):
-        print(f"No index found at {args.index!r} — run "
-              "build-index.py first.")
-        return 1
+        # a codes-only deployment boots from the codes file alone
+        from clipx_torch.search import codes_io
+
+        if not (codes_io.tier_of(args.corpus_dtype) is not None
+                and os.path.exists(codes_io.codes_path(args.index))):
+            print(f"No index found at {args.index!r} — run "
+                  "build-index.py first.")
+            return 1
     return QueryREPL(args).run()
 
 

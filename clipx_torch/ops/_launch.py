@@ -1,0 +1,74 @@
+"""What every kernel wrapper of the port shares: the launch counts and the
+ctypes plumbing to its CUDA library.
+
+``LAUNCHES`` holds one count per wrapper (one per call that launched its
+kernel), so a run can show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+LAUNCHES: Dict[str, int] = {"fused_attn_block": 0, "packed_sdpa": 0,
+                            "packed_sdpa_rows": 0, "pq_scan_scores": 0}
+
+P = ctypes.c_void_p
+I = ctypes.c_int  # noqa: E741 (ctypes' own name)
+_fns: Dict[str, object] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def c_fn(lib_name: str, sym: str, argtypes):
+    """``sym`` of lib<lib_name>.so (built at first use), with argtypes set:
+    c_void_p for pointers and the stream, c_int for ints."""
+    fn = _fns.get(sym)
+    if fn is None:
+        from clipx_torch.ops import _build
+
+        fn = getattr(_build.load(lib_name), sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[sym] = fn
+    return fn
+
+
+def check_cuda(name: str, dtype, device, **tensors) -> None:
+    for arg, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected "
+                             f"{device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: {arg} is {t.dtype}, the kernel "
+                             f"takes {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+
+
+def kernel_device(name: str, x: torch.Tensor) -> torch.device:
+    """The device a kernel launches on: a CUDA tensor's. Callers send CPU
+    tensors to the plain version first; anything else is refused."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device} "
+                         "(CUDA tensors launch the kernel, CPU tensors "
+                         "run the plain version)")
+    return x.device
+
+
+def launch(name: str, fn, device: torch.device, *args) -> None:
+    """Call the C entry point on the device's current stream (passed last),
+    raise on a launch error, and count the launch."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
+    LAUNCHES[name] += 1

@@ -18,28 +18,24 @@ runs the plain version only for CPU tensors. For a CUDA tensor it launches
 its kernel or raises; any other device raises.
 
 Each wrapper counts its kernel launches in ``LAUNCHES`` (one per call that
-launched), so a run can show that its main path went through the kernels.
+launched; the dict lives in ``ops/_launch.py`` and also counts the PQ scan),
+so a run can show that its main path went through the kernels.
 Constraints as in clipx: S <= 64, D = 64, no causal mask.
 """
 
 from __future__ import annotations
 
-import ctypes
-from typing import Dict
-
 import torch
+
+from clipx_torch.ops._launch import (LAUNCHES, I, P, c_fn, check_cuda,
+                                     kernel_device, launch, reset_launches)
+
+__all__ = ["LAUNCHES", "reset_launches", "fused_attn_block", "packed_sdpa",
+           "packed_sdpa_rows", "fused_attn_block_plain", "sdpa_plain"]
 
 _SP = 64  # padded sequence block
 _D = 64
 _NEG = -1e30
-
-LAUNCHES: Dict[str, int] = {"fused_attn_block": 0, "packed_sdpa": 0,
-                            "packed_sdpa_rows": 0}
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -88,83 +84,32 @@ def fused_attn_block_plain(x: torch.Tensor, wqkv: torch.Tensor,
 # kernel launches
 # ---------------------------------------------------------------------------
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_fns: Dict[str, object] = {}
-
-
-def _fn(lib_name: str, sym: str, argtypes):
-    fn = _fns.get(sym)
-    if fn is None:
-        from clipx_torch.ops import _build
-
-        fn = getattr(_build.load(lib_name), sym)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[sym] = fn
-    return fn
-
-
-def _check_cuda(name: str, dtype, device, **tensors) -> None:
-    for arg, t in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{name}: {arg} is on {t.device}, expected "
-                             f"{device}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name}: {arg} is {t.dtype}, the kernel "
-                             f"takes {dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
-
-
-def _kernel_device(name: str, x: torch.Tensor) -> torch.device:
-    """The device a kernel launches on: a CUDA tensor's. Callers send CPU
-    tensors to the plain version first; anything else is refused."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {x.device} "
-                         "(CUDA tensors launch the kernel, CPU tensors "
-                         "run the plain version)")
-    return x.device
-
-
 def _launch_sdpa(name: str, q, k, v, heads: int) -> torch.Tensor:
-    device = _kernel_device(name, q)
-    _check_cuda(name, torch.bfloat16, device, q=q, k=k, v=v)
+    device = kernel_device(name, q)
+    check_cuda(name, torch.bfloat16, device, q=q, k=k, v=v)
     b, s, w = q.shape
     out = torch.empty_like(q)
-    fn = _fn("short_sdpa", "clipx_short_sdpa",
-             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, s, heads, w, w, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
-    LAUNCHES[name] += 1
+    fn = c_fn("short_sdpa", "clipx_short_sdpa",
+              [P, P, P, P, I, I, I, I, I, P])
+    launch(name, fn, device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           out.data_ptr(), b, s, heads, w, w)
     return out
 
 
 def _launch_attn_block(x, wqkv, bqkv, wo, bo, heads: int) -> torch.Tensor:
     name = "fused_attn_block"
-    device = _kernel_device(name, x)
-    _check_cuda(name, torch.bfloat16, device, x=x, wqkv=wqkv, wo=wo)
-    _check_cuda(name, torch.float32, device, bqkv=bqkv, bo=bo)
+    device = kernel_device(name, x)
+    check_cuda(name, torch.bfloat16, device, x=x, wqkv=wqkv, wo=wo)
+    check_cuda(name, torch.float32, device, bqkv=bqkv, bo=bo)
     b, s, w = x.shape
     qkv_buf = torch.empty((b * s, 3 * w), dtype=x.dtype, device=device)
     attn_buf = torch.empty((b * s, w), dtype=x.dtype, device=device)
     out = torch.empty_like(x)
-    fn = _fn("attn_block", "clipx_fused_attn_block",
-             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
-                wo.data_ptr(), bo.data_ptr(), qkv_buf.data_ptr(),
-                attn_buf.data_ptr(), out.data_ptr(), b, s, w, heads, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
-    LAUNCHES[name] += 1
+    fn = c_fn("attn_block", "clipx_fused_attn_block",
+              [P, P, P, P, P, P, P, P, I, I, I, I, P])
+    launch(name, fn, device, x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+           wo.data_ptr(), bo.data_ptr(), qkv_buf.data_ptr(),
+           attn_buf.data_ptr(), out.data_ptr(), b, s, w, heads)
     return out
 
 

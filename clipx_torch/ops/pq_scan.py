@@ -1,0 +1,120 @@
+"""The PQ asymmetric-distance scan: a wrapper over ``csrc/pq_scan.cu``.
+
+Counterpart of ``clipx/ops/pq_scan.py::pq_scan_scores``. For packed codes
+(N, M/2) int8 in the split nibble layout (byte j = subspace j low, subspace
+j + M/2 high; unsigned nibbles) and an integer-valued LUT (M*16, Q), row
+m*16 + c, it returns the (Q, N) f32 scores
+
+    out[q, n] = sum_m lut[m*16 + code(n, m), q]
+
+as exact integer sums (|sum| <= 127*M < 2**24), so the kernel, the plain
+version here and clipx's Pallas and XLA paths agree bitwise. The LUT may be
+int8 or integer-valued bf16 (values <= 127, converted to int8 exactly).
+
+``pq_scan_scores_plain`` is the plain PyTorch version: unpack, one-hot,
+exact integer product, in row chunks (as ``pq._pq_scan_chunk_xla`` does in
+clipx). The wrapper runs it only for CPU tensors; for a CUDA tensor it
+launches the kernel or raises. Launches count in ``LAUNCHES`` (one per
+call). Q is at most 16, the most queries one search sends.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from clipx_torch.ops._launch import (I, P, c_fn, check_cuda, kernel_device,
+                                     launch)
+
+PQ_K = 16
+MAX_Q = 16              # queries per call (the kernel's register tile)
+_PLAIN_CHUNK = 1 << 16  # rows per one-hot product in the plain version
+
+
+def unpack_codes4(packed: torch.Tensor) -> torch.Tensor:
+    """(..., M/2) packed int8 -> (..., M) uint8 code indices. Logical shifts:
+    nibbles are unsigned centroid indices."""
+    u = packed.view(torch.uint8)
+    return torch.cat([u & 0x0F, u >> 4], dim=-1)
+
+
+def _check_shapes(packed: torch.Tensor, lut_t: torch.Tensor):
+    if packed.dim() != 2 or lut_t.dim() != 2:
+        raise ValueError("pq_scan_scores: packed is (N, M/2) and lut_t is "
+                         f"(M*16, Q); got {tuple(packed.shape)}, "
+                         f"{tuple(lut_t.shape)}")
+    n, half = packed.shape
+    mk, q = lut_t.shape
+    if mk != 2 * half * PQ_K:
+        raise ValueError(f"lut rows {mk} != {2 * half * PQ_K}")
+    if not 1 <= q <= MAX_Q:
+        raise ValueError(f"pq_scan_scores takes 1 to {MAX_Q} queries, "
+                         f"got {q}")
+    if packed.dtype != torch.int8:
+        raise ValueError(f"pq_scan_scores: packed is {packed.dtype}, "
+                         "expected torch.int8")
+    if lut_t.dtype not in (torch.int8, torch.bfloat16):
+        raise ValueError(f"pq_scan_scores: lut_t is {lut_t.dtype}, expected "
+                         "int8 or integer-valued bfloat16")
+    return n, half, q
+
+
+def _onehot_scores(onehot: torch.Tensor, lut8: torch.Tensor) -> torch.Tensor:
+    """Exact (rows, Q) integer product of an int8 one-hot and the int8 LUT,
+    as f32: ``torch._int_mm`` on CUDA (int32 sums; it wants more than 16
+    rows and a multiple of 8 columns), an f32 product on the CPU (exact:
+    every partial sum is an integer below 2**24)."""
+    if onehot.device.type != "cuda":
+        return onehot.float() @ lut8.float()
+    rows, q = onehot.shape[0], lut8.shape[1]
+    rp = max(rows, 32)
+    qp = -(-q // 8) * 8
+    lhs = onehot
+    if rp != rows:
+        lhs = torch.zeros((rp, onehot.shape[1]), dtype=torch.int8,
+                          device=onehot.device)
+        lhs[:rows] = onehot
+    rhs = torch.zeros((lut8.shape[0], qp), dtype=torch.int8,
+                      device=lut8.device)
+    rhs[:, :q] = lut8
+    return torch._int_mm(lhs, rhs)[:rows, :q].float()
+
+
+def pq_scan_scores_plain(packed: torch.Tensor,
+                         lut_t: torch.Tensor) -> torch.Tensor:
+    """The plain version: unpack -> one-hot int8 -> exact product with the
+    LUT, ``_PLAIN_CHUNK`` rows at a time. Returns (Q, N) f32."""
+    n, half, q = _check_shapes(packed, lut_t)
+    mk = 2 * half * PQ_K
+    lut8 = lut_t.to(torch.int8)
+    iota = torch.arange(PQ_K, dtype=torch.uint8, device=packed.device)
+    out = torch.empty((q, n), dtype=torch.float32, device=packed.device)
+    for i in range(0, n, _PLAIN_CHUNK):
+        codes = unpack_codes4(packed[i: i + _PLAIN_CHUNK])     # (c, M)
+        onehot = (codes[:, :, None] == iota).to(torch.int8)
+        out[:, i: i + codes.shape[0]] = _onehot_scores(
+            onehot.reshape(codes.shape[0], mk), lut8).T
+    return out
+
+
+def pq_scan_scores(packed: torch.Tensor, lut_t: torch.Tensor) -> torch.Tensor:
+    """packed: (N, M/2) int8 split-layout PQ codes; lut_t: (M*16, Q) int8 or
+    integer-valued bf16 LUT (``pq.quantized_luts``' luti, transposed).
+    Returns (Q, N) f32 raw LUT-sum scores (no per-query scale: callers rank
+    per query, where a positive scale changes nothing).
+
+    The Pallas kernel's ``permute_lut`` and its row-tile rule are Mosaic
+    layout choices and have no counterpart: any N is taken."""
+    name = "pq_scan_scores"
+    n, half, q = _check_shapes(packed, lut_t)
+    if packed.device.type == "cpu":
+        return pq_scan_scores_plain(packed, lut_t)
+    device = kernel_device(name, packed)
+    lut8 = lut_t.to(torch.int8).contiguous()
+    check_cuda(name, torch.int8, device, packed=packed, lut_t=lut8)
+    out = torch.empty((q, n), dtype=torch.float32, device=device)
+    if n == 0:
+        return out
+    fn = c_fn("pq_scan", "clipx_pq_scan", [P, P, P, I, I, I, P])
+    launch(name, fn, device, packed.data_ptr(), lut8.data_ptr(),
+           out.data_ptr(), n, half, q)
+    return out

@@ -67,13 +67,17 @@ class Script:
         return self.lines.pop(0)
 
 
-def _run(pkg, fixture_dir, monkeypatch, capsys):
+def _run(pkg, fixture_dir, monkeypatch, capsys, tier="f32",
+         session=SESSION):
+    """Build the fixture folder and run a scripted REPL with one package;
+    returns (build stdout, REPL stdout, REPL stderr)."""
     root, photos, ckpt = fixture_dir
     build, query = (jbuild, jquery) if pkg == "clipx" else (tbuild, tquery)
-    flags = ["--model", "tiny-test", "--checkpoint", ckpt]
+    flags = ["--model", "tiny-test", "--checkpoint", ckpt,
+             "--corpus-dtype", tier]
     if pkg == "port":
         flags += ["--device", "cpu"]
-    work = root / pkg
+    work = root / f"{pkg}-{tier}"
     work.mkdir(exist_ok=True)
     monkeypatch.chdir(work)
     monkeypatch.setenv("CLIPX_NO_VIEWER", "1")
@@ -81,8 +85,9 @@ def _run(pkg, fixture_dir, monkeypatch, capsys):
     assert build.main(flags + [photos]) == 0
     built = capsys.readouterr().out
     args = query.build_parser().parse_args(flags)
-    assert query.QueryREPL(args, input_fn=Script(SESSION)).run() == 0
-    return built, capsys.readouterr().out
+    assert query.QueryREPL(args, input_fn=Script(session)).run() == 0
+    out = capsys.readouterr()
+    return built, out.out, out.err
 
 
 def _compare(ours: str, ref: str) -> None:
@@ -103,15 +108,15 @@ def _compare(ours: str, ref: str) -> None:
 
 
 def test_cli_stdout_matches_clipx(fixture_dir, monkeypatch, capsys):
-    ref_build, ref_query = _run("clipx", fixture_dir, monkeypatch, capsys)
-    build, query = _run("port", fixture_dir, monkeypatch, capsys)
+    ref_build, ref_query, _ = _run("clipx", fixture_dir, monkeypatch, capsys)
+    build, query, _ = _run("port", fixture_dir, monkeypatch, capsys)
     assert "Done!" in ref_build and ref_query.count("Search time:") == 4
     _compare(build, ref_build)
     _compare(query, ref_query)
     root = fixture_dir[0]
-    with open(root / "clipx" / "images.index", "rb") as f:
+    with open(root / "clipx-f32" / "images.index", "rb") as f:
         ref_bytes = f.read()
-    with open(root / "port" / "images.index", "rb") as f:
+    with open(root / "port-f32" / "images.index", "rb") as f:
         ours_bytes = f.read()
     assert len(ours_bytes) == len(ref_bytes)
     np.testing.assert_allclose(np.frombuffer(ours_bytes[26:], np.float32),
@@ -119,8 +124,26 @@ def test_cli_stdout_matches_clipx(fixture_dir, monkeypatch, capsys):
                                atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("flag,value", [("--corpus-dtype", "int8"),
-                                        ("--search-mode", "ivf"),
+@pytest.mark.parametrize("tier", ["pq", "int8"])
+def test_coded_tier_cli_stdout_matches_clipx(fixture_dir, monkeypatch,
+                                             capsys, tier):
+    """--corpus-dtype pq / int8: the build also writes images.index.codes
+    ("Encoding {tier} codes..." on stdout), the REPL loads it (stderr) and
+    prints clipx's result rows."""
+    session = ["a photo of a cat", "i 1", "q"]
+    ref_build, ref_query, ref_err = _run("clipx", fixture_dir, monkeypatch,
+                                         capsys, tier, session)
+    build, query, err = _run("port", fixture_dir, monkeypatch, capsys, tier,
+                             session)
+    assert f"Encoding {tier} codes..." in ref_build.splitlines()
+    _compare(build, ref_build)
+    _compare(query, ref_query)
+    assert query.count("Search time:") == 2
+    for e in (err, ref_err):
+        assert f"(loaded 5 {tier} rows from images.index.codes)" in e
+
+
+@pytest.mark.parametrize("flag,value", [("--search-mode", "ivf"),
                                         ("--compute", "int8"),
                                         ("--preprocess", "device")])
 def test_unported_flags_exit_with_a_message(flag, value, tmp_path,

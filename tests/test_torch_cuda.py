@@ -16,6 +16,7 @@ import torch
 from clipx_torch import config as tcfg
 from clipx_torch.models import convert as tconvert
 from clipx_torch.ops import packed_sdpa as tps
+from clipx_torch.ops import pq_scan as tpq_scan
 from clipx_torch.runtime.encoder import Encoder
 from clipx_torch.search import engine as teng
 
@@ -137,3 +138,75 @@ def test_search_on_the_card_matches_the_cpu(cuda_device, quantized):
     assert torch.equal(
         teng._int8_scores(codes.to(cuda_device), q_codes.to(cuda_device)
                           ).cpu(), teng._int8_scores(codes, q_codes))
+
+
+# B11: N not a multiple of the 256-row tile in most cases; half = M/2 of 128
+# and 64 (D = 512 at dsub 2 and 4, the path's shapes), 16 (16-byte loads)
+# and 8 (the byte-load branch)
+@pytest.mark.parametrize("lut_dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("n,half,q", [(4096 + 37, 128, 16), (4096, 128, 1),
+                                      (1000, 64, 3), (70_001, 64, 16),
+                                      (513, 16, 4), (300, 8, 16)])
+def test_pq_scan_kernel_matches_plain_bitwise(cuda_device, lut_dtype, n,
+                                              half, q):
+    """Integer sums: the kernel and its plain version agree bitwise."""
+    rng = np.random.default_rng(n + half + q)
+    packed = torch.from_numpy(rng.integers(-128, 128, (n, half),
+                                           dtype=np.int8)).to(cuda_device)
+    lut = torch.from_numpy(rng.integers(-127, 128, (half * 32, q),
+                                        dtype=np.int8)).to(cuda_device)
+    lut = lut.to(lut_dtype)
+    before = tps.LAUNCHES["pq_scan_scores"]
+    out = tpq_scan.pq_scan_scores(packed, lut)
+    assert tps.LAUNCHES["pq_scan_scores"] == before + 1
+    ref = tpq_scan.pq_scan_scores_plain(packed, lut)
+    torch.cuda.synchronize()
+    assert out.shape == (q, n) and out.dtype == torch.float32
+    assert torch.equal(out, ref)
+    assert torch.equal(out.cpu(), tpq_scan.pq_scan_scores(packed.cpu(),
+                                                          lut.cpu()))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8", "int4", "pq"])
+def test_coded_tiers_on_the_card_match_the_cpu(cuda_device, dtype):
+    """The same host codes placed on the card and on the CPU: identical
+    ids, scores within 1e-5 (f32 summation order)."""
+    rng = np.random.default_rng(2)
+    corpus = rng.standard_normal((6000, 64), dtype=np.float32)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    queries = corpus[[3, 900, 5000]] + 0.05 * rng.standard_normal(
+        (3, 64), dtype=np.float32)
+    gpu = teng.VectorIndex.from_vectors(corpus, device=cuda_device,
+                                        dtype=dtype)
+    cpu = teng.VectorIndex.from_vectors(corpus, device="cpu", dtype=dtype)
+    tps.reset_launches()
+    for k in (1, 50):
+        Dg, Ig = gpu.search(queries, k)
+        Dc, Ic = cpu.search(queries, k)
+        np.testing.assert_array_equal(Ig, Ic)
+        np.testing.assert_allclose(Dg, Dc, atol=1e-5, rtol=1e-5)
+    assert (tps.LAUNCHES["pq_scan_scores"] > 0) == (dtype == "pq")
+    np.testing.assert_array_equal(gpu.vectors(), cpu.vectors())
+
+
+@pytest.mark.parametrize("dtype", ["f32", "pq"])
+def test_search_keeps_full_f32_when_the_caller_enables_tf32(cuda_device,
+                                                           dtype):
+    """A caller's TF32 setting does not reach the search's f32 products
+    (scan, LUTs, rescore), and the setting is restored afterwards."""
+    rng = np.random.default_rng(3)
+    corpus = rng.standard_normal((6000, 64), dtype=np.float32)
+    queries = corpus[[1, 2]] + 0.05 * rng.standard_normal((2, 64),
+                                                          dtype=np.float32)
+    gpu = teng.VectorIndex.from_vectors(corpus, device=cuda_device,
+                                        dtype=dtype)
+    cpu = teng.VectorIndex.from_vectors(corpus, device="cpu", dtype=dtype)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        Dg, Ig = gpu.search(queries, 50)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    Dc, Ic = cpu.search(queries, 50)
+    np.testing.assert_array_equal(Ig, Ic)
+    np.testing.assert_allclose(Dg, Dc, atol=1e-5, rtol=1e-5)

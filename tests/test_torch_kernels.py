@@ -185,15 +185,15 @@ def test_non_cpu_tensors_never_reach_the_plain_version(name, monkeypatch):
 def test_cuda_kernel_path_raises_without_a_gpu(monkeypatch):
     """The launch path itself (as a CUDA tensor would take it) raises
     rather than falling back when the library cannot be built or loaded."""
-    from clipx_torch.ops import _build
+    from clipx_torch.ops import _build, _launch
 
     def no_build(name):
         raise RuntimeError("nvcc not found")
 
     monkeypatch.setattr(_build, "load", no_build)
-    monkeypatch.setattr(tps, "_fns", {})
-    monkeypatch.setattr(tps, "_kernel_device", lambda name, t: t.device)
-    monkeypatch.setattr(tps, "_check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(_launch, "_fns", {})
+    monkeypatch.setattr(tps, "kernel_device", lambda name, t: t.device)
+    monkeypatch.setattr(tps, "check_cuda", lambda *a, **k: None)
     q = torch.zeros((2, 17, 128))
     with pytest.raises(RuntimeError, match="nvcc"):
         tps._launch_sdpa("packed_sdpa", q, q, q, 2)
