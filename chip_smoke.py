@@ -10,9 +10,9 @@ these phases, printing one JSON line per phase:
 2. kernels  — each kernel at the shapes the main path gives it, against its
               plain PyTorch version on the card (stated bf16 tolerance and
               an f32 plain run for the attention kernels; bitwise for the
-              PQ scan); CUDA-event medians of the kernel, the plain version
-              and one PyTorch library call, and their device times from
-              torch.profiler.
+              PQ scan, and packed_sdpa_qkv against packed_sdpa); CUDA-event
+              medians of the kernel, the plain version and one PyTorch
+              library call, and their device times from torch.profiler.
 3. encode   — the Encoder at ViT-B/32 full width (seeded random weights):
               1,024 seeded images in batches of 128, then one batch of 1;
               launch counts checked; a few images against the port's CPU f32
@@ -29,13 +29,25 @@ these phases, printing one JSON line per phase:
 7. profile  — torch.profiler over two 128-image encodes: device time by
               kernel name, and the card's busy share of the host's wall
               per batch without the profiler (and with it).
-8. cli      — build_index and a scripted query_index REPL at ViT-B/32 on a
-              few fixture images, then the same with --corpus-dtype pq
-              (only when PIL or cv2 imports).
+8. long     — ViT-L/14@336px at full width (S = 577): 256 seeded 336 x 336
+              images in batches of 128, then one batch of 1, checked
+              against the port's CPU f32 encode; text p50 of its 768-wide
+              tower; exact and quant search over 1,000,000 x 768 + those
+              rows; the CLIPX_PACKED_SDPA=qkv and attn_impl="pallas"
+              routes, clip_forward with "pallas" (the causal text tower
+              too), torch.profiler over one 128-image encode, then
+              ViT-B/16 (S = 197) and ViT-B/32 under =qkv and =rows, each
+              call with its launch counts checked.
+9. cli      — build_index and a scripted query_index REPL at ViT-B/32 on a
+              few fixture images, then the same with --corpus-dtype pq,
+              then both at --model ViT-L/14@336px (only when PIL or cv2
+              imports).
 
-Phases 3-6 are the main path: every launch count is set to 0 just before
-phase 3 and read just after phase 6. The line before the last lists every
-kernel ({"kernels": [...]}) with those counts; the last line is
+Phases 3-6 are the main path of ViT-B/32, phase 8 that of the long towers:
+every launch count is set to 0 just before each and read just after it,
+and every kernel must have been launched on one of them. The line before
+the last lists every kernel ({"kernels": [...]}) with the sum of those
+counts; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the run exits
 non-zero and prints no result line; so does a machine without a GPU, or a
 directory without the clipx_torch package beside this script.
@@ -43,6 +55,7 @@ directory without the clipx_torch package beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -127,16 +140,18 @@ def _profiled(fn, iters: int):
     return kernels, wall * 1e3 / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, required: bool = True):
     """Device time of one call of fn, in ms: the sum of the CUDA kernels
     it launches, read by torch.profiler (mean of iters calls). Unlike
-    cuda_ms it leaves out the host's work between launches."""
+    cuda_ms it leaves out the host's work between launches. Where the
+    profiler sees no kernel of fn (some library backends launch outside
+    its view), a required time fails the run and any other is None."""
     fn()
     torch.cuda.synchronize()
     kernels, _ = _profiled(fn, iters)
     ms = sum(t for _, t, _ in kernels)
-    check(ms > 0, "torch.profiler saw no device time")
-    return ms
+    check(ms > 0 or not required, "torch.profiler saw no device time")
+    return ms if ms > 0 else None
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
@@ -208,7 +223,7 @@ def _times(kernel, plain, library) -> dict:
     return {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
             "library_ms": cuda_ms(library), "device_ms": device_ms(kernel),
             "plain_device_ms": device_ms(plain),
-            "library_device_ms": device_ms(library)}
+            "library_device_ms": device_ms(library, required=False)}
 
 
 def phase_kernels(device) -> dict:
@@ -300,13 +315,155 @@ def phase_kernels(device) -> dict:
     check(torch.equal(ps.packed_sdpa(q, k, v, heads=h),
                       ps.packed_sdpa_rows(q, k, v, heads=h)),
           "packed_sdpa and packed_sdpa_rows disagree")
+    results.update(_kernels_long(device, gen))
     results["pq_scan_scores"] = _kernel_b11(device)
     emit({"phase": "kernels", "build_s": build_s, "ptxas": ptxas,
           "tolerance": {"vs_plain": [ATOL_PLAIN, RTOL_PLAIN],
                         "vs_f32": [ATOL_F32, RTOL_F32],
+                        "packed_sdpa_qkv": "bitwise vs packed_sdpa",
                         "pq_scan_scores": "bitwise"},
           "results": results})
     return results
+
+
+def _attn_check(name, kernel, plain, plain_f32, library=None, *, flops=0,
+                nbytes=0) -> dict:
+    """One attention kernel against its plain version on the same bf16
+    inputs (ATOL_PLAIN/RTOL_PLAIN) and against an f32 plain run on the
+    upcast inputs (ATOL_F32/RTOL_F32); with a library yardstick, also the
+    times and the bound of this shape."""
+    out = kernel()
+    ref = plain()
+    truth = plain_f32()
+    torch.cuda.synchronize()
+    ok_p, err_p = _close(out, ref, ATOL_PLAIN, RTOL_PLAIN)
+    ok_k, err_k = _close(out, truth, ATOL_F32, RTOL_F32)
+    check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite output")
+    check(ok_p, f"{name} vs plain: max err {err_p}")
+    check(ok_k, f"{name} vs f32: max err {err_k}")
+    info = {"shape": list(out.shape), "max_abs_err": err_p,
+            "max_abs_err_vs_f32": err_k}
+    del out, ref, truth
+    if library is not None:
+        bms, by = bound(flops, nbytes)
+        info.update(**_times(kernel, plain, library), bound_ms=bms,
+                    bound_by=by, flops=flops, bytes=nbytes)
+    torch.cuda.empty_cache()
+    return info
+
+
+def _f32(*ts):
+    return [t.float() for t in ts]
+
+
+def _sdpa_lib(q, k, v, heads, causal=False):
+    """F.scaled_dot_product_attention on (B, S, H*D) views: the library
+    yardstick of the long kernels (never called by the port)."""
+    import torch.nn.functional as F
+
+    b, s, w = q.shape
+
+    def split(t):
+        return t.view(b, s, heads, w // heads).transpose(1, 2)
+
+    return F.scaled_dot_product_attention(split(q), split(k), split(v),
+                                          is_causal=causal).transpose(1, 2)
+
+
+def _attn_flops(b, h, s, d, causal=False):
+    """QK^T and P @ V over the (row, key) pairs the mask keeps."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 4 * b * h * pairs * d
+
+
+def _kernels_long(device, gen) -> dict:
+    """B8 fused_sdpa_long, B9 fused_sdpa_long_qkv, B10 flash_attention and
+    B4 packed_sdpa_qkv at the long towers' and ViT-B/32's shapes."""
+    from clipx_torch.ops import flash_attention as fa
+    from clipx_torch.ops import packed_sdpa as ps
+
+    res = {}
+    # B8 at ViT-L/14@336px (the main shape) and ViT-B/16, both at the
+    # indexing batch, and causal at the text tower's (4, 77, 768)
+    cases = {}
+    for tag, (b, s, w, h, causal) in {
+            "vit_l14_336": (128, 577, 1024, 16, False),
+            "vit_b16": (128, 197, 768, 12, False),
+            "causal_text": (4, 77, 768, 12, True)}.items():
+        q, k, v = (_bf16(gen, (b, s, w), 1.0, device) for _ in range(3))
+        cases[tag] = _attn_check(
+            f"fused_sdpa_long {tag}",
+            lambda: ps.fused_sdpa_long(q, k, v, heads=h, causal=causal),
+            lambda: ps.fused_sdpa_long_plain(q, k, v, heads=h, causal=causal),
+            lambda: ps.fused_sdpa_long_plain(*_f32(q, k, v), heads=h,
+                                             causal=causal),
+            lambda: _sdpa_lib(q, k, v, h, causal),
+            flops=_attn_flops(b, h, s, w // h, causal),
+            nbytes=4 * b * s * w * 2)
+        del q, k, v
+    res["fused_sdpa_long"] = dict(cases["vit_l14_336"], cases=cases)
+
+    # B9 at ViT-L/14@336px: attention + out projection (+ bias)
+    b, s, w, h = 128, 577, 1024, 16
+    qkv = _bf16(gen, (b, s, 3 * w), 1.0, device)
+    wo = _bf16(gen, (w, w), 0.03, device)
+    bo = (torch.randn(w, generator=gen) * 0.01).to(device)
+    bo16 = bo.to(torch.bfloat16)
+
+    def lib_b9():
+        o = _sdpa_lib(qkv[..., :w], qkv[..., w:2 * w], qkv[..., 2 * w:], h)
+        return torch.addmm(bo16, o.reshape(b * s, w), wo)
+
+    res["fused_sdpa_long_qkv"] = _attn_check(
+        "fused_sdpa_long_qkv",
+        lambda: ps.fused_sdpa_long_qkv(qkv, wo, bo, heads=h),
+        lambda: ps.fused_sdpa_long_qkv_plain(qkv, wo, bo, heads=h),
+        lambda: ps.fused_sdpa_long_qkv_plain(*_f32(qkv, wo), bo, heads=h),
+        lib_b9, flops=_attn_flops(b, h, s, w // h) + 2 * b * s * w * w,
+        nbytes=b * s * 3 * w * 2 + w * w * 2 + w * 4 + b * s * w * 2)
+    del qkv, wo, bo, bo16
+
+    # B10 on (B, H, S, D): ViT-L/14@336px's heads (the main shape), the
+    # causal text tower's, and D = 32
+    import torch.nn.functional as F
+
+    cases = {}
+    for tag, (shape, causal) in {
+            "vit_l14_336": ((128, 16, 577, 64), False),
+            "causal_text": ((4, 12, 77, 64), True),
+            "d32_causal": ((16, 8, 257, 32), True)}.items():
+        q, k, v = (_bf16(gen, shape, 1.0, device) for _ in range(3))
+        bb, hh, ss, dd = shape
+        cases[tag] = _attn_check(
+            f"flash_attention {tag}",
+            lambda: fa.flash_attention(q, k, v, causal=causal),
+            lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+            lambda: fa.flash_attention_plain(*_f32(q, k, v), causal=causal),
+            lambda: F.scaled_dot_product_attention(q, k, v,
+                                                   is_causal=causal),
+            flops=_attn_flops(bb, hh, ss, dd, causal),
+            nbytes=4 * bb * hh * ss * dd * 2)
+        del q, k, v
+    res["flash_attention"] = dict(cases["vit_l14_336"], cases=cases)
+
+    # B4 at ViT-B/32's indexing batch: bitwise equal to B2 on the slices
+    b, s, w, h = 128, 50, 768, VIT_B32_HEADS
+    qkv = _bf16(gen, (b, s, 3 * w), 1.0, device)
+    q, k, v = (qkv[..., i * w:(i + 1) * w].contiguous() for i in range(3))
+    check(torch.equal(ps.packed_sdpa_qkv(qkv, heads=h),
+                      ps.packed_sdpa(q, k, v, heads=h)),
+          "packed_sdpa_qkv differs from packed_sdpa on the same q, k, v")
+    res["packed_sdpa_qkv"] = dict(_attn_check(
+        "packed_sdpa_qkv",
+        lambda: ps.packed_sdpa_qkv(qkv, heads=h),
+        lambda: ps.packed_sdpa_qkv_plain(qkv, heads=h),
+        lambda: ps.packed_sdpa_qkv_plain(qkv.float(), heads=h),
+        lambda: _sdpa_lib(q, k, v, h),
+        flops=_attn_flops(b, h, s, w // h), nbytes=4 * b * s * w * 2),
+        equal_to_packed_sdpa=True)
+    del qkv, q, k, v
+    torch.cuda.empty_cache()
+    return res
 
 
 # B11 at the path's shapes: the 1,001,024-row corpus pads to a 2^20-row
@@ -380,6 +537,14 @@ KERNEL_TABLE = (
      "clipx/ops/packed_sdpa.py:763"),
     ("packed_sdpa_rows", "clipx_torch/csrc/short_sdpa.cu",
      "clipx/ops/packed_sdpa.py:548"),
+    ("packed_sdpa_qkv", "clipx_torch/csrc/short_sdpa.cu",
+     "clipx/ops/packed_sdpa.py:144"),
+    ("fused_sdpa_long", "clipx_torch/csrc/long_sdpa.cu",
+     "clipx/ops/packed_sdpa.py:621"),
+    ("fused_sdpa_long_qkv", "clipx_torch/csrc/long_sdpa.cu",
+     "clipx/ops/packed_sdpa.py:715"),
+    ("flash_attention", "clipx_torch/csrc/long_sdpa.cu",
+     "clipx/ops/flash_attention.py:64"),
     ("pq_scan_scores", "clipx_torch/csrc/pq_scan.cu",
      "clipx/ops/pq_scan.py:106"),
 )
@@ -466,7 +631,8 @@ def phase_encode(enc, images: np.ndarray) -> dict:
     return {"embs": embs, "info": info}
 
 
-def phase_text(enc) -> dict:
+def text_latency(enc) -> dict:
+    """encode_texts of one query, 30 timed calls after 3 warm-ups."""
     for _ in range(3):
         enc.encode_texts(["a photo of a cat"])
     times = []
@@ -477,9 +643,12 @@ def phase_text(enc) -> dict:
     check(e.shape == (1, enc.embed_dim) and bool(np.isfinite(e).all())
           and abs(float(np.linalg.norm(e)) - 1.0) < 1e-3,
           "bad text embedding")
-    info = {"phase": "text", "calls": len(times),
-            "p50_ms": statistics.median(times) * 1e3,
+    return {"calls": len(times), "p50_ms": statistics.median(times) * 1e3,
             "min_ms": min(times) * 1e3}
+
+
+def phase_text(enc) -> dict:
+    info = {"phase": "text", **text_latency(enc)}
     emit(info)
     return info
 
@@ -496,8 +665,7 @@ def _search_p50(index, queries, k, reps=30):
 
 
 def phase_search(embs: np.ndarray, device) -> dict:
-    from clipx_torch.search.engine import (IndexWriter, VectorIndex,
-                                           read_index_vectors)
+    from clipx_torch.search.engine import IndexWriter, read_index_vectors
     from clipx_torch.store.kv import open_env
 
     n = embs.shape[0]
@@ -520,17 +688,31 @@ def phase_search(embs: np.ndarray, device) -> dict:
         stored = read_index_vectors(path)
         check(np.array_equal(stored, embs), "images.index round trip")
 
+    found = corpus_search(stored, device, DIM)
+    info = {"phase": "search", **found["info"]}
+    emit(info)
+    return found
+
+
+def corpus_search(stored: np.ndarray, device, dim: int) -> dict:
+    """Exact and quant ("int8-seg") search p50 at k = 50 over a seeded
+    1,000,000 x dim unit-norm f32 corpus plus ``stored``, with 16 queries
+    (8 of the stored rows, 8 perturbed corpus rows); quant ids must equal
+    exact ids apart from the near-duplicate exception."""
+    from clipx_torch.search.engine import VectorIndex
+
+    n = stored.shape[0]
     gen = torch.Generator(device=device).manual_seed(SEED)
-    corpus = torch.randn((CORPUS_ROWS, DIM), generator=gen, device=device)
+    corpus = torch.randn((CORPUS_ROWS, dim), generator=gen, device=device)
     corpus /= torch.linalg.vector_norm(corpus, dim=1, keepdim=True)
-    exact = VectorIndex(DIM, quantized=False, device=device)
+    exact = VectorIndex(dim, quantized=False, device=device)
     exact.add(corpus)
     exact.add(stored)
     # 8 encoded images and 8 perturbed corpus rows as queries
     picks = torch.randint(0, CORPUS_ROWS, (NQ // 2,), generator=gen,
                           device=device)
     noisy = corpus[picks] + 0.05 * torch.randn(
-        (NQ // 2, DIM), generator=gen, device=device)
+        (NQ // 2, dim), generator=gen, device=device)
     del corpus
     queries = np.concatenate([stored[:NQ // 2], noisy.cpu().numpy()])
     queries /= np.linalg.norm(queries, axis=1, keepdims=True)
@@ -554,16 +736,15 @@ def phase_search(embs: np.ndarray, device) -> dict:
     check(bool((same | exc_ok).all()),
           f"quant ids differ from exact beyond the near-duplicate "
           f"exception in rows {np.nonzero(~(same | exc_ok))[0].tolist()}")
-    info = {"phase": "search", "rows": total, "dim": DIM, "k": K,
+    info = {"rows": total, "dim": dim, "k": K,
             "queries": NQ, "exact_p50_ms": exact_ms,
             "quant_p50_ms": quant_ms,
             "quant_rows_identical": int(same.sum()),
             "quant_rows_near_dup_exception": int((~same).sum()),
             "max_abs_score_diff": float(np.abs(Dq - De).max())}
-    emit(info)
     quant.quantized = False
     return {"index": exact, "queries": queries, "ids": Ie,
-            "picks": picks.cpu().numpy()}
+            "picks": picks.cpu().numpy(), "info": info}
 
 
 # ---------------------------------------------------------------------------
@@ -735,13 +916,30 @@ def _capacity_scan(device) -> dict:
     return out
 
 
-def phase_profile(enc, images: np.ndarray, encode_info: dict) -> dict:
-    """Where a 128-image encode spends device time: torch.profiler's CUDA
-    kernel totals over two batches, by kernel name. The card's busy share
-    is that device time over the host's wall per batch without the
-    profiler (timed here, and in phase encode), since the profiler slows
-    the host; the share under the profiler is given beside it."""
-    batch, reps, plain_reps = images[:BATCH], 2, 8
+def _kernel_class(name: str) -> str:
+    """A coarse class of a CUDA kernel name, for the time by class."""
+    low = name.lower()
+    if "long_sdpa" in low:
+        return "long_sdpa (B8/B9/B10)"
+    if "short_sdpa" in low or "gemm_bias" in low:
+        return "short_sdpa / hand GEMM (B1-B4, B9)"
+    if "pq_scan" in low:
+        return "pq_scan (B11)"
+    if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
+        return "cuBLAS GEMM"
+    if "reduce" in low:
+        return "reductions"
+    if "elementwise" in low or "vectorized" in low:
+        return "elementwise"
+    return "other"
+
+
+def encode_profile(enc, batch: np.ndarray, reps: int, plain_reps: int) -> dict:
+    """Where one encode_images(batch) spends device time: torch.profiler's
+    CUDA kernel totals over reps calls, by kernel name and by class. The
+    card's busy share is that device time over the host's wall per call
+    without the profiler (timed here over plain_reps calls), since the
+    profiler slows the host; the share under the profiler is beside it."""
     enc.encode_images(batch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -751,19 +949,231 @@ def phase_profile(enc, images: np.ndarray, encode_info: dict) -> dict:
     wall = (time.perf_counter() - t0) * 1e3 / plain_reps
     kernels, wall_prof = _profiled(lambda: enc.encode_images(batch), reps)
     busy = sum(ms for _, ms, _ in kernels)
-    wall_encode = encode_info["seconds"] * 1e3 / (N_IMAGES // BATCH)
-    info = {"phase": "profile", "batch": BATCH,
-            "wall_ms_per_batch": wall,
-            "wall_ms_per_batch_encode_phase": wall_encode,
+    classes: dict = {}
+    for name, ms, _ in kernels:
+        cls = _kernel_class(name)
+        classes[cls] = classes.get(cls, 0.0) + ms
+    return {"batch": len(batch), "wall_ms_per_batch": wall,
             "wall_ms_per_batch_profiled": wall_prof,
             "profiler_host_overhead_ms": wall_prof - wall,
             "device_ms_per_batch": busy,
             "device_busy_share": busy / wall,
-            "device_busy_share_encode_phase": busy / wall_encode,
             "device_busy_share_profiled": busy / wall_prof,
+            "device_ms_by_class": dict(sorted(classes.items(),
+                                              key=lambda kv: -kv[1])),
             "top_kernels": [{"name": name[:90], "ms": ms, "calls": n,
                              "share": ms / busy}
                             for name, ms, n in kernels[:12]]}
+
+
+def phase_profile(enc, images: np.ndarray, encode_info: dict) -> dict:
+    """encode_profile of two 128-image ViT-B/32 encodes, with the busy
+    share against phase encode's wall per batch too."""
+    prof = encode_profile(enc, images[:BATCH], reps=2, plain_reps=8)
+    wall_encode = encode_info["seconds"] * 1e3 / (N_IMAGES // BATCH)
+    info = {"phase": "profile", **prof,
+            "wall_ms_per_batch_encode_phase": wall_encode,
+            "device_busy_share_encode_phase":
+                prof["device_ms_per_batch"] / wall_encode}
+    emit(info)
+    return info
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the long-sequence towers
+# ---------------------------------------------------------------------------
+
+LONG_MODEL, LONG_IMAGES, LONG_CPU_CHECK, ROUTE_IMAGES = (
+    "ViT-L/14@336px", 256, 2, 8)
+LOGIT_ATOL = 0.05  # clip_forward logits vs the default route, x logit scale
+
+
+@contextlib.contextmanager
+def _env(name: str, value: str):
+    """os.environ[name] = value inside the block, restored after it."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def _launched(fn):
+    """(fn(), {kernel: launches} of the kernels fn launched)."""
+    from clipx_torch.ops import packed_sdpa as ps
+
+    before = dict(ps.LAUNCHES)
+    out = fn()
+    return out, {k: n - before[k] for k, n in ps.LAUNCHES.items()
+                 if n != before[k]}
+
+
+def _unit_rows(embs: np.ndarray, dim: int, what: str) -> None:
+    check(embs.shape[1] == dim and bool(np.isfinite(embs).all())
+          and bool(np.allclose(np.linalg.norm(embs, axis=1), 1.0,
+                               atol=1e-3)),
+          f"{what}: embeddings not finite unit rows of width {dim}")
+
+
+def _cos_min(a: np.ndarray, b: np.ndarray) -> float:
+    return float((a * b).sum(axis=1).min())
+
+
+def _other_towers(device) -> dict:
+    """ViT-B/16 (S = 197: fused_sdpa_long) and ViT-B/32 under
+    CLIPX_PACKED_SDPA=qkv (packed_sdpa_qkv) and =rows (packed_sdpa_rows),
+    ROUTE_IMAGES images each; the variants against ViT-B/32's default
+    route on the same images."""
+    from clipx_torch.runtime.encoder import Encoder
+
+    out = {}
+    for model, runs in (("ViT-B/16", (("auto", "fused_sdpa_long"),)),
+                        ("ViT-B/32", (("auto", "fused_attn_block"),
+                                      ("qkv", "packed_sdpa_qkv"),
+                                      ("rows", "packed_sdpa_rows")))):
+        enc = Encoder.create(model, seed=SEED, device=device)
+        size, layers = enc.image_size, enc.cfg.vision.layers
+        images = np.random.default_rng(SEED + 2).integers(
+            0, 256, (ROUTE_IMAGES, size, size, 3), dtype=np.uint8)
+        base = None
+        for variant, kernel in runs:
+            with _env("CLIPX_PACKED_SDPA", variant):
+                embs, n = _launched(lambda: enc.encode_images(images))
+            check(n == {kernel: layers},
+                  f"{model} CLIPX_PACKED_SDPA={variant}: launches {n}, "
+                  f"expected {layers} of {kernel}")
+            _unit_rows(embs, enc.embed_dim, f"{model} {variant}")
+            row = {"launches": n}
+            if base is None:
+                base = embs
+            else:
+                row["cos_vs_default_min"] = _cos_min(embs, base)
+                check(row["cos_vs_default_min"] >= COS_MIN,
+                      f"{model} {variant} vs default: cosine "
+                      f"{row['cos_vs_default_min']}")
+            out[f"{model} {variant}"] = row
+        del enc
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_long(device) -> dict:
+    """The long-sequence towers' path: ViT-L/14@336px at full width with
+    seeded random weights through the Encoder, its text tower and search,
+    every attention route of clipx (default, CLIPX_PACKED_SDPA=qkv,
+    attn_impl="pallas" and clip_forward), then ViT-B/16 and ViT-B/32's
+    variants. Launch counts are checked per call."""
+    from clipx_torch import config as config_lib
+    from clipx_torch.models import clip as model_lib
+    from clipx_torch.models import convert
+    from clipx_torch.ops import packed_sdpa as ps
+    from clipx_torch.ops.preprocess import normalize_batch
+    from clipx_torch.runtime.encoder import Encoder
+
+    cfg = config_lib.get_config(LONG_MODEL)
+    layers, text_layers = cfg.vision.layers, cfg.text.layers
+    t0 = time.perf_counter()
+    params = convert.init_params(cfg, SEED)
+    enc = Encoder(cfg, params, device=device)
+    enc.warmup(buckets=(1, BATCH))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    size = cfg.vision.image_size
+    images = np.random.default_rng(SEED + 1).integers(
+        0, 256, (LONG_IMAGES, size, size, 3), dtype=np.uint8)
+
+    # every bucket: layers launches of fused_sdpa_long and nothing else
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = [_launched(lambda i=i: enc.encode_images(images[i: i + BATCH]))
+               for i in range(0, LONG_IMAGES, BATCH)]
+    secs = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    one, n_one = _launched(lambda: enc.encode_images(images[:1]))
+    one_s = time.perf_counter() - t1
+    for n in [n for _, n in batches] + [n_one]:
+        check(n == {"fused_sdpa_long": layers},
+              f"{LONG_MODEL} batch launched {n}, expected {layers} of "
+              f"fused_sdpa_long")
+    embs = np.concatenate([e for e, _ in batches])
+    _unit_rows(embs, cfg.embed_dim, LONG_MODEL)
+    cos_one = float(one[0] @ embs[0])
+    check(cos_one >= COS_MIN, f"batch-1 vs batch-128 cosine {cos_one}")
+
+    # the same weights in f32 on the CPU
+    cpu = Encoder(cfg, params, device="cpu", batch_buckets=(LONG_CPU_CHECK,))
+    ref = cpu.encode_images(images[:LONG_CPU_CHECK])
+    del cpu
+    cos_cpu = _cos_min(ref, embs[:LONG_CPU_CHECK])
+    check(cos_cpu >= COS_MIN, f"{LONG_MODEL} card vs CPU f32 cosine {cos_cpu}")
+
+    text = text_latency(enc)
+    found = corpus_search(embs, device, cfg.embed_dim)
+    search = found["info"]
+    del found
+    torch.cuda.empty_cache()
+
+    # the attention routes on ROUTE_IMAGES images (bucket 8)
+    few = images[:ROUTE_IMAGES]
+    base = enc.encode_images(few)
+    routes = {}
+    with _env("CLIPX_PACKED_SDPA", "qkv"):
+        out, n = _launched(lambda: enc.encode_images(few))
+    check(n == {"fused_sdpa_long_qkv": layers},
+          f"CLIPX_PACKED_SDPA=qkv launched {n}, expected {layers} of "
+          f"fused_sdpa_long_qkv")
+    routes["qkv"] = {"launches": n, "cos_vs_default_min": _cos_min(out, base)}
+    pallas = Encoder(cfg, params, device=device, attn_impl="pallas")
+    out, n = _launched(lambda: pallas.encode_images(few))
+    check(n == {"flash_attention": layers},
+          f'attn_impl="pallas" launched {n}, expected {layers} of '
+          f"flash_attention")
+    routes["pallas"] = {"launches": n,
+                        "cos_vs_default_min": _cos_min(out, base)}
+    for name, r in routes.items():
+        check(r["cos_vs_default_min"] >= COS_MIN,
+              f"route {name} vs default: cosine {r['cos_vs_default_min']}")
+    # clip_forward with "pallas": the causal text tower takes the kernel too
+    texts = ["a photo of a cat", "two dogs on a beach"]
+    ids = torch.from_numpy(enc.tokenizer(
+        texts, context_length=cfg.text.context_length)).to(device)
+    pixels = normalize_batch(torch.from_numpy(few[:2]).to(device),
+                             dtype=enc.dtype)
+    with torch.inference_mode():
+        (logits, _), n = _launched(lambda: model_lib.clip_forward(
+            pallas.params, cfg, pixels, ids, dtype=enc.dtype,
+            attn_impl="pallas"))
+    del pallas
+    check(n == {"flash_attention": layers + text_layers},
+          f'clip_forward(attn_impl="pallas") launched {n}, expected '
+          f"{layers + text_layers} of flash_attention")
+    scale = float(np.exp(params["logit_scale"]))
+    want = scale * base[:2] @ enc.encode_texts(texts).T
+    logit_err = float(np.abs(logits.float().cpu().numpy() - want).max())
+    check(logit_err <= LOGIT_ATOL * scale,
+          f"clip_forward pallas logits differ from the default route by "
+          f"{logit_err}")
+    routes["clip_forward_pallas"] = {"launches": n,
+                                     "logits_max_abs_diff": logit_err,
+                                     "logit_scale": scale}
+    del params
+
+    profile = encode_profile(enc, images[:BATCH], reps=1, plain_reps=4)
+    del enc
+    torch.cuda.empty_cache()
+    routes.update(_other_towers(device))
+    info = {"phase": "long", "model": LONG_MODEL, "images": LONG_IMAGES,
+            "batch": BATCH, "setup_s": setup_s, "seconds": secs,
+            "img_per_s": LONG_IMAGES / secs, "batch1_ms": one_s * 1e3,
+            "attn_launches_per_batch": layers,
+            "cos_vs_cpu_f32_min": cos_cpu, "cos_tolerance": COS_MIN,
+            "cos_batch1_vs_batch128": cos_one,
+            "text": text, "search": search, "routes": routes,
+            "profile": profile}
     emit(info)
     return info
 
@@ -803,39 +1213,8 @@ def phase_cli(info_env: dict) -> dict:
         with open(photos + "broken.jpg", "wb") as f:
             f.write(b"not an image")
         decode = ["--decode-backend", "cv2" if pkgs["cv2"] else "pil"]
-        t0 = time.perf_counter()
-        build = subprocess.run(
-            [sys.executable, "-m", "clipx_torch.cli.build_index",
-             "--device", "cuda", *decode, photos], cwd=work, env=env,
-            capture_output=True, text=True, timeout=600)
-        build_s = time.perf_counter() - t0
-        check(build.returncode == 0, f"build_index failed:\n{build.stderr}")
-        out = build.stdout
-        for want in (f"CLIPing {photos}...", "Preparing index for 6 "
-                     "entries...", "Generating (6, 512) matrix...",
-                     "Saving index...", "Done!"):
-            check(want in out, f"build_index stdout lacks {want!r}")
-        progress = out.split(f"CLIPing {photos}...")[1].split("Preparing")[0]
-        check(progress.count(".") == 6 and progress.count("#") == 1,
-              f"build_index progress {progress!r}")
-        t0 = time.perf_counter()
-        query = subprocess.run(
-            [sys.executable, "-m", "clipx_torch.cli.query_index",
-             "--device", "cuda"], cwd=work, env=env,
-            input="a photo of a cat\ni 1\nq\n", capture_output=True,
-            text=True, timeout=600)
-        query_s = time.perf_counter() - t0
-        check(query.returncode == 0, f"query_index failed:\n{query.stderr}")
-        lines = query.stdout.splitlines()
-        rows = [ln for ln in lines if len(ln.split()) == 3
-                and ln.split()[1].isdigit() and ln.split()[2].startswith(
-                    photos)]
-        check(query.stdout.count("Search time:") == 2,
-              "query_index: expected two searches")
-        check("Similar to " + photos in query.stdout,
-              "query_index: 'i 1' did not answer")
-        # 6 images, rank 0 skipped: 5 rows for the text query, 5 for 'i 1'
-        check(len(rows) == 10, f"query_index printed {len(rows)} rows")
+        build_s, query_s, rows = _cli_build_and_query(
+            ["--device", "cuda"], decode, photos, work, env, 512)
 
         # the same library as a pq index: the rebuild encodes no image again
         # and writes images.index.codes; the REPL loads it. Six rows train
@@ -873,12 +1252,62 @@ def phase_cli(info_env: dict) -> dict:
 
         check(len(pq_rows) == 10 and shown(pq_rows) == shown(rows),
               f"pq result rows {pq_rows} differ from the f32 run's {rows}")
+
+        # the same photos at ViT-L/14@336px: the long-sequence kernels
+        long_work = os.path.join(tmp, "work_long")
+        os.makedirs(long_work)
+        long_build_s, long_query_s, long_rows = _cli_build_and_query(
+            ["--device", "cuda", "--model", LONG_MODEL], decode, photos,
+            long_work, env, 768)
     info = {"phase": "cli", "fixtures": backend, "build_s": build_s,
             "query_s": query_s, "result_rows": len(rows),
             "pq_build_s": pq_build_s, "pq_query_s": pq_query_s,
-            "pq_result_rows": len(pq_rows)}
+            "pq_result_rows": len(pq_rows), "long_model": LONG_MODEL,
+            "long_build_s": long_build_s, "long_query_s": long_query_s,
+            "long_result_rows": len(long_rows)}
     emit(info)
     return info
+
+
+def _cli_build_and_query(flags, decode, photos: str, work: str, env,
+                         dim: int):
+    """build_index over the fixture photos (6 images and one broken file)
+    in work, then the scripted REPL (a text query, 'i 1', 'q'), with the
+    stdout checks of the reference contract. Returns (build seconds,
+    query seconds, result rows)."""
+    t0 = time.perf_counter()
+    build = subprocess.run(
+        [sys.executable, "-m", "clipx_torch.cli.build_index", *flags,
+         *decode, photos], cwd=work, env=env, capture_output=True,
+        text=True, timeout=600)
+    build_s = time.perf_counter() - t0
+    check(build.returncode == 0, f"build_index {flags} failed:\n"
+                                 f"{build.stderr}")
+    out = build.stdout
+    for want in (f"CLIPing {photos}...", "Preparing index for 6 entries...",
+                 f"Generating (6, {dim}) matrix...", "Saving index...",
+                 "Done!"):
+        check(want in out, f"build_index {flags} stdout lacks {want!r}")
+    progress = out.split(f"CLIPing {photos}...")[1].split("Preparing")[0]
+    check(progress.count(".") == 6 and progress.count("#") == 1,
+          f"build_index {flags} progress {progress!r}")
+    t0 = time.perf_counter()
+    query = subprocess.run(
+        [sys.executable, "-m", "clipx_torch.cli.query_index", *flags],
+        cwd=work, env=env, input="a photo of a cat\ni 1\nq\n",
+        capture_output=True, text=True, timeout=600)
+    query_s = time.perf_counter() - t0
+    check(query.returncode == 0, f"query_index {flags} failed:\n"
+                                 f"{query.stderr}")
+    rows = [ln for ln in query.stdout.splitlines() if len(ln.split()) == 3
+            and ln.split()[1].isdigit() and ln.split()[2].startswith(photos)]
+    check(query.stdout.count("Search time:") == 2,
+          f"query_index {flags}: expected two searches")
+    check("Similar to " + photos in query.stdout,
+          f"query_index {flags}: 'i 1' did not answer")
+    # 6 images, rank 0 skipped: 5 rows for the text query, 5 for 'i 1'
+    check(len(rows) == 10, f"query_index {flags} printed {len(rows)} rows")
+    return build_s, query_s, rows
 
 
 def main() -> int:
@@ -913,9 +1342,20 @@ def main() -> int:
           and launches["pq_scan_scores"] > 0,
           "a kernel of the main path was never launched")
     phase_profile(enc, images, encoded["info"])
-    del enc
+    del enc, images, encoded, search
+    torch.cuda.empty_cache()
+    # the long towers' path: counts from 0 just before it, read just after
+    ps.reset_launches()
+    phase_long(device)
+    long_launches = dict(ps.LAUNCHES)
+    emit({"phase": "long_path_launches", "launches": long_launches})
+    for name in ("packed_sdpa_rows", "packed_sdpa_qkv", "fused_sdpa_long",
+                 "fused_sdpa_long_qkv", "flash_attention"):
+        check(long_launches[name] > 0,
+              f"{name} was launched on no path, only in phase kernels")
     phase_cli(info)
-    emit(kernels_line(results, launches))
+    emit(kernels_line(results, {name: launches[name] + long_launches[name]
+                                for name in launches}))
     print(info["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

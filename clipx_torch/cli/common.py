@@ -32,8 +32,8 @@ QUANT_AUTO_THRESHOLD = 100_000
 
 # flag values accepted (clipx's choices) whose paths are not ported yet,
 # with the slice of the port (ROADMAP.md) that brings each
-_NOT_PORTED = {"search_mode": {"ivf": "slice 3"},
-               "compute": {"int8": "slice 5"},
+_NOT_PORTED = {"search_mode": {"ivf": "slice 5"},
+               "compute": {"int8": "slice 4"},
                "preprocess": {"device": "a later slice"}}
 
 

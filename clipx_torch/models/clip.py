@@ -41,10 +41,11 @@ def _l2_normalize(emb: torch.Tensor) -> torch.Tensor:
 
 
 def encode_image(params: Params, cfg: CLIPConfig, pixels: torch.Tensor, *,
-                 normalize: bool = False,
-                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                 normalize: bool = False, dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "xla") -> torch.Tensor:
     """Image embeddings (B, embed_dim) float32. ``normalize=True``
-    additionally L2-normalizes, as the indexer stores them."""
+    additionally L2-normalizes, as the indexer stores them. ``attn_impl``
+    as in ``layers.mha_block``."""
     if getattr(cfg.vision, "tower", "vit") != "vit":
         raise NotImplementedError("ResNet towers are not ported yet")
     v = cfg.vision
@@ -56,15 +57,16 @@ def encode_image(params: Params, cfg: CLIPConfig, pixels: torch.Tensor, *,
     x = x + p["pos_embedding"].to(dtype)
     x = layer_norm(x, p["ln_pre"], cfg.layernorm_eps)
     x = transformer(x, p["blocks"], v.heads, causal=False,
-                    eps=cfg.layernorm_eps, use_quick_gelu=cfg.quick_gelu)
+                    eps=cfg.layernorm_eps, use_quick_gelu=cfg.quick_gelu,
+                    attn_impl=attn_impl)
     x = layer_norm(x[:, 0, :], p["ln_post"], cfg.layernorm_eps)
     emb = _project(x, p["proj"])
     return _l2_normalize(emb) if normalize else emb
 
 
 def encode_text(params: Params, cfg: CLIPConfig, token_ids: torch.Tensor, *,
-                normalize: bool = False,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                normalize: bool = False, dtype: torch.dtype = torch.float32,
+                attn_impl: str = "xla") -> torch.Tensor:
     """Text embeddings (B, embed_dim) float32 from (B, context_length)
     zero-padded token ids. The sequence feature is read at the EOT
     position, the argmax of the ids (EOT is the largest id)."""
@@ -75,7 +77,8 @@ def encode_text(params: Params, cfg: CLIPConfig, token_ids: torch.Tensor, *,
     x = p["token_embedding"][token_ids].to(dtype)
     x = x + p["pos_embedding"].to(dtype)
     x = transformer(x, p["blocks"], t.heads, causal=True,
-                    eps=cfg.layernorm_eps, use_quick_gelu=cfg.quick_gelu)
+                    eps=cfg.layernorm_eps, use_quick_gelu=cfg.quick_gelu,
+                    attn_impl=attn_impl)
     x = layer_norm(x, p["ln_final"], cfg.layernorm_eps)
     eot = token_ids.argmax(dim=-1)
     x = x[torch.arange(x.shape[0], device=x.device), eot]
@@ -85,9 +88,12 @@ def encode_text(params: Params, cfg: CLIPConfig, token_ids: torch.Tensor, *,
 
 def clip_forward(params: Params, cfg: CLIPConfig, pixels: torch.Tensor,
                  token_ids: torch.Tensor, *,
-                 dtype: torch.dtype = torch.float32):
-    """(logits_per_image, logits_per_text) like the torch CLIP model."""
-    img = encode_image(params, cfg, pixels, normalize=True, dtype=dtype)
-    txt = encode_text(params, cfg, token_ids, normalize=True, dtype=dtype)
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "xla"):
+    """(logits_per_image, logits_per_text) like the torch CLIP model.
+    ``attn_impl`` reaches both towers, as in clipx."""
+    img = encode_image(params, cfg, pixels, normalize=True, dtype=dtype,
+                       attn_impl=attn_impl)
+    txt = encode_text(params, cfg, token_ids, normalize=True, dtype=dtype,
+                      attn_impl=attn_impl)
     logits = torch.exp(params["logit_scale"].float()) * img @ txt.T
     return logits, logits.T

@@ -14,13 +14,19 @@ product once in cuBLAS with the bias rounded to bf16 (clipx adds the f32
 bias before its one rounding): a bf16-level difference, inside the stated
 tolerances. In f32 the two agree.
 
-Not carried over from clipx: the W8A8 branches, ``CLIPX_FUSED_MLP``, the
-``CLIPX_PACKED_SDPA`` variants other than the default, ``CLIPX_ATTN_ROWS``
-(a TPU tiling knob that does not change results), and ``remat``.
+Attention takes clipx's dispatch (``mha_block``): the same size rules,
+the ``CLIPX_PACKED_SDPA`` variants and ``attn_impl``, so both packages run
+the same kernel for every shape. ``CLIPX_PACKED_SDPA=sublayer`` is refused
+where clipx would run ``fused_attn_sublayer`` (not ported yet).
+
+Not carried over from clipx: the W8A8 branches, ``CLIPX_FUSED_MLP``,
+``CLIPX_ATTN_ROWS`` (a TPU tiling knob that does not change results), and
+``remat``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict
 
 import torch
@@ -58,49 +64,102 @@ def dense(x: torch.Tensor, w: torch.Tensor,
 
 def fused_qkv(p: Params):
     """[wq | wk | wv] and the matching bias, packed along the out dim (the
-    layout fused_attn_block consumes). The Encoder stores them once as
-    ``wqkv``/``bqkv``; otherwise they are concatenated here."""
+    layout fused_attn_block, packed_sdpa_qkv and fused_sdpa_long_qkv
+    consume). The Encoder stores them once as ``wqkv``/``bqkv``; otherwise
+    they are concatenated here."""
     if "wqkv" in p:
         return p["wqkv"], p["bqkv"]
     return (torch.cat([p["wq"], p["wk"], p["wv"]], dim=-1),
             torch.cat([p["bq"], p["bk"], p["bv"]], dim=-1))
 
 
-def mha_block(x: torch.Tensor, p: Params, heads: int, *,
-              causal: bool) -> torch.Tensor:
+SDPA_VARIANTS = ("auto", "block", "sublayer", "pairs", "rows", "qkv")
+ATTN_IMPLS = ("xla", "pallas", "plain")
+
+
+def sdpa_variant() -> str:
+    """CLIPX_PACKED_SDPA normalized as clipx does: unknown values mean
+    'auto' rather than silently selecting an arbitrary kernel."""
+    v = os.environ.get("CLIPX_PACKED_SDPA", "auto")
+    return v if v in SDPA_VARIANTS else "auto"
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def mha_block(x: torch.Tensor, p: Params, heads: int, *, causal: bool,
+              attn_impl: str = "xla") -> torch.Tensor:
     """Self-attention. x: (B, S, W).
 
-    Dispatch for S <= 64, D = 64, non-causal (the ViT towers):
-    - even batch, even heads -> ``fused_attn_block`` (the whole sublayer);
-    - odd batch, even heads  -> ``packed_sdpa`` between plain projections;
-    - even batch, odd heads  -> ``packed_sdpa_rows`` between them.
-    Everything else (the causal text tower, long sequences, odd batch with
-    odd heads) takes plain attention. CUDA tensors launch the CUDA kernels;
-    CPU tensors reach each kernel's plain version through the same calls.
-    (clipx sends the even-batch odd-heads case to fused_attn_block too;
-    both compute the same function.)"""
+    clipx's dispatch (``clipx/models/layers.py:104-194``), with its
+    size rules kept as they are (they were set by the TPU's VMEM, but keep
+    both packages on one route per shape). For the non-causal towers under
+    ``attn_impl="xla"``:
+
+    - S <= 64, D = 64 (even heads or even batch), even batch:
+      ``fused_attn_block`` (variants auto, block) or ``packed_sdpa_qkv``
+      between plain projections (qkv);
+    - otherwise in that range: ``packed_sdpa_rows`` (variant rows, or odd
+      heads) or ``packed_sdpa``;
+    - S > 64 with K/V under clipx's 8 MiB: ``fused_sdpa_long``, or under
+      ``=qkv`` (and clipx's 12 MiB rule) ``fused_sdpa_long_qkv``.
+
+    ``attn_impl="pallas"`` sends every tower, causal included, through
+    ``flash_attention``; ``"plain"`` and everything else take plain
+    attention. CUDA tensors launch the CUDA kernels; CPU tensors reach
+    each kernel's plain version through the same calls."""
     from clipx_torch.ops import packed_sdpa as ps
 
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"unknown attn_impl {attn_impl!r} "
+                         f"(one of {ATTN_IMPLS})")
     b, s, w = x.shape
     d = w // heads
-    short = not causal and s <= 64 and d == 64
-    if short and b % 2 == 0 and heads % 2 == 0:
-        wqkv, bqkv = fused_qkv(p)
-        return ps.fused_attn_block(x, wqkv, bqkv, p["wo"], p["bo"],
-                                   heads=heads)
-    q = dense(x, p["wq"], p["bq"])
-    k = dense(x, p["wk"], p["bk"])
-    v = dense(x, p["wv"], p["bv"])
-    if short and heads % 2 == 0:
-        o = ps.packed_sdpa(q, k, v, heads=heads)
-    elif short and b % 2 == 0:
-        o = ps.packed_sdpa_rows(q, k, v, heads=heads)
-    else:
-        def split(t):
-            return t.reshape(b, s, heads, d).permute(0, 2, 1, 3)
+    use_packed = s <= 64 and d == 64 and (heads % 2 == 0 or b % 2 == 0)
+    use_long = s > 64 and _round_up(s, 128) * w * 2 * 2 < 8 * 2 ** 20
+    if not causal and (use_packed or use_long) and attn_impl == "xla":
+        variant = sdpa_variant()
+        if use_packed and b % 2 == 0 and variant in ("auto", "block"):
+            wqkv, bqkv = fused_qkv(p)
+            return ps.fused_attn_block(x, wqkv, bqkv, p["wo"], p["bo"],
+                                       heads=heads)
+        if use_packed and b % 2 == 0 and variant == "qkv":
+            wqkv, bqkv = fused_qkv(p)
+            o = ps.packed_sdpa_qkv(dense(x, wqkv, bqkv), heads=heads)
+            return dense(o, p["wo"], p["bo"])
+        if not use_packed:
+            s_pad = _round_up(s, 128)
+            fits = (2 * s_pad * 3 * w * 2 + w * w * 2) < 12 * 2 ** 20
+            if fits and variant == "qkv":
+                wqkv, bqkv = fused_qkv(p)
+                return ps.fused_sdpa_long_qkv(dense(x, wqkv, bqkv), p["wo"],
+                                              p["bo"], heads=heads)
+        q = dense(x, p["wq"], p["bq"])
+        k = dense(x, p["wk"], p["bk"])
+        v = dense(x, p["wv"], p["bv"])
+        if not use_packed:
+            o = ps.fused_sdpa_long(q, k, v, heads=heads)
+        elif b % 2 == 0 and (variant == "rows" or heads % 2):
+            o = ps.packed_sdpa_rows(q, k, v, heads=heads)
+        else:
+            o = ps.packed_sdpa(q, k, v, heads=heads)
+        return dense(o, p["wo"], p["bo"])
 
-        o = xla_attention(split(q), split(k), split(v), causal=causal)
-        o = o.permute(0, 2, 1, 3).reshape(b, s, w)
+    def split(t):
+        return t.reshape(b, s, heads, d).permute(0, 2, 1, 3)
+
+    q = split(dense(x, p["wq"], p["bq"]))
+    k = split(dense(x, p["wk"], p["bk"]))
+    v = split(dense(x, p["wv"], p["bv"]))
+    if attn_impl == "pallas":
+        from clipx_torch.ops.flash_attention import flash_attention
+
+        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=causal)
+    else:
+        o = xla_attention(q, k, v, causal=causal)
+    o = o.permute(0, 2, 1, 3).reshape(b, s, w)
     return dense(o, p["wo"], p["bo"])
 
 
@@ -112,10 +171,18 @@ def mlp_block(x: torch.Tensor, p: Params, use_quick_gelu: bool) -> torch.Tensor:
 
 
 def residual_block(x: torch.Tensor, p: Params, heads: int, *, causal: bool,
-                   eps: float, use_quick_gelu: bool) -> torch.Tensor:
+                   eps: float, use_quick_gelu: bool,
+                   attn_impl: str = "xla") -> torch.Tensor:
     """Pre-LN transformer block (the CLIP/GPT-2 layout)."""
+    b, s, w = x.shape
+    if (not causal and s <= 64 and w // heads == 64 and b % 2 == 0
+            and attn_impl == "xla" and sdpa_variant() == "sublayer"):
+        raise NotImplementedError(
+            "CLIPX_PACKED_SDPA=sublayer runs fused_attn_sublayer (B5) for "
+            "this shape, which clipx_torch does not port yet (ROADMAP.md: "
+            "the next slice); unset it or pick another variant")
     x = x + mha_block(layer_norm(x, p["ln_1"], eps), p["attn"], heads,
-                      causal=causal)
+                      causal=causal, attn_impl=attn_impl)
     x = x + mlp_block(layer_norm(x, p["ln_2"], eps), p["mlp"], use_quick_gelu)
     return x
 
@@ -127,11 +194,12 @@ def layer_slice(stacked: Params, i: int) -> Params:
 
 
 def transformer(x: torch.Tensor, stacked: Params, heads: int, *,
-                causal: bool, eps: float,
-                use_quick_gelu: bool) -> torch.Tensor:
+                causal: bool, eps: float, use_quick_gelu: bool,
+                attn_impl: str = "xla") -> torch.Tensor:
     """Run the stacked blocks in order over the leading layer axis."""
     layers = next(iter(stacked["ln_1"].values())).shape[0]
     for i in range(layers):
         x = residual_block(x, layer_slice(stacked, i), heads, causal=causal,
-                           eps=eps, use_quick_gelu=use_quick_gelu)
+                           eps=eps, use_quick_gelu=use_quick_gelu,
+                           attn_impl=attn_impl)
     return x

@@ -3,11 +3,15 @@
 Counterpart of ``clipx/runtime/encoder.py``. Image batches are padded up to
 a small set of bucket sizes (1, 8, 32, 128, 256) and text batches to
 (1, 4, 16, 64), as in clipx, so both packages run the same shapes (and the
-ViT attention takes the same kernels: even buckets ``fused_attn_block``,
-bucket 1 ``packed_sdpa``). On CUDA every matrix param is stored in bf16 and
-the towers compute in bf16 with f32 accumulation; 1-D params (LayerNorm,
-biases, the class embedding) stay f32. On the CPU everything is f32.
-Embeddings come back float32 and L2-normalized.
+ViT attention takes the same kernels: at S <= 64 even buckets
+``fused_attn_block`` and bucket 1 ``packed_sdpa``; the long towers
+ViT-B/16, ViT-L/14 and ViT-L/14@336px ``fused_sdpa_long`` in every bucket).
+``attn_impl="pallas"`` sends the image tower through ``flash_attention``
+instead; the text tower always takes ``"xla"``, as in clipx. On CUDA
+every matrix param is stored in bf16 and the towers compute in bf16 with
+f32 accumulation; 1-D params (LayerNorm, biases, the class embedding) stay
+f32. On the CPU everything is f32. Embeddings come back float32 and
+L2-normalized.
 
 ``encode_images_async`` enqueues one batch (pinned host buffer ->
 non-blocking H2D copy -> encode -> non-blocking D2H copy into pinned host
@@ -15,9 +19,11 @@ memory, then a CUDA event) and returns at once; ``finalize`` waits on the
 event. That takes the place of JAX's asynchronous dispatch in the
 indexer's pipeline: the host decodes the next batch while the GPU encodes.
 
-Not ported yet: the dp mesh, int8 compute (``CLIPX_COMPUTE=int8``), the
-fused device-side resample (``--preprocess device``) and the ResNet
-towers. The XLA compile cache has no counterpart.
+Not ported yet: the dp mesh and its tp option, int8 compute
+(``CLIPX_COMPUTE=int8``), the fused device-side resample (``--preprocess
+device``), ``CLIPX_PACKED_SDPA=sublayer`` (refused where it would run
+``fused_attn_sublayer``) and the ResNet towers. The XLA compile cache has
+no counterpart.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from clipx_torch import config as config_lib
 from clipx_torch.config import CLIPConfig
 from clipx_torch.models import clip as model_lib
 from clipx_torch.models import convert
+from clipx_torch.models.layers import ATTN_IMPLS
 from clipx_torch.ops.preprocess import normalize_batch
 from clipx_torch.runtime.device import resolve_device
 from clipx_torch.text.tokenizer import ClipTokenizer
@@ -57,11 +64,20 @@ class Encoder:
     """Holds (config, params on the device) and encodes images and texts."""
 
     def __init__(self, cfg: CLIPConfig, params, *, device=None,
+                 attn_impl: str = "auto",
                  batch_buckets: Sequence[int] = _DEFAULT_BUCKETS,
                  tokenizer: Optional[ClipTokenizer] = None):
         if getattr(cfg.vision, "tower", "vit") != "vit":
             raise NotImplementedError("the ResNet towers are not ported to "
                                       "clipx_torch yet")
+        if attn_impl == "auto":
+            # "xla" lets mha_block pick the fused kernels per shape;
+            # "pallas" forces the (B, H, S, D) flash_attention kernel
+            attn_impl = "xla"
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {attn_impl!r} (auto or one "
+                             f"of {ATTN_IMPLS})")
+        self.attn_impl = attn_impl
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = (torch.bfloat16 if self.device.type == "cuda"
@@ -70,8 +86,9 @@ class Encoder:
         self.buckets = tuple(sorted(batch_buckets))
         self.params = convert.from_jax_params(params, cfg, self.device,
                                               self.dtype)
-        # the layout fused_attn_block consumes, built once: [wq | wk | wv]
-        # per layer; wq/wk/wv become views into it (no second copy)
+        # the layout fused_attn_block, packed_sdpa_qkv and
+        # fused_sdpa_long_qkv consume, built once: [wq | wk | wv] per layer;
+        # wq/wk/wv become views into it (no second copy)
         attn = self.params["visual"]["blocks"]["attn"]
         w = attn["wq"].shape[-1]
         attn["wqkv"] = torch.cat([attn["wq"], attn["wk"], attn["wv"]], -1)
@@ -109,7 +126,8 @@ class Encoder:
     def _images(self, batch: torch.Tensor) -> torch.Tensor:
         pixels = normalize_batch(batch, dtype=self.dtype)
         return model_lib.encode_image(self.params, self.cfg, pixels,
-                                      normalize=True, dtype=self.dtype)
+                                      normalize=True, dtype=self.dtype,
+                                      attn_impl=self.attn_impl)
 
     def encode_images(self, batch_uint8: np.ndarray) -> np.ndarray:
         """(B, S, S, 3) uint8 -> (B, embed_dim) float32, L2-normalized.
@@ -169,7 +187,7 @@ class Encoder:
             out = model_lib.encode_image(
                 self.params, self.cfg,
                 torch.from_numpy(pixels).to(self.device, self.dtype),
-                normalize=True, dtype=self.dtype)
+                normalize=True, dtype=self.dtype, attn_impl=self.attn_impl)
             return out.float().cpu().numpy()
 
     def encode_texts(self, texts) -> np.ndarray:
@@ -189,9 +207,10 @@ class Encoder:
         n = ids.shape[0]
         ids = _pad_rows(ids, _pick_bucket(n, _TEXT_BUCKETS))
         with torch.inference_mode():
+            # the 77-token text tower always takes "xla", as in clipx
             out = model_lib.encode_text(
                 self.params, self.cfg, torch.from_numpy(ids).to(self.device),
-                normalize=True, dtype=self.dtype)
+                normalize=True, dtype=self.dtype, attn_impl="xla")
             return out[:n].float().cpu().numpy()
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:

@@ -15,6 +15,7 @@ import torch
 
 from clipx_torch import config as tcfg
 from clipx_torch.models import convert as tconvert
+from clipx_torch.ops import flash_attention as tfa
 from clipx_torch.ops import packed_sdpa as tps
 from clipx_torch.ops import pq_scan as tpq_scan
 from clipx_torch.runtime.encoder import Encoder
@@ -85,6 +86,148 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         tps.packed_sdpa(t, t, t, heads=2)
     with pytest.raises(ValueError, match="is on"):
         tps.packed_sdpa_rows(q, q.cpu(), q, heads=2)
+
+
+# B8: (B, S, W, heads, causal): S past one 128-row query tile and one
+# 64-key tile, D = 32, 64 and 128, ViT-B/16's and ViT-L/14@336's widths
+@pytest.mark.parametrize("b,s,w,heads,causal", [
+    (2, 130, 256, 4, False), (2, 130, 256, 4, True), (3, 197, 768, 12, False),
+    (2, 577, 1024, 16, False), (2, 77, 768, 12, True), (2, 77, 128, 4, True),
+    (1, 300, 256, 2, False), (2, 1, 128, 2, False)])
+def test_fused_sdpa_long_matches_plain(cuda_device, b, s, w, heads, causal):
+    gen = torch.Generator().manual_seed(b * s + w)
+    q, k, v = (_bf(gen, cuda_device, b, s, w) for _ in range(3))
+    before = tps.LAUNCHES["fused_sdpa_long"]
+    out = tps.fused_sdpa_long(q, k, v, heads=heads, causal=causal)
+    assert tps.LAUNCHES["fused_sdpa_long"] == before + 1
+    ref = tps.fused_sdpa_long_plain(q, k, v, heads=heads, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("b,s,w,heads,causal", [
+    (2, 130, 256, 4, False), (2, 77, 768, 12, True), (2, 577, 1024, 16, False)])
+def test_fused_sdpa_long_qkv_matches_plain(cuda_device, b, s, w, heads,
+                                           causal):
+    gen = torch.Generator().manual_seed(b * s + w + 1)
+    qkv = _bf(gen, cuda_device, b, s, 3 * w)
+    wo = _bf(gen, cuda_device, w, w, scale=0.03)
+    bo = (torch.randn(w, generator=gen) * 0.01).to(cuda_device)
+    before = tps.LAUNCHES["fused_sdpa_long_qkv"]
+    out = tps.fused_sdpa_long_qkv(qkv, wo, bo, heads=heads, causal=causal)
+    assert tps.LAUNCHES["fused_sdpa_long_qkv"] == before + 1
+    ref = tps.fused_sdpa_long_qkv_plain(qkv, wo, bo, heads=heads,
+                                        causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == (b, s, w)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("shape,causal", [
+    ((2, 2, 130, 64), False), ((1, 2, 77, 32), True), ((2, 16, 577, 64), False),
+    ((1, 2, 200, 128), True), ((3, 1, 50, 64), False)])
+def test_flash_attention_matches_plain(cuda_device, shape, causal):
+    gen = torch.Generator().manual_seed(sum(shape))
+    q, k, v = (_bf(gen, cuda_device, *shape) for _ in range(3))
+    before = tps.LAUNCHES["flash_attention"]
+    out = tfa.flash_attention(q, k, v, causal=causal)
+    assert tps.LAUNCHES["flash_attention"] == before + 1
+    ref = tfa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("b,s,w,heads", [(2, 50, 768, 12), (4, 64, 192, 3),
+                                         (128, 50, 768, 12)])
+def test_packed_sdpa_qkv_equals_packed_sdpa(cuda_device, b, s, w, heads):
+    """B4 runs B2's kernel on the packed projection: the same bits."""
+    gen = torch.Generator().manual_seed(b + s + w)
+    qkv = _bf(gen, cuda_device, b, s, 3 * w)
+    q, k, v = (qkv[..., i * w:(i + 1) * w].contiguous() for i in range(3))
+    before = tps.LAUNCHES["packed_sdpa_qkv"]
+    out = tps.packed_sdpa_qkv(qkv, heads=heads)
+    assert tps.LAUNCHES["packed_sdpa_qkv"] == before + 1
+    pairs = (tps.packed_sdpa if heads % 2 == 0 else tps.packed_sdpa_rows)
+    assert torch.equal(out, pairs(q, k, v, heads=heads))
+    torch.testing.assert_close(
+        out.float(), tps.packed_sdpa_qkv_plain(qkv, heads=heads).float(),
+        rtol=RTOL, atol=ATOL)
+
+
+def test_long_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    gen = torch.Generator().manual_seed(1)
+    q = _bf(gen, cuda_device, 2, 100, 192)
+    with pytest.raises(ValueError, match="head dims"):      # D = 48
+        tps.fused_sdpa_long(q, q, q, heads=4)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tps.fused_sdpa_long(q.float(), q.float(), q.float(), heads=3)
+    with pytest.raises(ValueError, match="contiguous"):
+        t = _bf(gen, cuda_device, 2, 2, 64, 100).transpose(2, 3)
+        tfa.flash_attention(t, t, t)
+    qkv = _bf(gen, cuda_device, 2, 100, 3 * 96)             # W = 96
+    with pytest.raises(ValueError, match="W % 64"):
+        tps.fused_sdpa_long_qkv(qkv, _bf(gen, cuda_device, 96, 96),
+                                torch.zeros(96, device=cuda_device), heads=3)
+    with pytest.raises(ValueError, match="even B"):
+        tps.packed_sdpa_qkv(_bf(gen, cuda_device, 3, 50, 3 * 128), heads=2)
+
+
+def test_vit_b16_encoder_on_the_card_matches_the_cpu(cuda_device):
+    """ViT-B/16 at full width (S = 197): every bucket's 12 attention
+    layers go through fused_sdpa_long; bf16 on the card vs f32 on the CPU
+    from the same seeded weights, cosine >= 0.99."""
+    params = tconvert.init_params(tcfg.get_config("ViT-B/16"), seed=0)
+    cfg = tcfg.get_config("ViT-B/16")
+    gpu = Encoder(cfg, params, device=cuda_device, batch_buckets=(1, 4))
+    cpu = Encoder(cfg, params, device="cpu", batch_buckets=(1, 4))
+    images = np.random.default_rng(0).integers(0, 256, (3, 224, 224, 3),
+                                               dtype=np.uint8)
+    tps.reset_launches()
+    one = gpu.encode_images(images[:1])
+    three = gpu.encode_images(images)
+    assert tps.LAUNCHES["fused_sdpa_long"] == 24
+    ref = cpu.encode_images(images[:2])
+    assert (np.sum(three[:2] * ref, axis=1) >= 0.99).all()
+    assert float(one[0] @ three[0]) >= 0.99
+
+
+def _d64_long():
+    """The d64 test config at image 160 / patch 16: S = 101."""
+    return tcfg.CLIPConfig(
+        name="d64-long-test",
+        vision=tcfg.VisionConfig(image_size=160, patch_size=16, width=128,
+                                 layers=2, heads=2, embed_dim=64),
+        text=tcfg.TextConfig(context_length=77, vocab_size=49408, width=64,
+                             layers=2, heads=2, embed_dim=64))
+
+
+@pytest.mark.parametrize("route", ["auto", "qkv", "pallas"])
+def test_long_routes_on_the_card_match_the_cpu(cuda_device, monkeypatch,
+                                               route):
+    """S = 101 under each route: the default (fused_sdpa_long),
+    CLIPX_PACKED_SDPA=qkv (fused_sdpa_long_qkv) and attn_impl="pallas"
+    (flash_attention); cosine >= 0.999 against the CPU."""
+    if route == "qkv":
+        monkeypatch.setenv("CLIPX_PACKED_SDPA", "qkv")
+    impl = "pallas" if route == "pallas" else "auto"
+    params = tconvert.init_params(_d64_long(), seed=0)
+    gpu = Encoder(_d64_long(), params, device=cuda_device, attn_impl=impl,
+                  batch_buckets=(4,))
+    cpu = Encoder(_d64_long(), params, device="cpu", attn_impl=impl,
+                  batch_buckets=(4,))
+    images = np.random.default_rng(1).integers(0, 256, (4, 160, 160, 3),
+                                               dtype=np.uint8)
+    tps.reset_launches()
+    out = gpu.encode_images(images)
+    name = {"auto": "fused_sdpa_long", "qkv": "fused_sdpa_long_qkv",
+            "pallas": "flash_attention"}[route]
+    assert tps.LAUNCHES[name] == 2
+    assert sum(tps.LAUNCHES.values()) == 2
+    assert (np.sum(out * cpu.encode_images(images), axis=1) >= 0.999).all()
 
 
 def _d64():

@@ -154,29 +154,73 @@ def test_wrappers_reject_bad_shapes():
     with pytest.raises(ValueError):                # weights of another width
         tps.fused_attn_block(torch.zeros((2, 17, w)), wo, bo, wo, bo,
                              heads=2)
+    qkv = torch.zeros((2, 50, 3 * w))
+    with pytest.raises(ValueError):                # odd batch
+        tps.packed_sdpa_qkv(torch.zeros((3, 50, 3 * w)), heads=2)
+    with pytest.raises(ValueError):                # S > 64
+        tps.packed_sdpa_qkv(torch.zeros((2, 65, 3 * w)), heads=2)
+    with pytest.raises(ValueError):                # not a packed 3W
+        tps.packed_sdpa_qkv(torch.zeros((2, 50, 3 * w + 1)), heads=2)
+    with pytest.raises(ValueError):                # q, k, v shapes differ
+        tps.fused_sdpa_long(z, z, torch.zeros((2, 101, 2 * 64)), heads=2)
+    with pytest.raises(ValueError):                # width not heads * D
+        tps.fused_sdpa_long(z, z, z, heads=3)
+    with pytest.raises(ValueError):                # weights of another width
+        tps.fused_sdpa_long_qkv(qkv, wqkv, bo, heads=2)
+    with pytest.raises(ValueError):                # qkv not (B, S, 3W)
+        tps.fused_sdpa_long_qkv(z, wo, bo, heads=2)
+    from clipx_torch.ops import flash_attention as tfa
+    with pytest.raises(ValueError):                # not (B, H, S, D)
+        tfa.flash_attention(z, z, z)
+    with pytest.raises(ValueError):                # q, k, v shapes differ
+        tfa.flash_attention(torch.zeros((1, 2, 9, 64)),
+                            torch.zeros((1, 2, 8, 64)),
+                            torch.zeros((1, 2, 9, 64)))
+    meta = torch.empty((2, 100, 3 * 64), device="meta")
+    with pytest.raises(ValueError, match="head dims"):   # D = 48 on a device
+        tps.fused_sdpa_long(meta, meta, meta, heads=4)
 
 
 @pytest.mark.parametrize("name", ["fused_attn_block", "packed_sdpa",
-                                  "packed_sdpa_rows"])
+                                  "packed_sdpa_rows", "packed_sdpa_qkv",
+                                  "fused_sdpa_long", "fused_sdpa_long_qkv",
+                                  "flash_attention"])
 def test_non_cpu_tensors_never_reach_the_plain_version(name, monkeypatch):
     """A tensor that is not on the CPU goes to the kernel path, which
     raises when it cannot launch (here: no CUDA device) — the plain
     version is never called and nothing is counted as launched."""
+    from clipx_torch.ops import flash_attention as tfa
+
     def plain_called(*a, **k):
         raise AssertionError("plain version reached for a non-CPU tensor")
 
-    monkeypatch.setattr(tps, "fused_attn_block_plain", plain_called)
-    monkeypatch.setattr(tps, "sdpa_plain", plain_called)
+    for plain in ("fused_attn_block_plain", "sdpa_plain", "attend_plain",
+                  "packed_sdpa_qkv_plain", "fused_sdpa_long_plain",
+                  "fused_sdpa_long_qkv_plain"):
+        monkeypatch.setattr(tps, plain, plain_called)
+    monkeypatch.setattr(tfa, "flash_attention_plain", plain_called)
     before = dict(tps.LAUNCHES)
     w = 128
-    x = torch.empty((2, 17, w), device="meta")
+
+    def meta(*shape):
+        return torch.empty(shape, device="meta")
+
+    x = meta(2, 17, w)
     with pytest.raises(ValueError, match="no kernel for device"):
         if name == "fused_attn_block":
-            tps.fused_attn_block(
-                x, torch.empty((w, 3 * w), device="meta"),
-                torch.empty(3 * w, device="meta"),
-                torch.empty((w, w), device="meta"),
-                torch.empty(w, device="meta"), heads=2)
+            tps.fused_attn_block(x, meta(w, 3 * w), meta(3 * w), meta(w, w),
+                                 meta(w), heads=2)
+        elif name == "packed_sdpa_qkv":
+            tps.packed_sdpa_qkv(meta(2, 17, 3 * w), heads=2)
+        elif name == "fused_sdpa_long":
+            y = meta(2, 130, w)
+            tps.fused_sdpa_long(y, y, y, heads=2, causal=True)
+        elif name == "fused_sdpa_long_qkv":
+            tps.fused_sdpa_long_qkv(meta(2, 130, 3 * w), meta(w, w), meta(w),
+                                    heads=2)
+        elif name == "flash_attention":
+            y = meta(2, 2, 130, 64)
+            tfa.flash_attention(y, y, y)
         else:
             getattr(tps, name)(x, x, x, heads=2)
     assert tps.LAUNCHES == before

@@ -3,10 +3,13 @@
 The same seeded parameters (a clipx param tree, carried across with
 ``clipx_torch.models.convert.from_jax_params``) and the same seeded inputs
 go through ``clipx.models`` and ``clipx_torch.models`` in f32. Tolerance
-1e-5 absolute on unit-scale outputs (f32 summation order only). Two
-configurations: ``tiny-test`` (D = 32: plain attention) and a D = 64
+1e-5 absolute on unit-scale outputs (f32 summation order only). Three
+configurations: ``tiny-test`` (D = 32: plain attention), a D = 64
 configuration built here (image 64, patch 16, width 128, 2 heads, S = 17),
-whose image tower reaches the short-attention kernels' plain versions.
+whose image tower reaches the short-attention kernels' plain versions, and
+its long-sequence twin (image 160: S = 101), whose image tower reaches the
+long-attention kernels' plain versions. The attention dispatch is held
+against clipx's own (run with its kernels replaced by recorders).
 """
 
 import dataclasses
@@ -43,9 +46,21 @@ def _d64(mod):
                             layers=2, heads=2, embed_dim=64))
 
 
+def _long(mod):
+    """Image 160 / patch 16 (S = 101), width 128, 2 heads (D = 64)."""
+    return mod.CLIPConfig(
+        name="long-test",
+        vision=mod.VisionConfig(image_size=160, patch_size=16, width=128,
+                                layers=2, heads=2, embed_dim=64),
+        text=mod.TextConfig(context_length=77, vocab_size=49408, width=64,
+                            layers=2, heads=2, embed_dim=64))
+
+
 def _configs(name):
     if name == "tiny-test":
         return jcfg.get_config(name), tcfg.get_config(name)
+    if name == "long":
+        return _long(jcfg), _long(tcfg)
     return _d64(jcfg), _d64(tcfg)
 
 
@@ -54,7 +69,7 @@ def _jax_params(cfg, seed=0):
     return jax.tree_util.tree_map(np.asarray, params)
 
 
-@pytest.fixture(scope="module", params=["tiny-test", "d64"])
+@pytest.fixture(scope="module", params=["tiny-test", "d64", "long"])
 def pair(request):
     jc, tc = _configs(request.param)
     params = _jax_params(jc)
@@ -101,10 +116,74 @@ def test_clip_forward_matches_clipx(pair):
     np.testing.assert_array_equal(out_t.numpy(), out.numpy().T)
 
 
+@pytest.mark.parametrize("route", ["auto", "qkv", "pallas"])
+def test_long_tower_routes_match_clipx(route, monkeypatch):
+    """S = 101 through each route of the port (fused_sdpa_long by default,
+    fused_sdpa_long_qkv under CLIPX_PACKED_SDPA=qkv, flash_attention under
+    attn_impl="pallas", the causal text tower included) against clipx
+    with the same settings (on the CPU clipx runs plain attention, or its
+    flash_attention kernel in interpret mode under "pallas")."""
+    if route == "qkv":
+        monkeypatch.setenv("CLIPX_PACKED_SDPA", "qkv")
+    impl = "pallas" if route == "pallas" else "xla"
+    jc, tc = _configs("long")
+    params = _jax_params(jc, seed=2)
+    tparams = tconvert.from_jax_params(params, tc)
+    rng = np.random.RandomState(9)
+    pixels = rng.randn(2, 160, 160, 3).astype(np.float32)
+    ref = np.asarray(jclip.encode_image(params, jc, pixels, normalize=True,
+                                        attn_impl=impl))
+    out = tclip.encode_image(tparams, tc, torch.from_numpy(pixels),
+                             normalize=True, attn_impl=impl).numpy()
+    np.testing.assert_allclose(out, ref, atol=TOL, rtol=0)
+    ids = np.zeros((2, 77), np.int32)
+    ids[0, :3] = [49406, 320, 49407]
+    ids[1, :4] = [49406, 9, 10, 49407]
+    ref, _ = jclip.clip_forward(params, jc, pixels, ids, attn_impl=impl)
+    out, _ = tclip.clip_forward(tparams, tc, torch.from_numpy(pixels),
+                                torch.from_numpy(ids), attn_impl=impl)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("attn_impl,variant", [("xla", "auto"),
+                                               ("xla", "qkv"),
+                                               ("pallas", "auto")])
+@pytest.mark.parametrize("b,s,w,heads,causal", [
+    (2, 101, 128, 2, False),  # the long kernel (or its qkv / flash forms)
+    (3, 130, 256, 4, False),  # odd batch, past one 128-row q block
+    (2, 77, 128, 2, True),    # causal: plain, or flash_attention
+])
+def test_long_blocks_match_clipx(b, s, w, heads, causal, attn_impl, variant,
+                                 monkeypatch):
+    """mha_block and residual_block at long sequences, each route, against
+    clipx's blocks with the same settings."""
+    monkeypatch.setenv("CLIPX_PACKED_SDPA", variant)
+    rng = np.random.RandomState(b * s + w)
+    stack = jax.tree_util.tree_map(
+        np.asarray, jlayers.init_block_stack(jax.random.PRNGKey(3), 1, w))
+    stack = jax.tree_util.tree_map(
+        lambda a: a + rng.randn(*a.shape).astype(np.float32) * 0.02, stack)
+    p0 = jax.tree_util.tree_map(lambda a: a[0], stack)
+    tp0 = tlayers.layer_slice(tconvert.from_jax_params(stack), 0)
+    x = rng.randn(b, s, w).astype(np.float32)
+    xt = torch.from_numpy(x)
+    ref = np.asarray(jlayers.mha_block(x, p0["attn"], heads, causal=causal,
+                                       attn_impl=attn_impl))
+    out = tlayers.mha_block(xt, tp0["attn"], heads, causal=causal,
+                            attn_impl=attn_impl).numpy()
+    np.testing.assert_allclose(out, ref, atol=TOL, rtol=0)
+    kw = dict(causal=causal, eps=1e-5, use_quick_gelu=True,
+              attn_impl=attn_impl)
+    ref = np.asarray(jlayers.residual_block(x, p0, heads, **kw))
+    out = tlayers.residual_block(xt, tp0, heads, **kw).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
+
+
 @pytest.mark.parametrize("b,s,w,heads,causal", [
     (4, 17, 128, 2, False),   # even batch, even heads: fused_attn_block
     (3, 17, 128, 2, False),   # odd batch: packed_sdpa
-    (2, 50, 192, 3, False),   # odd heads, even batch: packed_sdpa_rows
+    (2, 50, 192, 3, False),   # odd heads, even batch: fused_attn_block
     (3, 17, 192, 3, False),   # odd both: plain attention
     (2, 77, 64, 2, True),     # the causal text tower
 ])
@@ -138,30 +217,131 @@ def test_blocks_match_clipx(b, s, w, heads, causal):
     np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
 
 
-def test_mha_dispatch(monkeypatch):
-    """Which short-attention wrapper each (batch, heads) parity reaches."""
+# (S, W, heads): short D = 64 with even and odd heads, short D = 32, long
+# (one and two 128-row q blocks), long past clipx's 12 MiB rule for the
+# packed-qkv kernel (W = 1280), and long past its 8 MiB K/V rule
+# (W = 4096, where clipx leaves the TPU kernels for XLA)
+_DISPATCH_SHAPES = ((17, 128, 2), (50, 192, 3), (17, 128, 4), (101, 128, 2),
+                    (197, 768, 12), (577, 1280, 20), (577, 4096, 64))
+_KERNELS = ("fused_attn_block", "packed_sdpa", "packed_sdpa_rows",
+            "packed_sdpa_qkv", "fused_sdpa_long", "fused_sdpa_long_qkv")
+
+
+def _record_clipx_routes(monkeypatch, calls):
+    """clipx's dispatch as on a TPU, with every kernel, the flash kernel,
+    the XLA attentions and dense replaced by shape-keeping recorders."""
+    import jax.numpy as jnp
+
+    from clipx.ops import flash_attention as jfa
+    from clipx.ops import packed_sdpa as jps
+
+    def rec(name, pick):
+        return lambda *a, **k: (calls.append(name), pick(*a))[1]
+
+    first = lambda *a: a[0]  # noqa: E731
+    monkeypatch.setattr(jlayers, "_on_tpu", lambda: True)
+    for name in _KERNELS:
+        pick = first
+        if name == "packed_sdpa_qkv":
+            pick = lambda t, *a: t[..., :t.shape[-1] // 3]  # noqa: E731
+        if name == "fused_sdpa_long_qkv":
+            pick = lambda t, *a: t[..., :t.shape[-1] // 3]  # noqa: E731
+        monkeypatch.setattr(jps, name, rec(name, pick))
+    monkeypatch.setattr(jps, "fused_attn_sublayer",
+                        rec("fused_attn_sublayer", first))
+    monkeypatch.setattr(jfa, "flash_attention", rec("flash_attention", first))
+    monkeypatch.setattr(jlayers, "xla_attention", rec("xla", first))
+    monkeypatch.setattr(jlayers, "packed_pair_attention", rec("xla", first))
+    monkeypatch.setattr(jlayers, "dense", lambda x, w, b=None: jnp.zeros(
+        x.shape[:-1] + (w.shape[-1],), x.dtype))
+
+
+def _record_port_routes(monkeypatch, calls):
+    from clipx_torch.ops import flash_attention as tfa
     from clipx_torch.ops import packed_sdpa as ps
 
-    calls = []
-    for name in ("fused_attn_block", "packed_sdpa", "packed_sdpa_rows"):
-        real = getattr(ps, name)
-        monkeypatch.setattr(ps, name, lambda *a, _n=name, _r=real, **k: (
-            calls.append(_n), _r(*a, **k))[1])
-    stack = tconvert.from_jax_params(jax.tree_util.tree_map(
-        np.asarray, jlayers.init_block_stack(jax.random.PRNGKey(2), 1, 192)))
-    p = tlayers.layer_slice(stack, 0)["attn"]
-    for b, heads, want in ((2, 3, "packed_sdpa_rows"), (3, 3, None)):
-        calls.clear()
-        tlayers.mha_block(torch.zeros((b, 17, 192)), p, heads, causal=False)
-        assert calls == ([want] if want else [])
-    stack = tconvert.from_jax_params(jax.tree_util.tree_map(
-        np.asarray, jlayers.init_block_stack(jax.random.PRNGKey(2), 1, 128)))
-    p = tlayers.layer_slice(stack, 0)["attn"]
-    for b, causal, want in ((2, False, "fused_attn_block"),
-                            (1, False, "packed_sdpa"), (2, True, None)):
-        calls.clear()
-        tlayers.mha_block(torch.zeros((b, 17, 128)), p, 2, causal=causal)
-        assert calls == ([want] if want else [])
+    def rec(name, pick):
+        return lambda *a, **k: (calls.append(name), pick(*a))[1]
+
+    first = lambda *a: a[0]  # noqa: E731
+    for name in _KERNELS:
+        pick = first
+        if name in ("packed_sdpa_qkv", "fused_sdpa_long_qkv"):
+            pick = lambda t, *a: t[..., :t.shape[-1] // 3]  # noqa: E731
+        monkeypatch.setattr(ps, name, rec(name, pick))
+    monkeypatch.setattr(tfa, "flash_attention", rec("flash_attention", first))
+    monkeypatch.setattr(tlayers, "xla_attention", rec("xla", first))
+    monkeypatch.setattr(tlayers, "dense", lambda x, w, b=None: torch.zeros(
+        x.shape[:-1] + (w.shape[-1],), dtype=x.dtype))
+
+
+def _stub_block(mod, w):
+    """A residual block whose weights only carry their output widths (dense
+    is a recorder here)."""
+    z = lambda *shape: mod(np.zeros(shape, np.float32))  # noqa: E731
+    attn = {f"w{n}": z(1, w) for n in "qkvo"}
+    attn.update({f"b{n}": z(w) for n in "qkvo"})
+    return {"ln_1": {"scale": z(w), "bias": z(w)}, "attn": attn,
+            "ln_2": {"scale": z(w), "bias": z(w)},
+            "mlp": {"w1": z(1, 4 * w), "b1": z(4 * w), "w2": z(1, w),
+                    "b2": z(w)}}
+
+
+@pytest.mark.parametrize("attn_impl", ["xla", "pallas", "plain"])
+@pytest.mark.parametrize("variant", ["auto", "block", "sublayer", "pairs",
+                                     "rows", "qkv", "bogus"])
+def test_mha_dispatch(monkeypatch, variant, attn_impl):
+    """Every (S, batch parity, heads parity, CLIPX_PACKED_SDPA, attn_impl,
+    causal) case reaches the wrapper clipx's dispatch
+    (clipx/models/layers.py:104-194 and its residual_block's B5 branch)
+    would choose; where clipx would run fused_attn_sublayer (B5, not
+    ported), the port raises."""
+    monkeypatch.setenv("CLIPX_PACKED_SDPA", variant)
+    jcalls, tcalls = [], []
+    _record_clipx_routes(monkeypatch, jcalls)
+    _record_port_routes(monkeypatch, tcalls)
+    seen = set()
+    for s, w, heads in _DISPATCH_SHAPES:
+        jp, tp = _stub_block(np.asarray, w), _stub_block(torch.from_numpy, w)
+        for b in (1, 2):
+            for causal in (False, True):
+                jcalls.clear()
+                tcalls.clear()
+                x = np.zeros((b, s, w), np.float32)
+                kw = dict(causal=causal, eps=1e-5, use_quick_gelu=True,
+                          attn_impl=attn_impl)
+                jlayers.residual_block(x, jp, heads, **kw)
+                case = (s, w, heads, b, causal)
+                if jcalls == ["fused_attn_sublayer"]:
+                    with pytest.raises(NotImplementedError, match="B5"):
+                        tlayers.residual_block(torch.from_numpy(x), tp,
+                                               heads, **kw)
+                else:
+                    tlayers.residual_block(torch.from_numpy(x), tp, heads,
+                                           **kw)
+                    assert tcalls == jcalls, case
+                seen.add(jcalls[0])
+    want = {"auto": {"fused_attn_block", "packed_sdpa", "fused_sdpa_long",
+                     "xla"},
+            "rows": {"packed_sdpa_rows", "packed_sdpa", "fused_sdpa_long",
+                     "xla"},
+            "pairs": {"packed_sdpa_rows", "packed_sdpa", "fused_sdpa_long",
+                      "xla"},
+            "qkv": {"packed_sdpa_qkv", "fused_sdpa_long_qkv",
+                    "fused_sdpa_long", "packed_sdpa", "xla"},
+            "sublayer": {"fused_attn_sublayer", "packed_sdpa", "xla"}}
+    if attn_impl == "pallas":
+        assert seen == {"flash_attention"}
+    elif attn_impl == "plain":
+        assert seen == {"xla"}
+    else:
+        assert want.get(variant, want["auto"]) <= seen
+
+
+def test_unknown_attn_impl_is_refused():
+    x = torch.zeros((1, 17, 128))
+    with pytest.raises(ValueError, match="attn_impl"):
+        tlayers.mha_block(x, {}, 2, causal=False, attn_impl="flash")
 
 
 # ---------------------------------------------------------------------------

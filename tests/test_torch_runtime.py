@@ -127,3 +127,96 @@ def test_create_from_a_clipx_checkpoint(tmp_path):
                                               dtype=np.uint8)
     np.testing.assert_allclose(ours.encode_images(images),
                                ref.encode_images(images), atol=TOL, rtol=0)
+
+
+def _long(mod):
+    """The d64 configuration at image 160 (S = 101): the long kernels."""
+    return mod.CLIPConfig(
+        name="long-test",
+        vision=mod.VisionConfig(image_size=160, patch_size=16, width=128,
+                                layers=2, heads=2, embed_dim=64),
+        text=mod.TextConfig(context_length=77, vocab_size=49408, width=64,
+                            layers=2, heads=2, embed_dim=64))
+
+
+@pytest.fixture(scope="module")
+def long_params():
+    return jax.tree_util.tree_map(
+        np.asarray, jclip.init_params(_long(jcfg), jax.random.PRNGKey(1)))
+
+
+@pytest.mark.parametrize("attn_impl", ["auto", "xla", "pallas", "plain"])
+def test_encoder_attn_impl_matches_clipx(long_params, attn_impl,
+                                         monkeypatch):
+    """Encoder(attn_impl=...) at S = 101 against clipx's Encoder with the
+    same value: images through the route it picks, texts always through
+    "xla" (the 77-token tower), as in clipx."""
+    seen = []
+    real = tclip.encode_text
+    monkeypatch.setattr(tclip, "encode_text", lambda *a, **k: (
+        seen.append(k["attn_impl"]), real(*a, **k))[1])
+    ref = JEncoder(_long(jcfg), long_params, attn_impl=attn_impl,
+                   batch_buckets=(2,))
+    ours = TEncoder(_long(tcfg), long_params, device="cpu",
+                    attn_impl=attn_impl, batch_buckets=(2,))
+    assert ours.attn_impl == ref.attn_impl
+    images = np.random.RandomState(3).randint(0, 256, (2, 160, 160, 3),
+                                              dtype=np.uint8)
+    np.testing.assert_allclose(ours.encode_images(images),
+                               ref.encode_images(images), atol=TOL, rtol=0)
+    texts = ["a photo of a cat", "two dogs"]
+    np.testing.assert_allclose(ours.encode_texts(texts),
+                               ref.encode_texts(texts), atol=TOL, rtol=0)
+    assert seen == ["xla"]
+
+
+@pytest.mark.parametrize("attn_impl,kernel", [("auto", "fused_sdpa_long"),
+                                              ("pallas", "flash_attention")])
+def test_encoder_routes_the_long_tower(long_params, monkeypatch, attn_impl,
+                                       kernel):
+    """The image tower's two layers reach one long kernel each; the text
+    tower reaches neither."""
+    from clipx_torch.ops import flash_attention as tfa
+
+    calls = []
+    for mod, name in ((tps, "fused_sdpa_long"), (tfa, "flash_attention")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, _r=real, **k: (
+            calls.append(_n), _r(*a, **k))[1])
+    enc = TEncoder(_long(tcfg), long_params, device="cpu",
+                   attn_impl=attn_impl, batch_buckets=(1,))
+    enc.encode_images(np.zeros((1, 160, 160, 3), np.uint8))
+    assert calls == [kernel, kernel]
+    calls.clear()
+    enc.encode_texts(["a cat"])
+    assert calls == []
+
+
+def test_encoder_refuses_an_unknown_attn_impl():
+    with pytest.raises(ValueError, match="attn_impl"):
+        TEncoder.create("tiny-test", device="cpu", attn_impl="flash")
+
+
+def test_qkv_routes_read_the_encoders_packed_weights(long_params,
+                                                     monkeypatch):
+    """Under CLIPX_PACKED_SDPA=qkv the packed projection of each layer is
+    the Encoder's stored [wq | wk | wv] (no second copy), and wq/wk/wv are
+    views into it."""
+    from clipx_torch.models import layers as tlayers
+
+    monkeypatch.setenv("CLIPX_PACKED_SDPA", "qkv")
+    enc = TEncoder(_long(tcfg), long_params, device="cpu",
+                   batch_buckets=(2,))
+    attn = enc.params["visual"]["blocks"]["attn"]
+    w = attn["wq"].shape[-1]
+    for i, name in enumerate(("wq", "wk", "wv")):
+        assert attn[name].data_ptr() == attn["wqkv"][:, :, i * w].data_ptr()
+    packed = []
+    real = tlayers.dense
+    monkeypatch.setattr(tlayers, "dense", lambda x, wt, b=None: (
+        packed.append(wt.data_ptr()) if wt.shape[-1] == 3 * w else None,
+        real(x, wt, b))[1])
+    launches = dict(tps.LAUNCHES)
+    enc.encode_images(np.zeros((2, 160, 160, 3), np.uint8))
+    assert packed == [attn["wqkv"][i].data_ptr() for i in range(2)]
+    assert tps.LAUNCHES == launches
