@@ -9,10 +9,12 @@ these phases, printing one JSON line per phase:
               limit, which optional host packages import.
 2. kernels  — each kernel at the shapes the main path gives it, against its
               plain PyTorch version on the card (stated bf16 tolerance and
-              an f32 plain run for the attention kernels; bitwise for the
-              PQ scan, and packed_sdpa_qkv against packed_sdpa); CUDA-event
-              medians of the kernel, the plain version and one PyTorch
-              library call, and their device times from torch.profiler.
+              an f32 plain run for the attention kernels, B5 and B7;
+              bitwise for the PQ scan, packed_sdpa_qkv against packed_sdpa
+              and B6's first-stage int8 codes, B6's output within 1e-2 of
+              max|ref|); CUDA-event medians of the kernel, the plain
+              version and one PyTorch library call, and their device times
+              from torch.profiler.
 3. encode   — the Encoder at ViT-B/32 full width (seeded random weights):
               1,024 seeded images in batches of 128, then one batch of 1;
               launch counts checked; a few images against the port's CPU f32
@@ -29,6 +31,14 @@ these phases, printing one JSON line per phase:
 7. profile  — torch.profiler over two 128-image encodes: device time by
               kernel name, and the card's busy share of the host's wall
               per batch without the profiler (and with it).
+   int8     — --compute int8 at ViT-B/32: 1,024 images and a batch of 1
+              with CLIPX_FUSED_MLP_INT8=on (fused_mlp_w8a8) and without,
+              against the CPU's f32 int8 encode; CLIPX_INT8_ATTN/PATCH
+              (packed_sdpa_rows, packed_sdpa); ViT-L/14@336px int8 (no
+              fused MLP there); a profile of one int8 batch.
+   fused    — ViT-B/32 under CLIPX_FUSED_MLP=on (fused_mlp in both towers,
+              text p50) and CLIPX_PACKED_SDPA=sublayer
+              (fused_attn_sublayer), 1,024 images each, against the CPU.
 8. long     — ViT-L/14@336px at full width (S = 577): 256 seeded 336 x 336
               images in batches of 128, then one batch of 1, checked
               against the port's CPU f32 encode; text p50 of its 768-wide
@@ -40,14 +50,16 @@ these phases, printing one JSON line per phase:
               call with its launch counts checked.
 9. cli      — build_index and a scripted query_index REPL at ViT-B/32 on a
               few fixture images, then the same with --corpus-dtype pq,
-              then both at --model ViT-L/14@336px (only when PIL or cv2
-              imports).
+              with --compute int8 (CLIPX_FUSED_MLP_INT8=on), then both at
+              --model ViT-L/14@336px (only when PIL or cv2 imports).
 
-Phases 3-6 are the main path of ViT-B/32, phase 8 that of the long towers:
-every launch count is set to 0 just before each and read just after it,
-and every kernel must have been launched on one of them. The line before
-the last lists every kernel ({"kernels": [...]}) with the sum of those
-counts; the last line is
+Phases 3-6 are the main path of ViT-B/32 (which must launch none of the
+opt-in kernels B5-B7), phases int8 and fused its opt-in routes, phase 8
+the long towers' path: every launch count is set to 0 just before each
+and read just after it, and every kernel must have been launched on one
+of them. Then one line gives each phase's seconds, one lists every kernel
+({"kernels": [...]}) with the sum of those counts, and one the card's
+name and power limit; the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the run exits
 non-zero and prints no result line; so does a machine without a GPU, or a
 directory without the clipx_torch package beside this script.
@@ -317,21 +329,24 @@ def phase_kernels(device) -> dict:
           "packed_sdpa and packed_sdpa_rows disagree")
     results.update(_kernels_long(device, gen))
     results["pq_scan_scores"] = _kernel_b11(device)
+    results.update(_kernels_mlp(device, gen))
     emit({"phase": "kernels", "build_s": build_s, "ptxas": ptxas,
           "tolerance": {"vs_plain": [ATOL_PLAIN, RTOL_PLAIN],
                         "vs_f32": [ATOL_F32, RTOL_F32],
                         "packed_sdpa_qkv": "bitwise vs packed_sdpa",
-                        "pq_scan_scores": "bitwise"},
+                        "pq_scan_scores": "bitwise",
+                        "fused_mlp_w8a8": "first-stage codes and scales "
+                        f"bitwise; output within {W8A8_REL} x max|ref|"},
           "results": results})
     return results
 
 
 def _attn_check(name, kernel, plain, plain_f32, library=None, *, flops=0,
                 nbytes=0) -> dict:
-    """One attention kernel against its plain version on the same bf16
-    inputs (ATOL_PLAIN/RTOL_PLAIN) and against an f32 plain run on the
-    upcast inputs (ATOL_F32/RTOL_F32); with a library yardstick, also the
-    times and the bound of this shape."""
+    """One bf16 kernel (attention, or B5's and B7's GEMMs) against its
+    plain version on the same bf16 inputs (ATOL_PLAIN/RTOL_PLAIN) and
+    against an f32 plain run on the upcast inputs (ATOL_F32/RTOL_F32); with
+    a library yardstick, also the times and the bound of this shape."""
     out = kernel()
     ref = plain()
     truth = plain_f32()
@@ -529,6 +544,123 @@ def _kernel_b11(device) -> dict:
     return info
 
 
+# B6 against its plain version: clipx's fused-versus-unfused bound
+# (tests/test_flash_attention.py:280-281). The first stage's codes are
+# bitwise; an activation a few ulps off can round a later code the other way
+W8A8_REL = 1e-2
+MLP_ROWS = 128 * 50   # ViT-B/32's token rows at the indexing batch
+
+
+def _kernels_mlp(device, gen) -> dict:
+    """B5 fused_attn_sublayer at ViT-B/32's (128, 50, 768) / 12 heads; B7
+    fused_mlp and B6 fused_mlp_w8a8 at its MLP, 6,400 rows x 768 -> 3,072
+    (QuickGELU), and at 3 x 33 rows. Library yardsticks (never called by
+    the port): B5 layer_norm + addmm + SDPA + addmm + add; B7 addmm +
+    quick_gelu + addmm; B6 the unfused dense_w8a8 pair on torch._int_mm."""
+    import torch.nn.functional as F
+
+    from clipx_torch.models import layers, quant
+    from clipx_torch.ops import packed_sdpa as ps
+
+    res = {}
+    b, s, w, h = 128, 50, 768, VIT_B32_HEADS
+    x = _bf16(gen, (b, s, w), 1.0, device)
+    ln_s = (1.0 + 0.1 * torch.randn(w, generator=gen)).to(device)
+    ln_b = (0.05 * torch.randn(w, generator=gen)).to(device)
+    wqkv = _bf16(gen, (w, 3 * w), 0.03, device)
+    wo = _bf16(gen, (w, w), 0.03, device)
+    bqkv = (torch.randn(3 * w, generator=gen) * 0.01).to(device)
+    bo = (torch.randn(w, generator=gen) * 0.01).to(device)
+    args = (x, ln_s, ln_b, wqkv, bqkv, wo, bo)
+    ln16, lb16, bqkv16, bo16 = (t.to(torch.bfloat16)
+                                for t in (ln_s, ln_b, bqkv, bo))
+
+    def lib_b5():
+        y = F.layer_norm(x, (w,), ln16, lb16, 1e-5)
+        qkv = torch.addmm(bqkv16, y.view(b * s, w), wqkv)
+        q, k, v = qkv.view(b, s, 3, h, 64).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v)
+        return x + torch.addmm(bo16, o.transpose(1, 2).reshape(b * s, w),
+                               wo).view(b, s, w)
+
+    res["fused_attn_sublayer"] = _attn_check(
+        "fused_attn_sublayer", lambda: ps.fused_attn_sublayer(*args, heads=h),
+        lambda: ps.fused_attn_sublayer_plain(*args, heads=h),
+        lambda: ps.fused_attn_sublayer_plain(*_f32(*args), heads=h), lib_b5,
+        flops=2 * b * s * w * 4 * w + _attn_flops(b, h, s, 64),
+        nbytes=2 * b * s * w * 2 + 4 * w * w * 2 + 6 * w * 4)
+    del x, args, wqkv, wo
+
+    hid = 4 * w
+    w1 = (torch.randn((w, hid), generator=gen) * 0.03).to(device)
+    w2 = (torch.randn((hid, w), generator=gen) * 0.03).to(device)
+    b1 = (torch.randn(hid, generator=gen) * 0.01).to(device)
+    b2 = (torch.randn(w, generator=gen) * 0.01).to(device)
+    w1_16, w2_16, b1_16, b2_16 = (t.to(torch.bfloat16)
+                                  for t in (w1, w2, b1, b2))
+    (w1_q, s1), (w2_q, s2) = quant.quantize_weight(w1), quant.quantize_weight(
+        w2)
+    qargs = (w1_q, s1, b1, w2_q, s2, b2)
+    x = _bf16(gen, (MLP_ROWS, w), 1.0, device)
+    odd = _bf16(gen, (3, 33, w), 1.0, device)
+
+    # B7, then the odd row count (checks only)
+    def b7(t):
+        return lambda: ps.fused_mlp(t, w1_16, b1, w2_16, b2)
+
+    def b7_plain(t):
+        return lambda: ps.fused_mlp_plain(t, w1_16, b1, w2_16, b2)
+
+    def lib_b7():
+        a = layers.quick_gelu(torch.addmm(b1_16, x, w1_16))
+        return torch.addmm(b2_16, a, w2_16)
+
+    res["fused_mlp"] = _attn_check(
+        "fused_mlp", b7(x), b7_plain(x),
+        lambda: ps.fused_mlp_plain(x.float(), w1_16.float(), b1,
+                                   w2_16.float(), b2), lib_b7,
+        flops=4 * MLP_ROWS * w * hid,
+        nbytes=2 * MLP_ROWS * w * 2 + 2 * w * hid * 2 + (hid + w) * 4)
+    res["fused_mlp"]["odd_rows"] = _attn_check(
+        "fused_mlp 3x33", b7(odd), b7_plain(odd),
+        lambda: ps.fused_mlp_plain(odd.float(), w1_16.float(), b1,
+                                   w2_16.float(), b2))
+
+    # B6: the first stage's codes and scales bitwise, the output within
+    # W8A8_REL of max|ref|, at both row counts
+    cases = {}
+    for tag, t in (("rows_6400", x), ("rows_3x33", odd.reshape(-1, w))):
+        out, xq, xs = ps.launch_mlp_w8a8(t, *qargs, quick=True)
+        ref = ps.fused_mlp_w8a8_plain(t, *qargs, quick=True)
+        ref_q, ref_s = quant.quantize_rows(t.float())
+        torch.cuda.synchronize()
+        check(torch.equal(xq, ref_q) and torch.equal(xs, ref_s.reshape(-1)),
+              f"fused_mlp_w8a8 {tag}: first-stage codes differ from plain")
+        err = float((out.float() - ref.float()).abs().max())
+        cases[tag] = {"max_abs_err": err,
+                      "max_abs_ref": float(ref.float().abs().max()),
+                      "codes_equal": True}
+        check(bool(torch.isfinite(out.float()).all())
+              and err <= W8A8_REL * cases[tag]["max_abs_ref"],
+              f"fused_mlp_w8a8 {tag} vs plain: max err {err}")
+
+    def lib_b6():
+        a = layers.quick_gelu(quant.dense_w8a8(x, w1_q, s1, b1))
+        return quant.dense_w8a8(a, w2_q, s2, b2)
+
+    ops = 4 * MLP_ROWS * w * hid
+    nbytes = 2 * MLP_ROWS * w * 2 + 2 * w * hid + 2 * (hid + w) * 4
+    bms, by = bound(ops, nbytes, PEAK_INT8_OPS)
+    res["fused_mlp_w8a8"] = {
+        "shape": [MLP_ROWS, w, hid], "max_abs_err": cases["rows_6400"][
+            "max_abs_err"], "cases": cases,
+        **_times(lambda: ps.fused_mlp_w8a8(x, *qargs),
+                 lambda: ps.fused_mlp_w8a8_plain(x, *qargs), lib_b6),
+        "bound_ms": bms, "bound_by": by, "ops": ops, "bytes": nbytes}
+    torch.cuda.empty_cache()
+    return res
+
+
 KERNEL_TABLE = (
     # name, source, the Pallas kernel it replaces
     ("fused_attn_block", "clipx_torch/csrc/attn_block.cu",
@@ -547,6 +679,12 @@ KERNEL_TABLE = (
      "clipx/ops/flash_attention.py:64"),
     ("pq_scan_scores", "clipx_torch/csrc/pq_scan.cu",
      "clipx/ops/pq_scan.py:106"),
+    ("fused_attn_sublayer", "clipx_torch/csrc/attn_block.cu",
+     "clipx/ops/packed_sdpa.py:261"),
+    ("fused_mlp_w8a8", "clipx_torch/csrc/mlp.cu",
+     "clipx/ops/packed_sdpa.py:458"),
+    ("fused_mlp", "clipx_torch/csrc/mlp.cu",
+     "clipx/ops/packed_sdpa.py:504"),
 )
 
 
@@ -571,6 +709,8 @@ def kernels_line(results: dict, launches: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 N_IMAGES, BATCH, CPU_CHECK = 1024, 128, 4
+# the kernels that only opt-in routes launch (B5, B6, B7)
+OPT_IN_KERNELS = ("fused_attn_sublayer", "fused_mlp", "fused_mlp_w8a8")
 CORPUS_ROWS, DIM, K, NQ = 1_000_000, 512, 50, 16
 COS_MIN = 0.99        # card bf16 vs CPU f32 embeddings of the same images
 NEAR_DUP_ATOL = 5e-4  # the near-duplicate exception tests/test_quality_gate pins
@@ -628,7 +768,7 @@ def phase_encode(enc, images: np.ndarray) -> dict:
             "cos_vs_cpu_f32_min": float(cos.min()), "cos_tolerance": COS_MIN,
             "cos_batch1_vs_batch128": cos_one}
     emit(info)
-    return {"embs": embs, "info": info}
+    return {"embs": embs, "info": info, "cpu_ref": ref}
 
 
 def text_latency(enc) -> dict:
@@ -921,8 +1061,10 @@ def _kernel_class(name: str) -> str:
     low = name.lower()
     if "long_sdpa" in low:
         return "long_sdpa (B8/B9/B10)"
-    if "short_sdpa" in low or "gemm_bias" in low:
-        return "short_sdpa / hand GEMM (B1-B4, B9)"
+    if "gemm_s8" in low or "quant_rows" in low:
+        return "int8 GEMM / row quantizer (B6)"
+    if "short_sdpa" in low or "gemm_bias" in low or "layernorm_rows" in low:
+        return "short_sdpa / hand GEMM / LayerNorm (B1-B5, B7, B9)"
     if "pq_scan" in low:
         return "pq_scan (B11)"
     if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
@@ -975,6 +1117,147 @@ def phase_profile(enc, images: np.ndarray, encode_info: dict) -> dict:
             "wall_ms_per_batch_encode_phase": wall_encode,
             "device_busy_share_encode_phase":
                 prof["device_ms_per_batch"] / wall_encode}
+    emit(info)
+    return info
+
+
+# ---------------------------------------------------------------------------
+# phases int8 and fused: the opt-in routes of ViT-B/32
+# ---------------------------------------------------------------------------
+
+INT8_ATTN_GATE = 0.98  # clipx's drift gate with INT8_ATTN/PATCH (test_quant)
+
+
+def _encode_all(enc, images: np.ndarray, expect: dict, what: str):
+    """encode_images of every BATCH-image batch, timed, each batch's
+    launches checked against ``expect``; (embeddings, img/s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runs = [_launched(lambda i=i: enc.encode_images(images[i: i + BATCH]))
+            for i in range(0, len(images), BATCH)]
+    secs = time.perf_counter() - t0
+    for _, n in runs:
+        check(n == expect, f"{what}: a batch launched {n}, expected {expect}")
+    embs = np.concatenate([e for e, _ in runs])
+    _unit_rows(embs, enc.embed_dim, what)
+    return embs, len(images) / secs
+
+
+def phase_int8(device, images: np.ndarray, base: np.ndarray) -> dict:
+    """--compute int8 at ViT-B/32 (seeded random weights): 1,024 images in
+    batches of 128 and one batch of 1 with CLIPX_FUSED_MLP_INT8=on (B6 12
+    times a batch), against the port's CPU f32 int8 encode of the same
+    weights (cosine >= COS_MIN) and beside the card's bf16 encode
+    (``base``); the same unfused; CLIPX_INT8_ATTN/PATCH on 8 images and 1
+    (packed_sdpa_rows, packed_sdpa); ViT-L/14@336px int8, one batch of 128
+    (not fusible: no B6); a profile of one 128-image encode."""
+    from clipx_torch import config as config_lib
+    from clipx_torch.models import convert
+    from clipx_torch.runtime.encoder import Encoder
+
+    layers = 12
+    enc = Encoder.create("ViT-B/32", seed=SEED, device=device,
+                         compute_quant="int8")
+    cpu = Encoder.create("ViT-B/32", seed=SEED, device="cpu",
+                         compute_quant="int8", batch_buckets=(CPU_CHECK,))
+    ref = cpu.encode_images(images[:CPU_CHECK])
+    del cpu
+    info = {"phase": "int8", "model": "ViT-B/32", "images": len(images),
+            "batch": BATCH}
+    with _env("CLIPX_FUSED_MLP_INT8", "on"):
+        enc.warmup(buckets=(1, BATCH))
+        embs, info["img_per_s_fused"] = _encode_all(
+            enc, images, {"fused_attn_block": layers,
+                          "fused_mlp_w8a8": layers}, "int8 fused")
+        t0 = time.perf_counter()
+        one, n = _launched(lambda: enc.encode_images(images[:1]))
+        info["batch1_ms_fused"] = (time.perf_counter() - t0) * 1e3
+        check(n == {"packed_sdpa": layers, "fused_mlp_w8a8": layers},
+              f"int8 fused batch of 1 launched {n}")
+        info["profile_fused"] = encode_profile(enc, images[:BATCH], reps=1,
+                                               plain_reps=4)
+    info["cos_vs_cpu_f32_int8_min"] = _cos_min(ref, embs[:CPU_CHECK])
+    info["cos_vs_card_bf16_min"] = _cos_min(embs, base)
+    info["cos_batch1_vs_batch128"] = float(one[0] @ embs[0])
+    check(info["cos_vs_cpu_f32_int8_min"] >= COS_MIN,
+          f"int8 card vs CPU f32 int8 cosine {info['cos_vs_cpu_f32_int8_min']}")
+    with _env("CLIPX_FUSED_MLP_INT8", "off"):
+        enc.warmup(buckets=(BATCH,))
+        unfused, info["img_per_s_unfused"] = _encode_all(
+            enc, images, {"fused_attn_block": layers}, "int8 unfused")
+    info["cos_unfused_vs_fused_min"] = _cos_min(unfused, embs)
+    check(info["cos_unfused_vs_fused_min"] >= COS_MIN,
+          f"int8 unfused vs fused cosine {info['cos_unfused_vs_fused_min']}")
+    del enc
+
+    # W8A8 attention projections and patch embedding
+    with _env("CLIPX_INT8_ATTN", "on"), _env("CLIPX_INT8_PATCH", "on"):
+        enc = Encoder.create("ViT-B/32", seed=SEED, device=device,
+                             compute_quant="int8")
+    few = images[:ROUTE_IMAGES]
+    out, n8 = _launched(lambda: enc.encode_images(few))
+    one, n1 = _launched(lambda: enc.encode_images(few[:1]))
+    check(n8 == {"packed_sdpa_rows": layers} and n1 == {"packed_sdpa": layers},
+          f"INT8_ATTN launched {n8} for {ROUTE_IMAGES} images and {n1} for 1")
+    _unit_rows(out, enc.embed_dim, "int8 attn/patch")
+    info["int8_attn_patch"] = {
+        "launches_batch8": n8, "launches_batch1": n1,
+        "cos_vs_card_bf16_min": _cos_min(out, base[:ROUTE_IMAGES]),
+        "cos_batch1_vs_batch8": float(one[0] @ out[0])}
+    check(info["int8_attn_patch"]["cos_vs_card_bf16_min"] > INT8_ATTN_GATE,
+          f"int8 attn/patch drift {info['int8_attn_patch']}")
+    del enc
+    torch.cuda.empty_cache()
+
+    # ViT-L/14@336px: the MLP is not fusible there, so no B6
+    cfg = config_lib.get_config(LONG_MODEL)
+    size = cfg.vision.image_size
+    with _env("CLIPX_FUSED_MLP_INT8", "on"):
+        enc = Encoder(cfg, convert.init_params(cfg, SEED), device=device,
+                      compute_quant="int8", batch_buckets=(BATCH,))
+        enc.warmup()
+        long_images = np.random.default_rng(SEED + 1).integers(
+            0, 256, (BATCH, size, size, 3), dtype=np.uint8)
+        _, info["long_img_per_s"] = _encode_all(
+            enc, long_images, {"fused_sdpa_long": cfg.vision.layers},
+            f"{LONG_MODEL} int8")
+    info["long_model"] = LONG_MODEL
+    del enc
+    torch.cuda.empty_cache()
+    emit(info)
+    return info
+
+
+def phase_fused(enc, images: np.ndarray, cpu_ref: np.ndarray) -> dict:
+    """ViT-B/32 bf16 under CLIPX_FUSED_MLP=on (B7 in both towers: 1,024
+    images, then the text p50) and under CLIPX_PACKED_SDPA=sublayer (B5 on
+    every even batch: 1,024 images, then a batch of 1 on packed_sdpa), each
+    against the CPU f32 encode of phase encode (cosine >= COS_MIN)."""
+    layers = enc.cfg.vision.layers
+    text_layers = enc.cfg.text.layers
+    info = {"phase": "fused", "model": "ViT-B/32", "images": len(images),
+            "batch": BATCH}
+    with _env("CLIPX_FUSED_MLP", "on"):
+        enc.warmup(buckets=(BATCH,))
+        embs, info["img_per_s_fused_mlp"] = _encode_all(
+            enc, images, {"fused_attn_block": layers, "fused_mlp": layers},
+            "CLIPX_FUSED_MLP")
+        _, n = _launched(lambda: enc.encode_texts(["a photo of a cat"]))
+        check(n == {"fused_mlp": text_layers},
+              f"CLIPX_FUSED_MLP text launched {n}")
+        info["text_fused_mlp"] = text_latency(enc)
+    info["cos_fused_mlp_vs_cpu_f32_min"] = _cos_min(cpu_ref,
+                                                    embs[:CPU_CHECK])
+    with _env("CLIPX_PACKED_SDPA", "sublayer"):
+        enc.warmup(buckets=(BATCH,))
+        embs, info["img_per_s_sublayer"] = _encode_all(
+            enc, images, {"fused_attn_sublayer": layers}, "sublayer")
+        _, n = _launched(lambda: enc.encode_images(images[:1]))
+        check(n == {"packed_sdpa": layers},
+              f"sublayer batch of 1 launched {n}")
+    info["cos_sublayer_vs_cpu_f32_min"] = _cos_min(cpu_ref, embs[:CPU_CHECK])
+    for key in ("cos_fused_mlp_vs_cpu_f32_min", "cos_sublayer_vs_cpu_f32_min"):
+        check(info[key] >= COS_MIN, f"{key} {info[key]}")
     emit(info)
     return info
 
@@ -1253,6 +1536,13 @@ def phase_cli(info_env: dict) -> dict:
         check(len(pq_rows) == 10 and shown(pq_rows) == shown(rows),
               f"pq result rows {pq_rows} differ from the f32 run's {rows}")
 
+        # --compute int8 with the fused W8A8 MLP (B6)
+        int8_work = os.path.join(tmp, "work_int8")
+        os.makedirs(int8_work)
+        int8_build_s, int8_query_s, int8_rows = _cli_build_and_query(
+            ["--device", "cuda", "--compute", "int8"], decode, photos,
+            int8_work, dict(env, CLIPX_FUSED_MLP_INT8="on"), 512)
+
         # the same photos at ViT-L/14@336px: the long-sequence kernels
         long_work = os.path.join(tmp, "work_long")
         os.makedirs(long_work)
@@ -1262,7 +1552,9 @@ def phase_cli(info_env: dict) -> dict:
     info = {"phase": "cli", "fixtures": backend, "build_s": build_s,
             "query_s": query_s, "result_rows": len(rows),
             "pq_build_s": pq_build_s, "pq_query_s": pq_query_s,
-            "pq_result_rows": len(pq_rows), "long_model": LONG_MODEL,
+            "pq_result_rows": len(pq_rows), "int8_build_s": int8_build_s,
+            "int8_query_s": int8_query_s, "int8_result_rows": len(int8_rows),
+            "long_model": LONG_MODEL,
             "long_build_s": long_build_s, "long_query_s": long_query_s,
             "long_result_rows": len(long_rows)}
     emit(info)
@@ -1324,38 +1616,61 @@ def main() -> int:
     device = torch.device("cuda", 0)
     from clipx_torch.ops import packed_sdpa as ps
 
+    start = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
     info = phase_env()
-    results = phase_kernels(device)
+    results = timed("kernels", phase_kernels, device)
     enc, setup_s = make_encoder(device)
     emit({"phase": "encoder_setup", "seconds": setup_s})
     images = np.random.default_rng(SEED).integers(
         0, 256, (N_IMAGES, 224, 224, 3), dtype=np.uint8)
     # the main path: counts from 0 just before it, read just after
     ps.reset_launches()
-    encoded = phase_encode(enc, images)
-    phase_text(enc)
-    search = phase_search(encoded["embs"], device)
-    phase_coded(search, device)
+    encoded = timed("encode", phase_encode, enc, images)
+    timed("text", phase_text, enc)
+    search = timed("search", phase_search, encoded["embs"], device)
+    timed("coded", phase_coded, search, device)
     launches = dict(ps.LAUNCHES)
     emit({"phase": "main_path_launches", "launches": launches})
     check(launches["fused_attn_block"] > 0 and launches["packed_sdpa"] > 0
           and launches["pq_scan_scores"] > 0,
           "a kernel of the main path was never launched")
-    phase_profile(enc, images, encoded["info"])
-    del enc, images, encoded, search
+    check(not any(launches[n] for n in OPT_IN_KERNELS),
+          "the default path launched an opt-in kernel")
+    timed("profile", phase_profile, enc, images, encoded["info"])
+    del search
+    # the opt-in routes: counts from 0 just before each, read just after
+    paths = [launches]
+    ps.reset_launches()
+    timed("int8", phase_int8, device, images, encoded["embs"])
+    paths.append(dict(ps.LAUNCHES))
+    emit({"phase": "int8_path_launches", "launches": paths[-1]})
+    ps.reset_launches()
+    timed("fused", phase_fused, enc, images, encoded["cpu_ref"])
+    paths.append(dict(ps.LAUNCHES))
+    emit({"phase": "fused_path_launches", "launches": paths[-1]})
+    del enc, images, encoded
     torch.cuda.empty_cache()
     # the long towers' path: counts from 0 just before it, read just after
     ps.reset_launches()
-    phase_long(device)
-    long_launches = dict(ps.LAUNCHES)
-    emit({"phase": "long_path_launches", "launches": long_launches})
-    for name in ("packed_sdpa_rows", "packed_sdpa_qkv", "fused_sdpa_long",
-                 "fused_sdpa_long_qkv", "flash_attention"):
-        check(long_launches[name] > 0,
+    timed("long", phase_long, device)
+    paths.append(dict(ps.LAUNCHES))
+    emit({"phase": "long_path_launches", "launches": paths[-1]})
+    total = {name: sum(p[name] for p in paths) for name in launches}
+    for name, _, _ in KERNEL_TABLE:
+        check(total[name] > 0,
               f"{name} was launched on no path, only in phase kernels")
-    phase_cli(info)
-    emit(kernels_line(results, {name: launches[name] + long_launches[name]
-                                for name in launches}))
+    timed("cli", phase_cli, info)
+    emit({"phase": "seconds", "by_phase": seconds,
+          "total": time.perf_counter() - start})
+    emit(kernels_line(results, total))
     print(info["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,8 @@ variables and the on-disk names are clipx's, so a command line (and a
 ``vectors.lmdb`` + ``images.index`` + ``images.index.codes`` set) works with
 either package. The port adds ``--device {cuda,cpu}`` (default ``cuda``; no
 GPU and no ``--device cpu`` is an error). Flag values whose code paths are
-not ported yet (``--search-mode ivf``, ``--compute int8``, ``--preprocess
-device``) exit with a message saying so.
+not ported yet (``--search-mode ivf``, ``--preprocess device``) exit with a
+message saying so.
 """
 
 from __future__ import annotations
@@ -33,7 +33,6 @@ QUANT_AUTO_THRESHOLD = 100_000
 # flag values accepted (clipx's choices) whose paths are not ported yet,
 # with the slice of the port (ROADMAP.md) that brings each
 _NOT_PORTED = {"search_mode": {"ivf": "slice 5"},
-               "compute": {"int8": "slice 4"},
                "preprocess": {"device": "a later slice"}}
 
 
@@ -48,8 +47,11 @@ def add_model_flags(parser: argparse.ArgumentParser) -> None:
                              "dict; random init when omitted")
     parser.add_argument("--compute", choices=("bf16", "int8"),
                         default=os.environ.get("CLIPX_COMPUTE") or None,
-                        help="encode arithmetic: bf16 (int8 W8A8 is not "
-                             "ported yet)")
+                        help="encode arithmetic: bf16 (default) or int8 "
+                             "W8A8 MLP GEMMs on the ViT image tower "
+                             "(clipx_torch/models/quant.py; the fused "
+                             "kernel under CLIPX_FUSED_MLP_INT8=on). Text "
+                             "encode stays bf16 either way")
     parser.add_argument("--db", default=os.environ.get("CLIPX_DB",
                                                        DEFAULT_DB_PATH))
     parser.add_argument("--index", default=os.environ.get("CLIPX_INDEX",
@@ -256,7 +258,8 @@ def make_encoder(args):
     from clipx_torch.runtime.encoder import Encoder
 
     enc = Encoder.create(args.model, checkpoint=args.checkpoint,
-                         device=args.device)
+                         device=args.device,
+                         compute_quant=getattr(args, "compute", None))
     if args.checkpoint is None and args.model != "tiny-test":
         print("(no checkpoint given — using randomly initialized weights; "
               "pass --checkpoint or set $CLIPX_CHECKPOINT for real "

@@ -1,9 +1,19 @@
-// bf16 tensor-core GEMM with an f32 bias epilogue, for Hopper (sm_90a).
+// bf16 tensor-core GEMM with f32 bias epilogues, for Hopper (sm_90a).
 //
-// Shared by attn_block.cu (the qkv and out projections of fused_attn_block)
-// and long_sdpa.cu (the out projection of fused_sdpa_long_qkv):
+// Shared by attn_block.cu (the qkv and out projections of fused_attn_block
+// and fused_attn_sublayer), long_sdpa.cu (the out projection of
+// fused_sdpa_long_qkv) and mlp.cu (both GEMMs of fused_mlp):
 //
-//     y[M, N] = bf16(x[M, K] @ w[K, N] + bias[N])      (f32 accumulate)
+//     t = x[M, K] @ w[K, N] + bias[N]                  (f32 accumulate)
+//     kEpiBias:      y = bf16(t)
+//     kEpiQuickGelu: y = bf16(a(f32(bf16(t)))), a(v) = v * sigmoid(1.702 v)
+//     kEpiGelu:      the same with the exact erf GELU
+//     kEpiResidual:  y = bf16(f32(res) + f32(bf16(t)))
+//
+// The activation and residual forms keep the Pallas kernels' rounding
+// points: fused_mlp rounds x @ w1 + b1 to bf16 before its f32 activation
+// (clipx/ops/packed_sdpa.py:379-389), fused_attn_sublayer rounds the out
+// projection before the residual add (:253-256).
 //
 // A 128-thread block computes a 64x64 output tile, each warp a 32x32
 // quarter, with mma.sync m16n8k16 bf16 -> f32 on 64x32 / 32x64 tiles staged
@@ -34,13 +44,37 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// y[M, N] = bf16(x[M, K] @ w[K, N] + bias[N]); all row-major and contiguous.
-// Needs K % 32 == 0 and N % 64 == 0 (the wrappers check); rows past M are
-// zero-filled on load and not stored.
+enum GemmEpilogue : int { kEpiBias = 0, kEpiQuickGelu = 1, kEpiGelu = 2, kEpiResidual = 3 };
+
+__device__ __forceinline__ float quick_gelu_f32(float v) {
+    return v * (1.f / (1.f + expf(-1.702f * v)));
+}
+
+__device__ __forceinline__ float gelu_erf_f32(float v) {
+    return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+}
+
+// The value an epilogue rounds to bf16, from the f32 accumulator, the bias
+// and (kEpiResidual) the residual element.
+template <int kEpi>
+__device__ __forceinline__ float gemm_epilogue(float acc, float bias, float res) {
+    const float t = acc + bias;
+    if constexpr (kEpi == kEpiBias) return t;
+    const float r = __bfloat162float(__float2bfloat16_rn(t));
+    if constexpr (kEpi == kEpiQuickGelu) return quick_gelu_f32(r);
+    if constexpr (kEpi == kEpiGelu) return gelu_erf_f32(r);
+    return res + r;
+}
+
+// y[M, N] = epilogue(x[M, K] @ w[K, N], bias[N], res[M, N]); all row-major
+// and contiguous (res is read only by kEpiResidual). Needs K % 32 == 0 and
+// N % 64 == 0 (the wrappers check); rows past M are zero-filled on load and
+// not stored.
+template <int kEpi>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_bias_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                 const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, int M, int N,
-                 int K) {
+                 const float* __restrict__ bias, const __nv_bfloat16* __restrict__ res,
+                 __nv_bfloat16* __restrict__ y, int M, int N, int K) {
     __shared__ __align__(16) __nv_bfloat16 as[kBM][kTilePitch];  // [m][k]
     __shared__ __align__(16) __nv_bfloat16 bs[kBN][kTilePitch];  // [n][k], transposed
 
@@ -110,30 +144,43 @@ gemm_bias_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __res
         __syncthreads();
     }
 
-    // epilogue: f32 accumulator + f32 bias, rounded once to bf16
+    // epilogue: f32 accumulator + f32 bias (and the activation or the
+    // residual), rounded once more to bf16
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) {
-            const int row = m0 + wm + mi * 16 + g;
             const int col = n0 + wn + ni * 8 + 2 * t;
             const float b0 = bias[col];
             const float b1 = bias[col + 1];
-            if (row < M)
-                *reinterpret_cast<__nv_bfloat162*>(y + (size_t)row * N + col) =
-                    __floats2bfloat162_rn(acc[mi][ni][0] + b0, acc[mi][ni][1] + b1);
-            if (row + 8 < M)
-                *reinterpret_cast<__nv_bfloat162*>(y + (size_t)(row + 8) * N + col) =
-                    __floats2bfloat162_rn(acc[mi][ni][2] + b0, acc[mi][ni][3] + b1);
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int row = m0 + wm + mi * 16 + g + 8 * half;
+                if (row >= M) continue;
+                const size_t at = (size_t)row * N + col;
+                float2 r = make_float2(0.f, 0.f);
+                if constexpr (kEpi == kEpiResidual)
+                    r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(res + at));
+                *reinterpret_cast<__nv_bfloat162*>(y + at) = __floats2bfloat162_rn(
+                    gemm_epilogue<kEpi>(acc[mi][ni][2 * half], b0, r.x),
+                    gemm_epilogue<kEpi>(acc[mi][ni][2 * half + 1], b1, r.y));
+            }
         }
     }
+}
+
+template <int kEpi>
+inline void launch_gemm(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* bias,
+                        const __nv_bfloat16* res, __nv_bfloat16* y, int M, int N, int K,
+                        cudaStream_t stream) {
+    const dim3 grid(N / kBN, (M + kBM - 1) / kBM);
+    gemm_bias_kernel<kEpi><<<grid, kGemmThreads, 0, stream>>>(x, w, bias, res, y, M, N, K);
 }
 
 inline void launch_gemm_bias(const __nv_bfloat16* x, const __nv_bfloat16* w,
                              const float* bias, __nv_bfloat16* y, int M, int N, int K,
                              cudaStream_t stream) {
-    const dim3 grid(N / kBN, (M + kBM - 1) / kBM);
-    gemm_bias_kernel<<<grid, kGemmThreads, 0, stream>>>(x, w, bias, y, M, N, K);
+    launch_gemm<kEpiBias>(x, w, bias, nullptr, y, M, N, K, stream);
 }
 
 }  // namespace clipx

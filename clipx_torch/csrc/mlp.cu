@@ -1,0 +1,91 @@
+// The transformer MLP for Hopper (sm_90a): fused_mlp (bf16) and
+// fused_mlp_w8a8 (W8A8), each one C call over (R, W) token rows.
+//
+// Replaces, in clipx/ops/packed_sdpa.py:
+// - fused_mlp (`_mlp_block_kernel`, :370; pallas_call at :530):
+//       h = bf16(x @ W1 + b1);  a = bf16(act(f32(h)));  y = bf16(a @ W2 + b2)
+//   with f32 accumulation, act QuickGELU (x * sigmoid(1.702 x)) or the exact
+//   erf GELU in f32. Two launches of gemm.cuh's bf16 GEMM: the first with
+//   the activation epilogue, the second with the bias epilogue.
+// - fused_mlp_w8a8 (`_mlp_w8a8_kernel`, :426; pallas_call at :485):
+//       xq, xs = quant_rows(f32(x))
+//       h = act(f32(xq @ W1q) * (xs * s1) + b1)        (f32)
+//       hq, hs = quant_rows(h)
+//       y = bf16(f32(hq @ W2q) * (hs * s2) + b2)
+//   Four launches: the row quantizer, the int8 GEMM of gemm_s8.cuh with the
+//   dequantize + activation epilogue into an f32 scratch, the quantizer
+//   again, the int8 GEMM with the dequantize epilogue.
+//
+// On the TPU one program held both weight matrices in VMEM and kept its
+// 128 rows' hidden tile on chip. Here the hidden layer makes one round trip
+// through L2/HBM: bf16 (R, H) for fused_mlp (39 MB at ViT-B/32, batch 128),
+// f32 plus int8 codes for fused_mlp_w8a8 (79 + 20 MB). The weights (4.7 MB
+// bf16, 2.4 MB int8 a layer at ViT-B/32) stay in the 50 MB L2 across blocks.
+//
+// What bounds them on this card, at ViT-B/32 batch 128 (R = 6,400, W = 768,
+// H = 3,072): 4 R W H = 60.4 G operations against ~24-29 MB of compulsory
+// traffic, so operations: 0.061 ms at the bf16 peak (989 TFLOP/s) and 0.031
+// ms at the int8 peak (1,979 TOP/s). mma.sync without a load pipeline, the
+// hidden round trip and the byte-wise transposed B tiles keep these first
+// versions far from that; wgmma with TMA-fed tiles and the hidden layer
+// kept on chip are the next step.
+//
+// C interface for ctypes; each entry returns cudaGetLastError() after its
+// launches.
+
+#include "gemm.cuh"
+#include "gemm_s8.cuh"
+
+// x: (R, W) bf16; w1: (W, H) bf16; b1: (H,) f32; w2: (H, W) bf16; b2: (W,)
+// f32; h_buf: (R, H) bf16 scratch; out: (R, W) bf16. W % 64 == 0,
+// H % 64 == 0. quick: 1 for QuickGELU, 0 for the erf GELU.
+extern "C" int clipx_fused_mlp(const void* x, const void* w1, const void* b1, const void* w2,
+                               const void* b2, void* h_buf, void* out, int rows, int width,
+                               int hidden, int quick, void* stream) {
+    using bf16 = __nv_bfloat16;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    bf16* h = static_cast<bf16*>(h_buf);
+    if (quick)
+        clipx::launch_gemm<clipx::kEpiQuickGelu>(
+            static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+            static_cast<const float*>(b1), nullptr, h, rows, hidden, width, st);
+    else
+        clipx::launch_gemm<clipx::kEpiGelu>(
+            static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+            static_cast<const float*>(b1), nullptr, h, rows, hidden, width, st);
+    clipx::launch_gemm_bias(h, static_cast<const bf16*>(w2), static_cast<const float*>(b2),
+                            static_cast<bf16*>(out), rows, width, hidden, st);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// x: (R, W) bf16; w1q: (W, H) int8, s1, b1: (H,) f32; w2q: (H, W) int8,
+// s2, b2: (W,) f32; scratch xq: (R, W) int8, xs: (R,) f32, h: (R, H) f32,
+// hq: (R, H) int8, hs: (R,) f32; out: (R, W) bf16. W % 64 == 0,
+// H % 64 == 0.
+extern "C" int clipx_fused_mlp_w8a8(const void* x, const void* w1q, const void* s1,
+                                    const void* b1, const void* w2q, const void* s2,
+                                    const void* b2, void* xq, void* xs, void* h, void* hq,
+                                    void* hs, void* out, int rows, int width, int hidden,
+                                    int quick, void* stream) {
+    using bf16 = __nv_bfloat16;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    int8_t* xq8 = static_cast<int8_t*>(xq);
+    int8_t* hq8 = static_cast<int8_t*>(hq);
+    float* xsf = static_cast<float*>(xs);
+    float* hsf = static_cast<float*>(hs);
+    float* hf = static_cast<float*>(h);
+    clipx::launch_quant_rows(static_cast<const bf16*>(x), xq8, xsf, rows, width, st);
+    if (quick)
+        clipx::launch_gemm_s8<clipx::kS8QuickGelu, float>(
+            xq8, static_cast<const int8_t*>(w1q), xsf, static_cast<const float*>(s1),
+            static_cast<const float*>(b1), hf, rows, hidden, width, st);
+    else
+        clipx::launch_gemm_s8<clipx::kS8Gelu, float>(
+            xq8, static_cast<const int8_t*>(w1q), xsf, static_cast<const float*>(s1),
+            static_cast<const float*>(b1), hf, rows, hidden, width, st);
+    clipx::launch_quant_rows(static_cast<const float*>(hf), hq8, hsf, rows, hidden, st);
+    clipx::launch_gemm_s8<clipx::kS8Bf16, bf16>(
+        hq8, static_cast<const int8_t*>(w2q), hsf, static_cast<const float*>(s2),
+        static_cast<const float*>(b2), static_cast<bf16*>(out), rows, width, hidden, st);
+    return static_cast<int>(cudaGetLastError());
+}

@@ -50,8 +50,14 @@ def encode_image(params: Params, cfg: CLIPConfig, pixels: torch.Tensor, *,
         raise NotImplementedError("ResNet towers are not ported yet")
     v = cfg.vision
     p = params["visual"]
-    x = dense(patchify(pixels.to(dtype), v.patch_size),
-              p["patch_embed"]["kernel"])
+    x = patchify(pixels.to(dtype), v.patch_size)
+    pe = p["patch_embed"]
+    if "kernel_q" in pe:  # W8A8 (CLIPX_INT8_PATCH, models.quant)
+        from clipx_torch.models.quant import dense_w8a8
+
+        x = dense_w8a8(x, pe["kernel_q"], pe["scale"])
+    else:
+        x = dense(x, pe["kernel"])
     cls = p["class_embedding"].to(dtype).expand(x.shape[0], 1, v.width)
     x = torch.cat([cls, x], dim=1)
     x = x + p["pos_embedding"].to(dtype)

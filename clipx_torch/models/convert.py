@@ -343,21 +343,34 @@ def init_params(cfg: CLIPConfig, seed: int = 0) -> Params:
 
 def from_jax_params(tree: Params, cfg: CLIPConfig | None = None,
                     device="cpu", dtype: torch.dtype = torch.float32) -> Params:
-    """clipx's param tree (numpy arrays, or anything ``np.asarray`` takes)
-    -> the same tree of torch tensors on ``device``. Arrays of rank >= 2
-    are cast to ``dtype`` (the compute dtype) and rank 0-1 arrays stay
-    f32: clipx's Encoder rule. Note that it makes the stacked per-layer
-    biases and LayerNorm params (rank 2) bf16 in a bf16 Encoder, in both
-    packages; they are upcast to f32 where they are used. ``cfg`` is
-    accepted for symmetry with the converters; the tree carries its own
-    shapes."""
+    """clipx's param tree (numpy arrays, tensors, or anything
+    ``np.asarray`` takes) -> the same tree of torch tensors on ``device``.
+    Arrays of rank >= 2 are cast to ``dtype`` (the compute dtype) and rank
+    0-1 arrays stay f32: clipx's Encoder rule. Note that it makes the
+    stacked per-layer biases and LayerNorm params (rank 2) bf16 in a bf16
+    Encoder, in both packages; they are upcast to f32 where they are used.
+    int8 leaves (the W8A8 weights of ``models.quant``) stay int8, and so
+    that the rest of a quantized group (a dict holding a ``*_q`` key: its
+    scales and biases) stays f32, as clipx's Encoder reattaches those groups
+    after its bf16 cast. ``cfg`` is accepted for symmetry with the
+    converters; the tree carries its own shapes."""
     del cfg
+    quantized = any(key.endswith("_q") for key in tree)
     out: Params = {}
     for key, val in tree.items():
         if isinstance(val, dict):
             out[key] = from_jax_params(val, None, device, dtype)
             continue
-        t = torch.from_numpy(np.array(val, dtype=np.float32))
+        if isinstance(val, torch.Tensor):
+            t = val.detach()
+        else:
+            a = np.asarray(val)
+            t = torch.from_numpy(np.array(
+                a, dtype=np.int8 if a.dtype == np.int8 else np.float32))
+        if t.dtype == torch.int8:
+            out[key] = t.to(device=device)
+            continue
+        keep_f32 = quantized or t.dim() < 2
         out[key] = t.to(device=device,
-                        dtype=dtype if t.dim() >= 2 else torch.float32)
+                        dtype=torch.float32 if keep_f32 else dtype)
     return out

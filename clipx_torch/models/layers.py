@@ -15,13 +15,18 @@ bias before its one rounding): a bf16-level difference, inside the stated
 tolerances. In f32 the two agree.
 
 Attention takes clipx's dispatch (``mha_block``): the same size rules,
-the ``CLIPX_PACKED_SDPA`` variants and ``attn_impl``, so both packages run
-the same kernel for every shape. ``CLIPX_PACKED_SDPA=sublayer`` is refused
-where clipx would run ``fused_attn_sublayer`` (not ported yet).
+the ``CLIPX_PACKED_SDPA`` variants (``sublayer`` included, which
+``residual_block`` sends through ``fused_attn_sublayer``) and ``attn_impl``,
+so both packages run the same kernel for every shape. The MLP takes
+clipx's too (``mlp_block``): ``CLIPX_FUSED_MLP=on`` sends it through
+``fused_mlp`` where ``mlp_fusible`` allows it (ViT-B/32 in bf16, not in
+f32), and params quantized by ``models.quant`` (``w1_q``, ``wq_q``) run
+W8A8, through ``fused_mlp_w8a8`` under ``CLIPX_FUSED_MLP_INT8=on``. clipx
+takes the kernels only on a TPU; the port takes them on every device (CUDA
+tensors launch them, CPU tensors reach their plain versions).
 
-Not carried over from clipx: the W8A8 branches, ``CLIPX_FUSED_MLP``,
-``CLIPX_ATTN_ROWS`` (a TPU tiling knob that does not change results), and
-``remat``.
+Not carried over from clipx: ``CLIPX_ATTN_ROWS`` (a TPU tiling knob that
+does not change results) and ``remat``.
 """
 
 from __future__ import annotations
@@ -116,6 +121,27 @@ def mha_block(x: torch.Tensor, p: Params, heads: int, *, causal: bool,
                          f"(one of {ATTN_IMPLS})")
     b, s, w = x.shape
     d = w // heads
+
+    def split(t):
+        return t.reshape(b, s, heads, d).permute(0, 2, 1, 3)
+
+    if "wq_q" in p:
+        # W8A8 projections (CLIPX_INT8_ATTN) around the SDPA-only kernels
+        from clipx_torch.models import quant
+
+        q = quant.dense_w8a8(x, p["wq_q"], p["sq"], p["bq"])
+        k = quant.dense_w8a8(x, p["wk_q"], p["sk"], p["bk"])
+        v = quant.dense_w8a8(x, p["wv_q"], p["sv"], p["bv"])
+        fits = s <= 64 and d == 64 and not causal
+        if fits and b % 2 == 0:
+            o = ps.packed_sdpa_rows(q, k, v, heads=heads)
+        elif fits and heads % 2 == 0:
+            o = ps.packed_sdpa(q, k, v, heads=heads)
+        else:
+            o = xla_attention(split(q), split(k), split(v), causal=causal)
+            o = o.permute(0, 2, 1, 3).reshape(b, s, w)
+        return quant.dense_w8a8(o, p["wo_q"], p["so"], p["bo"])
+
     use_packed = s <= 64 and d == 64 and (heads % 2 == 0 or b % 2 == 0)
     use_long = s > 64 and _round_up(s, 128) * w * 2 * 2 < 8 * 2 ** 20
     if not causal and (use_packed or use_long) and attn_impl == "xla":
@@ -146,9 +172,6 @@ def mha_block(x: torch.Tensor, p: Params, heads: int, *, causal: bool,
             o = ps.packed_sdpa(q, k, v, heads=heads)
         return dense(o, p["wo"], p["bo"])
 
-    def split(t):
-        return t.reshape(b, s, heads, d).permute(0, 2, 1, 3)
-
     q = split(dense(x, p["wq"], p["bq"]))
     k = split(dense(x, p["wk"], p["bk"]))
     v = split(dense(x, p["wv"], p["bv"]))
@@ -163,26 +186,63 @@ def mha_block(x: torch.Tensor, p: Params, heads: int, *, causal: bool,
     return dense(o, p["wo"], p["bo"])
 
 
+def _activation(h: torch.Tensor, use_quick_gelu: bool) -> torch.Tensor:
+    return (quick_gelu(h) if use_quick_gelu
+            else torch.nn.functional.gelu(h, approximate="none"))
+
+
 def mlp_block(x: torch.Tensor, p: Params, use_quick_gelu: bool) -> torch.Tensor:
-    h = dense(x, p["w1"], p["b1"])
-    h = (quick_gelu(h) if use_quick_gelu
-         else torch.nn.functional.gelu(h, approximate="none"))
+    """The MLP, clipx's dispatch (``clipx/models/layers.py:197-238``):
+    W8A8 when the params are quantized (``w1_q``), through
+    ``fused_mlp_w8a8`` under ``CLIPX_FUSED_MLP_INT8=on`` where
+    ``mlp_w8a8_fusible`` allows it; otherwise ``fused_mlp`` under
+    ``CLIPX_FUSED_MLP=on`` where ``mlp_fusible`` allows it for x's dtype;
+    else dense -> activation (in x's dtype) -> dense."""
+    from clipx_torch.ops import packed_sdpa as ps
+
+    if "w1_q" in p:
+        from clipx_torch.models import quant
+
+        w, hidden = p["w1_q"].shape
+        if (os.environ.get("CLIPX_FUSED_MLP_INT8", "off") == "on"
+                and ps.mlp_w8a8_fusible(w, hidden)):
+            return ps.fused_mlp_w8a8(x, p["w1_q"], p["s1"], p["b1"],
+                                     p["w2_q"], p["s2"], p["b2"],
+                                     quick=use_quick_gelu)
+        h = _activation(quant.dense_w8a8(x, p["w1_q"], p["s1"], p["b1"]),
+                        use_quick_gelu)
+        return quant.dense_w8a8(h, p["w2_q"], p["s2"], p["b2"])
+    w, hidden = p["w1"].shape
+    if (os.environ.get("CLIPX_FUSED_MLP", "off") == "on"
+            and ps.mlp_fusible(w, hidden, x.dtype)):
+        return ps.fused_mlp(x, p["w1"], p["b1"], p["w2"], p["b2"],
+                            quick=use_quick_gelu)
+    h = _activation(dense(x, p["w1"], p["b1"]), use_quick_gelu)
     return dense(h, p["w2"], p["b2"])
 
 
 def residual_block(x: torch.Tensor, p: Params, heads: int, *, causal: bool,
                    eps: float, use_quick_gelu: bool,
                    attn_impl: str = "xla") -> torch.Tensor:
-    """Pre-LN transformer block (the CLIP/GPT-2 layout)."""
+    """Pre-LN transformer block (the CLIP/GPT-2 layout). Under
+    ``CLIPX_PACKED_SDPA=sublayer`` an even-batch, S <= 64, D = 64 block
+    without quantized attention runs its attention sublayer (LayerNorm,
+    attention, residual add) as one ``fused_attn_sublayer``, as clipx's
+    ``residual_block`` does (``clipx/models/layers.py:247-261``)."""
     b, s, w = x.shape
     if (not causal and s <= 64 and w // heads == 64 and b % 2 == 0
-            and attn_impl == "xla" and sdpa_variant() == "sublayer"):
-        raise NotImplementedError(
-            "CLIPX_PACKED_SDPA=sublayer runs fused_attn_sublayer (B5) for "
-            "this shape, which clipx_torch does not port yet (ROADMAP.md: "
-            "the next slice); unset it or pick another variant")
-    x = x + mha_block(layer_norm(x, p["ln_1"], eps), p["attn"], heads,
-                      causal=causal, attn_impl=attn_impl)
+            and attn_impl == "xla" and "wq_q" not in p["attn"]
+            and sdpa_variant() == "sublayer"):
+        from clipx_torch.ops import packed_sdpa as ps
+
+        a = p["attn"]
+        wqkv, bqkv = fused_qkv(a)
+        x = ps.fused_attn_sublayer(x, p["ln_1"]["scale"], p["ln_1"]["bias"],
+                                   wqkv, bqkv, a["wo"], a["bo"], heads=heads,
+                                   eps=eps)
+    else:
+        x = x + mha_block(layer_norm(x, p["ln_1"], eps), p["attn"], heads,
+                          causal=causal, attn_impl=attn_impl)
     x = x + mlp_block(layer_norm(x, p["ln_2"], eps), p["mlp"], use_quick_gelu)
     return x
 

@@ -15,11 +15,14 @@ import torch
 LAUNCHES: Dict[str, int] = {"fused_attn_block": 0, "packed_sdpa": 0,
                             "packed_sdpa_rows": 0, "packed_sdpa_qkv": 0,
                             "fused_sdpa_long": 0, "fused_sdpa_long_qkv": 0,
-                            "flash_attention": 0, "pq_scan_scores": 0}
+                            "flash_attention": 0, "pq_scan_scores": 0,
+                            "fused_attn_sublayer": 0, "fused_mlp": 0,
+                            "fused_mlp_w8a8": 0}
 
 P = ctypes.c_void_p
 I = ctypes.c_int  # noqa: E741 (ctypes' own name)
 L = ctypes.c_longlong
+F = ctypes.c_float
 _fns: Dict[str, object] = {}
 
 
@@ -31,7 +34,7 @@ def reset_launches() -> None:
 def c_fn(lib_name: str, sym: str, argtypes):
     """``sym`` of lib<lib_name>.so (built at first use), with argtypes set:
     c_void_p for pointers and the stream, c_int for ints, c_longlong for
-    64-bit strides."""
+    64-bit strides, c_float for a float."""
     fn = _fns.get(sym)
     if fn is None:
         from clipx_torch.ops import _build

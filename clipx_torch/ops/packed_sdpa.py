@@ -1,10 +1,12 @@
-"""ViT attention: wrappers over the CUDA kernels in csrc/.
+"""ViT attention and MLP: wrappers over the CUDA kernels in csrc/.
 
-Counterpart of ``clipx/ops/packed_sdpa.py`` for its attention kernels:
+Counterpart of ``clipx/ops/packed_sdpa.py``:
 
 - ``fused_attn_block``    — qkv projection -> SDPA -> out projection, the
   whole sublayer between LayerNorm and the residual, S <= 64
   (``csrc/attn_block.cu``);
+- ``fused_attn_sublayer`` — ``x + fused_attn_block(LayerNorm(x))``, the whole
+  pre-LN attention sublayer on raw x (the same file);
 - ``packed_sdpa``         — SDPA only, (B, S, H*64) in and out, S <= 64,
   even heads (``csrc/short_sdpa.cu``);
 - ``packed_sdpa_rows``    — the same function, any heads, even batch (the
@@ -15,16 +17,24 @@ Counterpart of ``clipx/ops/packed_sdpa.py`` for its attention kernels:
 - ``fused_sdpa_long``     — SDPA for any S on (B, S, H*D), D in {32, 64,
   128}, optional causal mask (``csrc/long_sdpa.cu``);
 - ``fused_sdpa_long_qkv`` — ``fused_sdpa_long`` on a packed (B, S, 3W)
-  projection, then the out projection and its bias (the same file).
+  projection, then the out projection and its bias (the same file);
+- ``fused_mlp``           — the bf16 MLP, x @ W1 + b1 -> activation -> @ W2
+  + b2, over any (..., W) (``csrc/mlp.cu``);
+- ``fused_mlp_w8a8``      — the W8A8 MLP: per-row int8 activations, int8
+  GEMMs, f32 dequantization and activation (the same file).
+
+``mlp_fusible`` and ``mlp_w8a8_fusible`` are clipx's rules for when
+``mlp_block`` takes the fused MLPs, copied with their byte arithmetic (a TPU
+VMEM budget; kept so both packages take one route per shape).
 
 Every wrapper has a plain PyTorch version beside it (``*_plain``) with the
 kernel's rounding points: bf16 inputs are upcast exactly to f32, scores
 are scaled by 1/sqrt(D) and masked with -1e30 (keys after the query when
 causal), the softmax is f32 and max-subtracted, products accumulate in
 f32, and values round to the input dtype where the Pallas kernels round
-(qkv, probabilities, per-head outputs, result). A wrapper runs the plain
-version only for CPU tensors. For a CUDA tensor it launches its kernel or
-raises; any other device raises.
+(qkv, probabilities, per-head outputs, result; the MLPs' hidden layer and
+result). A wrapper runs the plain version only for CPU tensors. For a CUDA
+tensor it launches its kernel or raises; any other device raises.
 
 Each wrapper counts its kernel launches in ``LAUNCHES`` (one per call that
 launched; the dict lives in ``ops/_launch.py`` and also counts the PQ scan
@@ -36,19 +46,49 @@ from __future__ import annotations
 
 import torch
 
-from clipx_torch.ops._launch import (LAUNCHES, I, L, P, c_fn, check_cuda,
+from clipx_torch.models import quant
+from clipx_torch.ops._launch import (LAUNCHES, F, I, L, P, c_fn, check_cuda,
                                      kernel_device, launch, reset_launches)
 
 __all__ = ["LAUNCHES", "reset_launches", "fused_attn_block", "packed_sdpa",
            "packed_sdpa_rows", "packed_sdpa_qkv", "fused_sdpa_long",
-           "fused_sdpa_long_qkv", "fused_attn_block_plain", "sdpa_plain",
-           "attend_plain", "packed_sdpa_qkv_plain", "fused_sdpa_long_plain",
-           "fused_sdpa_long_qkv_plain"]
+           "fused_sdpa_long_qkv", "fused_attn_sublayer", "fused_mlp",
+           "fused_mlp_w8a8", "mlp_fusible", "mlp_w8a8_fusible",
+           "fused_attn_block_plain", "sdpa_plain", "attend_plain",
+           "packed_sdpa_qkv_plain", "fused_sdpa_long_plain",
+           "fused_sdpa_long_qkv_plain", "fused_attn_sublayer_plain",
+           "fused_mlp_plain", "fused_mlp_w8a8_plain"]
 
 _SP = 64  # padded sequence block
 _D = 64
 _NEG = -1e30
 LONG_HEAD_DIMS = (32, 64, 128)  # the long kernel's template instances
+_MLP_ROWS = 128  # clipx's token rows a program, read by its VMEM rules
+# clipx's budget: both weight matrices in VMEM (~16 MB a core) beside the
+# row blocks and the hidden tile
+_MLP_VMEM_BUDGET = 12 * 2 ** 20
+
+
+def mlp_fusible(width: int, hidden: int, dtype) -> bool:
+    """clipx's rule for ``fused_mlp`` (``clipx/ops/packed_sdpa.py:400``):
+    at ViT-B/32 it holds in bf16 and not in f32 (18.9 MB of weights), and
+    not at ViT-L."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    weights = 2 * width * hidden * itemsize
+    tiles = (_MLP_ROWS * (2 * width + hidden) * itemsize
+             + _MLP_ROWS * hidden * 4)
+    return weights + tiles < _MLP_VMEM_BUDGET
+
+
+def mlp_w8a8_fusible(width: int, hidden: int) -> bool:
+    """clipx's rule for ``fused_mlp_w8a8`` (``:408``): int8 weights, bf16
+    x/out tiles, int8 codes, f32 activations and int32 accumulators. Holds
+    at ViT-B/32, not at ViT-L."""
+    weights = 2 * width * hidden
+    r = _MLP_ROWS
+    tiles = (r * width * 2 + r * width + r * hidden * 4 + r * hidden * 4
+             + r * hidden + r * width * 4 + r * width * 2)
+    return weights + tiles < _MLP_VMEM_BUDGET
 
 
 # ---------------------------------------------------------------------------
@@ -131,6 +171,58 @@ def fused_attn_block_plain(x: torch.Tensor, wqkv: torch.Tensor,
     o = sdpa_plain(qkv[..., :w], qkv[..., w:2 * w], qkv[..., 2 * w:],
                    heads=heads)
     return _dense_plain(o, wo.to(x.dtype), bo)
+
+
+def fused_attn_sublayer_plain(x: torch.Tensor, ln_scale: torch.Tensor,
+                              ln_bias: torch.Tensor, wqkv: torch.Tensor,
+                              bqkv: torch.Tensor, wo: torch.Tensor,
+                              bo: torch.Tensor, *, heads: int,
+                              eps: float = 1e-5) -> torch.Tensor:
+    """x + fused_attn_block(LayerNorm(x)): the f32 LayerNorm rounded to x's
+    dtype, the block's rounding points, then the residual add rounded once
+    (the Pallas kernel's order: the projection rounds before the add)."""
+    from clipx_torch.models.layers import layer_norm
+
+    y = layer_norm(x, {"scale": ln_scale, "bias": ln_bias}, eps)
+    return x + fused_attn_block_plain(y, wqkv, bqkv, wo, bo, heads=heads)
+
+
+def _act_f32(h: torch.Tensor, quick: bool) -> torch.Tensor:
+    """QuickGELU (x * sigmoid(1.702 x)) or the exact erf GELU, in f32."""
+    if quick:
+        return h * torch.sigmoid(1.702 * h)
+    return torch.nn.functional.gelu(h, approximate="none")
+
+
+def fused_mlp_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                    w2: torch.Tensor, b2: torch.Tensor, *,
+                    quick: bool = True) -> torch.Tensor:
+    """The Pallas kernel's rounding points: h = x @ w1 + b1 rounded to x's
+    dtype, the activation in f32 on it, rounded again, then h @ w2 + b2
+    rounded once. (The unfused ``mlp_block`` runs the activation in x's
+    dtype instead.)"""
+    h = _dense_plain(x, w1.to(x.dtype), b1)
+    h = _act_f32(h.float(), quick).to(x.dtype)
+    return _dense_plain(h, w2.to(x.dtype), b2)
+
+
+def fused_mlp_w8a8_plain(x: torch.Tensor, w1_q: torch.Tensor,
+                         s1: torch.Tensor, b1: torch.Tensor,
+                         w2_q: torch.Tensor, s2: torch.Tensor,
+                         b2: torch.Tensor, *,
+                         quick: bool = True) -> torch.Tensor:
+    """The Pallas kernel's W8A8 MLP: per-row int8 codes of f32(x), an exact
+    int8 product dequantized as f32(acc) * (xs * s1) + b1, the activation in
+    f32 (no rounding to x's dtype in between, unlike the unfused path), the
+    same quantization and product again, rounded once to x's dtype."""
+    width = w1_q.shape[0]
+    xq, xs = quant.quantize_rows(x.reshape(-1, width).float())
+    h = (quant.int_matmul(xq, w1_q).float() * (xs * s1.float())
+         + b1.float())
+    hq, hs = quant.quantize_rows(_act_f32(h, quick))
+    out = (quant.int_matmul(hq, w2_q).float() * (hs * s2.float())
+           + b2.float())
+    return out.to(x.dtype).reshape(x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -219,6 +311,75 @@ def _launch_attn_block(x, wqkv, bqkv, wo, bo, heads: int) -> torch.Tensor:
            wo.data_ptr(), bo.data_ptr(), qkv_buf.data_ptr(),
            attn_buf.data_ptr(), out.data_ptr(), b, s, w, heads)
     return out
+
+
+def _launch_attn_sublayer(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
+                          heads: int, eps: float) -> torch.Tensor:
+    name = "fused_attn_sublayer"
+    device = kernel_device(name, x)
+    check_cuda(name, torch.bfloat16, device, x=x, wqkv=wqkv, wo=wo)
+    check_cuda(name, torch.float32, device, ln_scale=ln_scale,
+               ln_bias=ln_bias, bqkv=bqkv, bo=bo)
+    b, s, w = x.shape
+    ln_buf = torch.empty((b * s, w), dtype=x.dtype, device=device)
+    qkv_buf = torch.empty((b * s, 3 * w), dtype=x.dtype, device=device)
+    attn_buf = torch.empty((b * s, w), dtype=x.dtype, device=device)
+    out = torch.empty_like(x)
+    fn = c_fn("attn_block", "clipx_fused_attn_sublayer",
+              [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P])
+    launch(name, fn, device, x.data_ptr(), ln_scale.data_ptr(),
+           ln_bias.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
+           wo.data_ptr(), bo.data_ptr(), ln_buf.data_ptr(),
+           qkv_buf.data_ptr(), attn_buf.data_ptr(), out.data_ptr(), b, s, w,
+           heads, eps)
+    return out
+
+
+def _launch_mlp(x2, w1, b1, w2, b2, quick: bool) -> torch.Tensor:
+    name = "fused_mlp"
+    device = kernel_device(name, x2)
+    check_cuda(name, torch.bfloat16, device, x=x2, w1=w1, w2=w2)
+    check_cuda(name, torch.float32, device, b1=b1, b2=b2)
+    rows, width = x2.shape
+    hidden = w1.shape[1]
+    h_buf = torch.empty((rows, hidden), dtype=x2.dtype, device=device)
+    out = torch.empty_like(x2)
+    fn = c_fn("mlp", "clipx_fused_mlp", [P, P, P, P, P, P, P, I, I, I, I, P])
+    launch(name, fn, device, x2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+           w2.data_ptr(), b2.data_ptr(), h_buf.data_ptr(), out.data_ptr(),
+           rows, width, hidden, int(quick))
+    return out
+
+
+def launch_mlp_w8a8(x2, w1_q, s1, b1, w2_q, s2, b2, *, quick: bool):
+    """The W8A8 MLP kernel on (R, W) bf16 CUDA rows: returns (out, xq, xs),
+    the output and the first stage's int8 codes (R, W) and f32 row scales
+    (R,), which are bitwise those of ``models.quant.quantize_rows``.
+    Counts the launch under ``fused_mlp_w8a8``."""
+    name = "fused_mlp_w8a8"
+    device = kernel_device(name, x2)
+    check_cuda(name, torch.bfloat16, device, x=x2)
+    check_cuda(name, torch.int8, device, w1_q=w1_q, w2_q=w2_q)
+    check_cuda(name, torch.float32, device, s1=s1, b1=b1, s2=s2, b2=b2)
+    rows, width = x2.shape
+    hidden = w1_q.shape[1]
+
+    def scratch(*shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    xq, xs = scratch(rows, width, dtype=torch.int8), scratch(
+        rows, dtype=torch.float32)
+    h = scratch(rows, hidden, dtype=torch.float32)
+    hq, hs = scratch(rows, hidden, dtype=torch.int8), scratch(
+        rows, dtype=torch.float32)
+    out = torch.empty_like(x2)
+    fn = c_fn("mlp", "clipx_fused_mlp_w8a8",
+              [P] * 13 + [I, I, I, I, P])
+    launch(name, fn, device, x2.data_ptr(), w1_q.data_ptr(), s1.data_ptr(),
+           b1.data_ptr(), w2_q.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+           xq.data_ptr(), xs.data_ptr(), h.data_ptr(), hq.data_ptr(),
+           hs.data_ptr(), out.data_ptr(), rows, width, hidden, int(quick))
+    return out, xq, xs
 
 
 # ---------------------------------------------------------------------------
@@ -355,3 +516,81 @@ def fused_sdpa_long_qkv(qkv: torch.Tensor, wo: torch.Tensor,
                          f"got W={w}")
     return _launch_long_qkv(qkv, wo.to(qkv.dtype), bo.reshape(w).float(),
                             heads, causal)
+
+
+def fused_attn_sublayer(x: torch.Tensor, ln_scale: torch.Tensor,
+                        ln_bias: torch.Tensor, wqkv: torch.Tensor,
+                        bqkv: torch.Tensor, wo: torch.Tensor,
+                        bo: torch.Tensor, *, heads: int,
+                        eps: float = 1e-5) -> torch.Tensor:
+    """``x + attn(LayerNorm(x))`` on raw x (B, S, W): the pre-LN attention
+    sublayer, with :func:`fused_attn_block`'s shapes (S <= 64, D = 64) and
+    clipx's even-batch rule. As clipx's wrapper: matrices in x's dtype,
+    LayerNorm params and biases in f32. On CUDA x is bf16."""
+    if x.dim() != 3:
+        raise ValueError(f"fused_attn_sublayer: x must be (B, S, W), got "
+                         f"{tuple(x.shape)}")
+    b, s, w = x.shape
+    d = w // heads
+    if d != _D or w != heads * d or s > _SP or b % 2:
+        raise ValueError(f"fused_attn_sublayer needs D=64, S<=64, even B; "
+                         f"got B={b}, W={w}, heads={heads}, S={s}")
+    if (tuple(wqkv.shape) != (w, 3 * w) or tuple(wo.shape) != (w, w)
+            or bqkv.numel() != 3 * w or bo.numel() != w
+            or ln_scale.numel() != w or ln_bias.numel() != w):
+        raise ValueError("fused_attn_sublayer: weight shapes do not match "
+                         f"width {w}")
+    if x.device.type == "cpu":
+        return fused_attn_sublayer_plain(x, ln_scale, ln_bias, wqkv, bqkv, wo,
+                                         bo, heads=heads, eps=eps)
+    return _launch_attn_sublayer(
+        x, ln_scale.reshape(w).float(), ln_bias.reshape(w).float(),
+        wqkv.to(x.dtype), bqkv.reshape(3 * w).float(), wo.to(x.dtype),
+        bo.reshape(w).float(), heads, eps)
+
+
+def _check_mlp(name: str, x, w1, w2, b1, b2, device) -> tuple:
+    width, hidden = w1.shape
+    if (x.shape[-1] != width or tuple(w2.shape) != (hidden, width)
+            or b1.numel() != hidden or b2.numel() != width):
+        raise ValueError(f"{name}: shapes do not match: x {tuple(x.shape)}, "
+                         f"w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
+    if device.type != "cpu" and (width % 64 or hidden % 64):
+        raise ValueError(f"{name}: the kernel needs W % 64 == 0 and "
+                         f"H % 64 == 0, got W={width}, H={hidden}")
+    return width, hidden
+
+
+def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+              w2: torch.Tensor, b2: torch.Tensor, *,
+              quick: bool = True) -> torch.Tensor:
+    """The transformer MLP over x (..., W): x @ w1 + b1 -> QuickGELU
+    (``quick``) or the erf GELU -> @ w2 + b2, w1 (W, H), w2 (H, W). As
+    clipx's wrapper: matrices in x's dtype, biases in f32. On CUDA x is
+    bf16 and W and H are multiples of 64."""
+    width, hidden = _check_mlp("fused_mlp", x, w1, w2, b1, b2, x.device)
+    if x.device.type == "cpu":
+        return fused_mlp_plain(x, w1, b1, w2, b2, quick=quick)
+    out = _launch_mlp(x.reshape(-1, width).contiguous(), w1.to(x.dtype),
+                      b1.reshape(hidden).float(), w2.to(x.dtype),
+                      b2.reshape(width).float(), quick)
+    return out.reshape(x.shape)
+
+
+def fused_mlp_w8a8(x: torch.Tensor, w1_q: torch.Tensor, s1: torch.Tensor,
+                   b1: torch.Tensor, w2_q: torch.Tensor, s2: torch.Tensor,
+                   b2: torch.Tensor, *, quick: bool = True) -> torch.Tensor:
+    """The W8A8 transformer MLP over x (..., W), with int8 weights w1_q (W,
+    H), w2_q (H, W) and their per-output-channel f32 scales
+    (``models.quant.quantize_weight``'s layout); returns x's dtype. On CUDA
+    x is bf16 and W and H are multiples of 64."""
+    width, hidden = _check_mlp("fused_mlp_w8a8", x, w1_q, w2_q, b1, b2,
+                               x.device)
+    if x.device.type == "cpu":
+        return fused_mlp_w8a8_plain(x, w1_q, s1, b1, w2_q, s2, b2,
+                                    quick=quick)
+    out, _, _ = launch_mlp_w8a8(
+        x.reshape(-1, width).contiguous(), w1_q, s1.reshape(hidden).float(),
+        b1.reshape(hidden).float(), w2_q, s2.reshape(width).float(),
+        b2.reshape(width).float(), quick=quick)
+    return out.reshape(x.shape)

@@ -13,21 +13,27 @@ f32 accumulation; 1-D params (LayerNorm, biases, the class embedding) stay
 f32. On the CPU everything is f32. Embeddings come back float32 and
 L2-normalized.
 
+``compute_quant="int8"`` (or ``CLIPX_COMPUTE=int8``) runs the image
+tower's MLP in W8A8 (``models.quant``; ``fused_mlp_w8a8`` under
+``CLIPX_FUSED_MLP_INT8=on``), and with ``CLIPX_INT8_ATTN=on`` /
+``CLIPX_INT8_PATCH=on`` its attention projections and patch embedding too.
+The weights are quantized from the f32 source params, before the bf16
+cast, as clipx does; the text tower is never quantized.
+
 ``encode_images_async`` enqueues one batch (pinned host buffer ->
 non-blocking H2D copy -> encode -> non-blocking D2H copy into pinned host
 memory, then a CUDA event) and returns at once; ``finalize`` waits on the
 event. That takes the place of JAX's asynchronous dispatch in the
 indexer's pipeline: the host decodes the next batch while the GPU encodes.
 
-Not ported yet: the dp mesh and its tp option, int8 compute
-(``CLIPX_COMPUTE=int8``), the fused device-side resample (``--preprocess
-device``), ``CLIPX_PACKED_SDPA=sublayer`` (refused where it would run
-``fused_attn_sublayer``) and the ResNet towers. The XLA compile cache has
-no counterpart.
+Not ported yet: the dp mesh and its tp option, the fused device-side
+resample (``--preprocess device``) and the ResNet towers. The XLA compile
+cache has no counterpart.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -66,10 +72,17 @@ class Encoder:
     def __init__(self, cfg: CLIPConfig, params, *, device=None,
                  attn_impl: str = "auto",
                  batch_buckets: Sequence[int] = _DEFAULT_BUCKETS,
-                 tokenizer: Optional[ClipTokenizer] = None):
+                 tokenizer: Optional[ClipTokenizer] = None,
+                 compute_quant: Optional[str] = None):
         if getattr(cfg.vision, "tower", "vit") != "vit":
             raise NotImplementedError("the ResNet towers are not ported to "
                                       "clipx_torch yet")
+        quant = (compute_quant if compute_quant is not None
+                 else os.environ.get("CLIPX_COMPUTE", ""))
+        if quant not in ("", "bf16", "int8"):
+            raise ValueError(f"unknown compute mode {quant!r} "
+                             "(CLIPX_COMPUTE: bf16 or int8)")
+        self.compute_quant = quant if quant == "int8" else None
         if attn_impl == "auto":
             # "xla" lets mha_block pick the fused kernels per shape;
             # "pallas" forces the (B, H, S, D) flash_attention kernel
@@ -84,17 +97,44 @@ class Encoder:
                       else torch.float32)
         self.tokenizer = tokenizer or ClipTokenizer()
         self.buckets = tuple(sorted(batch_buckets))
+        if self.compute_quant:
+            params = self._quantized(params)
         self.params = convert.from_jax_params(params, cfg, self.device,
                                               self.dtype)
         # the layout fused_attn_block, packed_sdpa_qkv and
         # fused_sdpa_long_qkv consume, built once: [wq | wk | wv] per layer;
-        # wq/wk/wv become views into it (no second copy)
+        # wq/wk/wv become views into it (no second copy). W8A8 attention
+        # has no wq/wk/wv and does not use it.
         attn = self.params["visual"]["blocks"]["attn"]
-        w = attn["wq"].shape[-1]
-        attn["wqkv"] = torch.cat([attn["wq"], attn["wk"], attn["wv"]], -1)
-        attn["bqkv"] = torch.cat([attn["bq"], attn["bk"], attn["bv"]], -1)
-        for i, name in enumerate(("wq", "wk", "wv")):
-            attn[name] = attn["wqkv"][..., i * w:(i + 1) * w]
+        if "wq_q" not in attn:
+            w = attn["wq"].shape[-1]
+            attn["wqkv"] = torch.cat([attn["wq"], attn["wk"], attn["wv"]], -1)
+            attn["bqkv"] = torch.cat([attn["bq"], attn["bk"], attn["bv"]], -1)
+            for i, name in enumerate(("wq", "wk", "wv")):
+                attn[name] = attn["wqkv"][..., i * w:(i + 1) * w]
+
+    def _quantized(self, params):
+        """The param tree with the image tower's MLP (and, under
+        CLIPX_INT8_ATTN / CLIPX_INT8_PATCH, its attention projections and
+        patch embedding) in int8, quantized on the device from the f32
+        source params (quantizing bf16 copies would give other codes)."""
+        from clipx_torch.models import quant as quant_lib
+
+        def f32(tree):
+            return {k: f32(v) if isinstance(v, dict) else torch.from_numpy(
+                np.array(v, np.float32)).to(self.device)
+                for k, v in tree.items()}
+
+        visual = dict(params["visual"])
+        blocks = dict(visual["blocks"])
+        blocks["mlp"] = quant_lib.quantize_mlp_stack(f32(blocks["mlp"]))
+        if os.environ.get("CLIPX_INT8_ATTN", "off") == "on":
+            blocks["attn"] = quant_lib.quantize_attn_stack(f32(blocks["attn"]))
+        if os.environ.get("CLIPX_INT8_PATCH", "off") == "on":
+            visual["patch_embed"] = quant_lib.quantize_patch_embed(
+                f32(visual["patch_embed"]))
+        visual["blocks"] = blocks
+        return dict(params, visual=visual)
 
     # -- construction ---------------------------------------------------------
     @classmethod

@@ -68,16 +68,18 @@ class Script:
 
 
 def _run(pkg, fixture_dir, monkeypatch, capsys, tier="f32",
-         session=SESSION):
-    """Build the fixture folder and run a scripted REPL with one package;
-    returns (build stdout, REPL stdout, REPL stderr)."""
+         session=SESSION, extra=(), tag=""):
+    """Build the fixture folder and run a scripted REPL with one package
+    (``extra`` flags added to both commands) in a work directory of its
+    own (named by the package, the tier, the flags and ``tag``); returns
+    (build stdout, REPL stdout, REPL stderr)."""
     root, photos, ckpt = fixture_dir
     build, query = (jbuild, jquery) if pkg == "clipx" else (tbuild, tquery)
     flags = ["--model", "tiny-test", "--checkpoint", ckpt,
-             "--corpus-dtype", tier]
+             "--corpus-dtype", tier, *extra]
     if pkg == "port":
         flags += ["--device", "cpu"]
-    work = root / f"{pkg}-{tier}"
+    work = root / "-".join(filter(None, [pkg, tier, *extra, tag]))
     work.mkdir(exist_ok=True)
     monkeypatch.chdir(work)
     monkeypatch.setenv("CLIPX_NO_VIEWER", "1")
@@ -143,8 +145,26 @@ def test_coded_tier_cli_stdout_matches_clipx(fixture_dir, monkeypatch,
         assert f"(loaded 5 {tier} rows from images.index.codes)" in e
 
 
+@pytest.mark.parametrize("fused", ["off", "on"])
+def test_compute_int8_cli_stdout_matches_clipx(fixture_dir, monkeypatch,
+                                               capsys, fused):
+    """--compute int8: both packages index and answer with the W8A8 image
+    tower (with CLIPX_FUSED_MLP_INT8=on the port takes its fused kernel's
+    plain version, clipx its unfused path off the TPU); the same stdout."""
+    monkeypatch.setenv("CLIPX_FUSED_MLP_INT8", fused)
+    session = ["a photo of a cat", "i 1", "i 3", "q"]
+    extra = ("--compute", "int8")
+    ref_build, ref_query, _ = _run("clipx", fixture_dir, monkeypatch, capsys,
+                                   session=session, extra=extra, tag=fused)
+    build, query, _ = _run("port", fixture_dir, monkeypatch, capsys,
+                           session=session, extra=extra, tag=fused)
+    assert build.count(".") >= 5  # every image encoded in this run
+    _compare(build, ref_build)
+    _compare(query, ref_query)
+    assert query.count("Search time:") == 3
+
+
 @pytest.mark.parametrize("flag,value", [("--search-mode", "ivf"),
-                                        ("--compute", "int8"),
                                         ("--preprocess", "device")])
 def test_unported_flags_exit_with_a_message(flag, value, tmp_path,
                                             monkeypatch):

@@ -15,6 +15,7 @@ import torch
 
 from clipx_torch import config as tcfg
 from clipx_torch.models import convert as tconvert
+from clipx_torch.models import quant as tquant
 from clipx_torch.ops import flash_attention as tfa
 from clipx_torch.ops import packed_sdpa as tps
 from clipx_torch.ops import pq_scan as tpq_scan
@@ -353,3 +354,138 @@ def test_search_keeps_full_f32_when_the_caller_enables_tf32(cuda_device,
     Dc, Ic = cpu.search(queries, 50)
     np.testing.assert_array_equal(Ig, Ic)
     np.testing.assert_allclose(Dg, Dc, atol=1e-5, rtol=1e-5)
+
+
+def _mlp_weights(gen, device, w, h):
+    w1 = _bf(gen, device, w, h, scale=0.03)
+    w2 = _bf(gen, device, h, w, scale=0.03)
+    b1 = (torch.randn(h, generator=gen) * 0.01).to(device)
+    b2 = (torch.randn(w, generator=gen) * 0.01).to(device)
+    return w1, b1, w2, b2
+
+
+# B7 and B6: ViT-B/32's image MLP at an odd row count and at a row count
+# past several 64-row tiles, and its text tower's 512-wide MLP
+@pytest.mark.parametrize("quick", [True, False])
+@pytest.mark.parametrize("rows,w,h", [(99, 768, 3072), (640, 768, 3072),
+                                      (154, 512, 2048)])
+def test_fused_mlp_matches_plain(cuda_device, rows, w, h, quick):
+    gen = torch.Generator().manual_seed(rows + w + quick)
+    x = _bf(gen, cuda_device, rows, w)
+    args = _mlp_weights(gen, cuda_device, w, h)
+    before = tps.LAUNCHES["fused_mlp"]
+    out = tps.fused_mlp(x, *args, quick=quick)
+    assert tps.LAUNCHES["fused_mlp"] == before + 1
+    ref = tps.fused_mlp_plain(x, *args, quick=quick)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    torch.testing.assert_close(out.float(), ref.float(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("quick", [True, False])
+@pytest.mark.parametrize("rows,w,h", [(99, 768, 3072), (640, 768, 3072),
+                                      (64, 128, 512)])
+def test_fused_mlp_w8a8_matches_plain(cuda_device, rows, w, h, quick):
+    """The first stage's int8 codes and row scales bitwise; the output
+    within 1e-2 of max|ref| (clipx's fused-versus-unfused bound: an
+    activation a few ulps off can round a requantized code the other
+    way)."""
+    gen = torch.Generator().manual_seed(rows + w + quick + 1)
+    x = _bf(gen, cuda_device, rows, w)
+    w1, b1, w2, b2 = _mlp_weights(gen, cuda_device, w, h)
+    (w1_q, s1), (w2_q, s2) = tquant.quantize_weight(w1), tquant.quantize_weight(w2)
+    cpu_q, cpu_s = tquant.quantize_weight(w1.cpu())  # the same bits
+    assert torch.equal(w1_q.cpu(), cpu_q) and torch.equal(s1.cpu(), cpu_s)
+    args = (w1_q, s1, b1, w2_q, s2, b2)
+    before = tps.LAUNCHES["fused_mlp_w8a8"]
+    out, xq, xs = tps.launch_mlp_w8a8(x, *args, quick=quick)
+    assert tps.LAUNCHES["fused_mlp_w8a8"] == before + 1
+    ref = tps.fused_mlp_w8a8_plain(x, *args, quick=quick)
+    ref_q, ref_s = tquant.quantize_rows(x.float())
+    torch.cuda.synchronize()
+    assert torch.equal(xq, ref_q) and torch.equal(xs, ref_s.reshape(-1))
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= 1e-2 * float(ref.float().abs().max())
+    assert torch.equal(tps.fused_mlp_w8a8(x, *args, quick=quick), out)
+
+
+@pytest.mark.parametrize("b,s,w,heads", [(2, 50, 768, 12), (128, 50, 768, 12),
+                                         (4, 17, 128, 2), (2, 64, 192, 3)])
+def test_fused_attn_sublayer_matches_plain(cuda_device, b, s, w, heads):
+    gen = torch.Generator().manual_seed(b * s + w + 2)
+    x = _bf(gen, cuda_device, b, s, w)
+    ln_s = (1.0 + 0.1 * torch.randn(w, generator=gen)).to(cuda_device)
+    ln_b = (0.05 * torch.randn(w, generator=gen)).to(cuda_device)
+    wqkv = _bf(gen, cuda_device, w, 3 * w, scale=0.03)
+    wo = _bf(gen, cuda_device, w, w, scale=0.03)
+    bqkv = (torch.randn(3 * w, generator=gen) * 0.01).to(cuda_device)
+    bo = (torch.randn(w, generator=gen) * 0.01).to(cuda_device)
+    args = (x, ln_s, ln_b, wqkv, bqkv, wo, bo)
+    before = tps.LAUNCHES["fused_attn_sublayer"]
+    out = tps.fused_attn_sublayer(*args, heads=heads)
+    assert tps.LAUNCHES["fused_attn_sublayer"] == before + 1
+    ref = tps.fused_attn_sublayer_plain(*args, heads=heads)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    torch.testing.assert_close(out.float(), ref.float(), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_mlp_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    gen = torch.Generator().manual_seed(3)
+    x = _bf(gen, cuda_device, 64, 128)
+    w1, b1, w2, b2 = _mlp_weights(gen, cuda_device, 128, 512)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tps.fused_mlp(x.float(), w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="int8"):
+        tps.fused_mlp_w8a8(x, w1, b1, b1, w2, b2, b2)
+    (w1_q, s1), (w2_q, s2) = tquant.quantize_weight(w1), tquant.quantize_weight(w2)
+    with pytest.raises(ValueError, match="is on"):
+        tps.fused_mlp_w8a8(x, w1_q.cpu(), s1, b1, w2_q, s2, b2)
+    with pytest.raises(ValueError, match="W % 64"):
+        tps.fused_mlp(_bf(gen, cuda_device, 4, 96), *_mlp_weights(
+            gen, cuda_device, 96, 384))
+    ln = torch.ones(128, device=cuda_device)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tps.fused_attn_sublayer(x.float().reshape(2, 32, 128), ln, ln,
+                                w1[:, :384], b1[:384], w1[:, :128], b2,
+                                heads=2)
+
+
+@pytest.mark.parametrize("route", ["int8", "int8_fused", "fused", "sublayer"])
+def test_opt_in_routes_on_the_card_match_the_cpu(cuda_device, monkeypatch,
+                                                 route):
+    """The d64 config (W = 128, 2 layers, S = 17) under each opt-in route,
+    bucket 4: --compute int8 unfused (dense_w8a8 on _int_mm) and with
+    CLIPX_FUSED_MLP_INT8=on (fused_mlp_w8a8), CLIPX_FUSED_MLP=on (fused_mlp
+    in both towers) and CLIPX_PACKED_SDPA=sublayer (fused_attn_sublayer);
+    the launches counted, and the embeddings against the CPU's f32 encode
+    of the same route, cosine >= 0.999 (0.99 for the int8 routes, whose
+    activation codes the bf16 rounding moves)."""
+    env = {"int8_fused": {"CLIPX_FUSED_MLP_INT8": "on"},
+           "fused": {"CLIPX_FUSED_MLP": "on"},
+           "sublayer": {"CLIPX_PACKED_SDPA": "sublayer"}}.get(route, {})
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    quant = "int8" if route.startswith("int8") else None
+    params = tconvert.init_params(_d64(), seed=0)
+    gpu = Encoder(_d64(), params, device=cuda_device, batch_buckets=(4,),
+                  compute_quant=quant)
+    cpu = Encoder(_d64(), params, device="cpu", batch_buckets=(4,),
+                  compute_quant=quant)
+    images = np.random.default_rng(2).integers(0, 256, (4, 64, 64, 3),
+                                               dtype=np.uint8)
+    texts = ["a photo of a cat", "two dogs"]
+    tps.reset_launches()
+    out = gpu.encode_images(images)
+    t_gpu = gpu.encode_texts(texts)
+    want = {"int8": {"fused_attn_block": 2},
+            "int8_fused": {"fused_attn_block": 2, "fused_mlp_w8a8": 2},
+            "fused": {"fused_attn_block": 2, "fused_mlp": 4},
+            "sublayer": {"fused_attn_sublayer": 2}}[route]
+    assert {k: n for k, n in tps.LAUNCHES.items() if n} == want
+    floor = 0.99 if quant else 0.999
+    assert (np.sum(out * cpu.encode_images(images), axis=1) >= floor).all()
+    assert (np.sum(t_gpu * cpu.encode_texts(texts), axis=1) >= 0.999).all()

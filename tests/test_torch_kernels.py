@@ -101,7 +101,8 @@ def _bf16_ulps(out: np.ndarray, ref: np.ndarray) -> np.ndarray:
 
 
 @pytest.mark.parametrize("name", ["fused_attn_block", "packed_sdpa",
-                                  "packed_sdpa_rows"])
+                                  "packed_sdpa_rows", "fused_attn_sublayer",
+                                  "fused_mlp"])
 def test_plain_versions_match_pallas_in_bf16(name):
     """bf16 inputs through clipx's kernels (interpret mode) and the plain
     versions: the same rounding points (qkv, probabilities, head outputs,
@@ -124,6 +125,28 @@ def test_plain_versions_match_pallas_in_bf16(name):
         out = tps.fused_attn_block(t16(x), t16(wqkv), torch.from_numpy(bqkv),
                                    t16(wo), torch.from_numpy(bo),
                                    heads=heads)
+    elif name == "fused_attn_sublayer":
+        x, wqkv, bqkv, wo, bo = _attn_inputs(rng, b, s, w)
+        ln = (rng.randn(w).astype(np.float32) * 0.1 + 1.0,
+              rng.randn(w).astype(np.float32) * 0.05)
+        ref = jps.fused_attn_sublayer(
+            j16(x), *(jnp.asarray(a) for a in ln), j16(wqkv),
+            jnp.asarray(bqkv), j16(wo), jnp.asarray(bo), heads=heads,
+            interpret=True)
+        out = tps.fused_attn_sublayer(
+            t16(x), *(torch.from_numpy(a) for a in ln), t16(wqkv),
+            torch.from_numpy(bqkv), t16(wo), torch.from_numpy(bo),
+            heads=heads)
+    elif name == "fused_mlp":
+        x = rng.randn(b, s, w).astype(np.float32)
+        w1, w2 = (rng.randn(*shape).astype(np.float32) * 0.05
+                  for shape in ((w, 4 * w), (4 * w, w)))
+        b1, b2 = (rng.randn(n).astype(np.float32) * 0.01
+                  for n in (4 * w, w))
+        ref = jps.fused_mlp(j16(x), j16(w1), jnp.asarray(b1), j16(w2),
+                            jnp.asarray(b2), interpret=True)
+        out = tps.fused_mlp(t16(x), t16(w1), torch.from_numpy(b1), t16(w2),
+                            torch.from_numpy(b2))
     else:
         q, k, v = (rng.randn(b, s, w).astype(np.float32) for _ in range(3))
         ref = getattr(jps, name)(j16(q), j16(k), j16(v), heads=heads,
@@ -179,12 +202,38 @@ def test_wrappers_reject_bad_shapes():
     meta = torch.empty((2, 100, 3 * 64), device="meta")
     with pytest.raises(ValueError, match="head dims"):   # D = 48 on a device
         tps.fused_sdpa_long(meta, meta, meta, heads=4)
+    x, ln = torch.zeros((2, 17, w)), torch.zeros(w)
+    with pytest.raises(ValueError, match="even B"):       # odd batch
+        tps.fused_attn_sublayer(torch.zeros((3, 17, w)), ln, ln, wqkv, bqkv,
+                                wo, bo, heads=2)
+    with pytest.raises(ValueError):                       # S > 64
+        tps.fused_attn_sublayer(torch.zeros((2, 65, w)), ln, ln, wqkv, bqkv,
+                                wo, bo, heads=2)
+    with pytest.raises(ValueError):                       # LN of another width
+        tps.fused_attn_sublayer(x, torch.zeros(64), ln, wqkv, bqkv, wo, bo,
+                                heads=2)
+    w1, w2, b1 = torch.zeros((w, 4 * w)), torch.zeros((4 * w, w)), torch.zeros(
+        4 * w)
+    with pytest.raises(ValueError, match="shapes"):       # x of another width
+        tps.fused_mlp(torch.zeros((2, 17, 64)), w1, b1, w2, bo)
+    with pytest.raises(ValueError, match="shapes"):       # w2 not (H, W)
+        tps.fused_mlp(x, w1, b1, w1, bo)
+    q1, q2 = w1.to(torch.int8), w2.to(torch.int8)
+    with pytest.raises(ValueError, match="shapes"):       # biases swapped
+        tps.fused_mlp_w8a8(x, q1, b1, bo, q2, bo, b1)
+    m = torch.empty((2, 17, 96), device="meta")
+    with pytest.raises(ValueError, match="W % 64"):       # on a device
+        tps.fused_mlp(m, torch.empty((96, 384), device="meta"),
+                      torch.empty(384, device="meta"),
+                      torch.empty((384, 96), device="meta"),
+                      torch.empty(96, device="meta"))
 
 
 @pytest.mark.parametrize("name", ["fused_attn_block", "packed_sdpa",
                                   "packed_sdpa_rows", "packed_sdpa_qkv",
                                   "fused_sdpa_long", "fused_sdpa_long_qkv",
-                                  "flash_attention"])
+                                  "flash_attention", "fused_attn_sublayer",
+                                  "fused_mlp", "fused_mlp_w8a8"])
 def test_non_cpu_tensors_never_reach_the_plain_version(name, monkeypatch):
     """A tensor that is not on the CPU goes to the kernel path, which
     raises when it cannot launch (here: no CUDA device) — the plain
@@ -196,7 +245,8 @@ def test_non_cpu_tensors_never_reach_the_plain_version(name, monkeypatch):
 
     for plain in ("fused_attn_block_plain", "sdpa_plain", "attend_plain",
                   "packed_sdpa_qkv_plain", "fused_sdpa_long_plain",
-                  "fused_sdpa_long_qkv_plain"):
+                  "fused_sdpa_long_qkv_plain", "fused_attn_sublayer_plain",
+                  "fused_mlp_plain", "fused_mlp_w8a8_plain"):
         monkeypatch.setattr(tps, plain, plain_called)
     monkeypatch.setattr(tfa, "flash_attention_plain", plain_called)
     before = dict(tps.LAUNCHES)
@@ -221,6 +271,16 @@ def test_non_cpu_tensors_never_reach_the_plain_version(name, monkeypatch):
         elif name == "flash_attention":
             y = meta(2, 2, 130, 64)
             tfa.flash_attention(y, y, y)
+        elif name == "fused_attn_sublayer":
+            tps.fused_attn_sublayer(x, meta(w), meta(w), meta(w, 3 * w),
+                                    meta(3 * w), meta(w, w), meta(w),
+                                    heads=2)
+        elif name == "fused_mlp":
+            tps.fused_mlp(x, meta(w, 4 * w), meta(4 * w), meta(4 * w, w),
+                          meta(w))
+        elif name == "fused_mlp_w8a8":
+            tps.fused_mlp_w8a8(x, meta(w, 4 * w), meta(4 * w), meta(4 * w),
+                               meta(4 * w, w), meta(w), meta(w))
         else:
             getattr(tps, name)(x, x, x, heads=2)
     assert tps.LAUNCHES == before

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from clipx import config as jcfg
 from clipx.models import clip as jclip
@@ -269,6 +270,8 @@ def _record_port_routes(monkeypatch, calls):
         if name in ("packed_sdpa_qkv", "fused_sdpa_long_qkv"):
             pick = lambda t, *a: t[..., :t.shape[-1] // 3]  # noqa: E731
         monkeypatch.setattr(ps, name, rec(name, pick))
+    monkeypatch.setattr(ps, "fused_attn_sublayer",
+                        rec("fused_attn_sublayer", first))
     monkeypatch.setattr(tfa, "flash_attention", rec("flash_attention", first))
     monkeypatch.setattr(tlayers, "xla_attention", rec("xla", first))
     monkeypatch.setattr(tlayers, "dense", lambda x, w, b=None: torch.zeros(
@@ -294,8 +297,7 @@ def test_mha_dispatch(monkeypatch, variant, attn_impl):
     """Every (S, batch parity, heads parity, CLIPX_PACKED_SDPA, attn_impl,
     causal) case reaches the wrapper clipx's dispatch
     (clipx/models/layers.py:104-194 and its residual_block's B5 branch)
-    would choose; where clipx would run fused_attn_sublayer (B5, not
-    ported), the port raises."""
+    would choose, fused_attn_sublayer included."""
     monkeypatch.setenv("CLIPX_PACKED_SDPA", variant)
     jcalls, tcalls = [], []
     _record_clipx_routes(monkeypatch, jcalls)
@@ -311,15 +313,8 @@ def test_mha_dispatch(monkeypatch, variant, attn_impl):
                 kw = dict(causal=causal, eps=1e-5, use_quick_gelu=True,
                           attn_impl=attn_impl)
                 jlayers.residual_block(x, jp, heads, **kw)
-                case = (s, w, heads, b, causal)
-                if jcalls == ["fused_attn_sublayer"]:
-                    with pytest.raises(NotImplementedError, match="B5"):
-                        tlayers.residual_block(torch.from_numpy(x), tp,
-                                               heads, **kw)
-                else:
-                    tlayers.residual_block(torch.from_numpy(x), tp, heads,
-                                           **kw)
-                    assert tcalls == jcalls, case
+                tlayers.residual_block(torch.from_numpy(x), tp, heads, **kw)
+                assert tcalls == jcalls, (s, w, heads, b, causal)
                 seen.add(jcalls[0])
     want = {"auto": {"fused_attn_block", "packed_sdpa", "fused_sdpa_long",
                      "xla"},
@@ -336,6 +331,113 @@ def test_mha_dispatch(monkeypatch, variant, attn_impl):
         assert seen == {"xla"}
     else:
         assert want.get(variant, want["auto"]) <= seen
+
+
+def _record_mlp_routes(monkeypatch, jcalls, tcalls):
+    """Both packages' MLP and W8A8 routes with recorders: the fused MLP
+    kernels, dense_w8a8, dense, and the SDPA kernels of the W8A8
+    attention. clipx runs as on a TPU."""
+    from clipx.models import quant as jquant
+    from clipx.ops import packed_sdpa as jps
+    from clipx_torch.models import quant as tquant
+    from clipx_torch.ops import packed_sdpa as ps
+
+    _record_clipx_routes(monkeypatch, jcalls)
+    _record_port_routes(monkeypatch, tcalls)
+
+    def width(name, calls, zeros):
+        def rec(x, w, *a, **k):
+            calls.append(name)
+            return zeros(x.shape[:-1] + (w.shape[-1],))
+        return rec
+
+    def same(name, calls):
+        return lambda x, *a, **k: (calls.append(name), x)[1]
+
+    jzeros = lambda shape: jnp.zeros(shape, jnp.float32)  # noqa: E731
+    monkeypatch.setattr(jquant, "dense_w8a8",
+                        width("dense_w8a8", jcalls, jzeros))
+    monkeypatch.setattr(tquant, "dense_w8a8",
+                        width("dense_w8a8", tcalls, torch.zeros))
+    monkeypatch.setattr(jlayers, "dense", width("dense", jcalls, jzeros))
+    monkeypatch.setattr(tlayers, "dense", width("dense", tcalls, torch.zeros))
+    for name in ("fused_mlp", "fused_mlp_w8a8"):
+        monkeypatch.setattr(jps, name, same(name, jcalls))
+        monkeypatch.setattr(ps, name, same(name, tcalls))
+
+
+def _mlp_params(mod, w, hidden, quantized):
+    z = lambda *shape: mod(np.zeros(shape, np.float32))  # noqa: E731
+    if quantized:
+        q = lambda *shape: mod(np.zeros(shape, np.int8))  # noqa: E731
+        return {"w1_q": q(w, hidden), "s1": z(hidden), "b1": z(hidden),
+                "w2_q": q(hidden, w), "s2": z(w), "b2": z(w)}
+    return {"w1": z(w, hidden), "b1": z(hidden), "w2": z(hidden, w),
+            "b2": z(w)}
+
+
+@pytest.mark.parametrize("fused,fused_int8", [("off", "off"), ("on", "off"),
+                                              ("off", "on"), ("on", "on")])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_mlp_dispatch(monkeypatch, fused, fused_int8, quantized):
+    """mlp_block takes clipx's route (clipx/models/layers.py:197-238) for
+    every (CLIPX_FUSED_MLP, CLIPX_FUSED_MLP_INT8, quantized, W/H, dtype)
+    case: fused_mlp where mlp_fusible allows x's dtype (ViT-B/32's both
+    towers in bf16, neither in f32, ViT-L never), fused_mlp_w8a8 where
+    mlp_w8a8_fusible allows it, else the unfused dense or dense_w8a8 pair.
+    clipx's kernels are recorders and it runs as on a TPU."""
+    monkeypatch.setenv("CLIPX_FUSED_MLP", fused)
+    monkeypatch.setenv("CLIPX_FUSED_MLP_INT8", fused_int8)
+    jcalls, tcalls = [], []
+    _record_mlp_routes(monkeypatch, jcalls, tcalls)
+    seen = set()
+    for w, hidden in ((768, 3072), (512, 2048), (1024, 4096), (64, 256)):
+        jp = _mlp_params(np.asarray, w, hidden, quantized)
+        tp = _mlp_params(torch.from_numpy, w, hidden, quantized)
+        for jdt, tdt in ((jnp.bfloat16, torch.bfloat16),
+                         (jnp.float32, torch.float32)):
+            jcalls.clear()
+            tcalls.clear()
+            x = np.zeros((2, 3, w), np.float32)
+            jlayers.mlp_block(x.astype(jdt), jp, True)
+            tlayers.mlp_block(torch.from_numpy(x).to(tdt), tp, True)
+            assert tcalls == jcalls, (w, hidden, tdt)
+            seen.add(jcalls[0])
+    if quantized:
+        want = {"fused_mlp_w8a8", "dense_w8a8"} if fused_int8 == "on" else {
+            "dense_w8a8"}
+    else:
+        want = {"fused_mlp", "dense"} if fused == "on" else {"dense"}
+    assert seen == want
+
+
+@pytest.mark.parametrize("b", [1, 2, 3])
+@pytest.mark.parametrize("s,w,heads", [(17, 128, 2), (50, 192, 3),
+                                       (17, 64, 2), (101, 128, 2)])
+def test_w8a8_attention_dispatch(monkeypatch, b, s, w, heads):
+    """Quantized attention projections (CLIPX_INT8_ATTN) take clipx's SDPA
+    route: packed_sdpa_rows for an even batch, packed_sdpa for an odd one
+    with even heads (S <= 64, D = 64), else plain attention; and
+    CLIPX_PACKED_SDPA=sublayer leaves such a block alone."""
+    monkeypatch.setenv("CLIPX_PACKED_SDPA", "sublayer")
+    jcalls, tcalls = [], []
+    _record_mlp_routes(monkeypatch, jcalls, tcalls)
+    jp, tp = _stub_block(np.asarray, w), _stub_block(torch.from_numpy, w)
+    for block, mod in ((jp, np.asarray), (tp, torch.from_numpy)):
+        q = _mlp_params(mod, w, w, True)  # (W, W) int8 codes, (W,) vectors
+        block["attn"] = {f"{k}{n}{suffix}": q[src] for n in "qkvo"
+                         for k, suffix, src in (("w", "_q", "w1_q"),
+                                                ("s", "", "s2"),
+                                                ("b", "", "b2"))}
+    x = np.zeros((b, s, w), np.float32)
+    kw = dict(causal=False, eps=1e-5, use_quick_gelu=True)
+    jlayers.residual_block(x, jp, heads, **kw)
+    tlayers.residual_block(torch.from_numpy(x), tp, heads, **kw)
+    assert tcalls == jcalls
+    fits = s <= 64 and w // heads == 64
+    want = ("packed_sdpa_rows" if fits and b % 2 == 0 else
+            "packed_sdpa" if fits and heads % 2 == 0 else "xla")
+    assert jcalls[:4] == ["dense_w8a8"] * 3 + [want]
 
 
 def test_unknown_attn_impl_is_refused():
