@@ -1,8 +1,8 @@
 // bf16 tensor-core GEMM with f32 bias epilogues, for Hopper (sm_90a).
 //
-// Shared by attn_block.cu (the qkv and out projections of fused_attn_block
-// and fused_attn_sublayer), long_sdpa.cu (the out projection of
-// fused_sdpa_long_qkv) and mlp.cu (both GEMMs of fused_mlp):
+// Shared by long_sdpa.cu (the out projection of fused_sdpa_long_qkv) and
+// mlp.cu (both GEMMs of fused_mlp; gemm_s8.cuh reuses its tiling). This
+// header goes when they move to gemm_sm90.cuh's TMA + wgmma GEMM:
 //
 //     t = x[M, K] @ w[K, N] + bias[N]                  (f32 accumulate)
 //     kEpiBias:      y = bf16(t)

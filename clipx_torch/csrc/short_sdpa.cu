@@ -10,9 +10,8 @@
 //
 // packed_sdpa_qkv (clipx/ops/packed_sdpa.py:144, `_rows_qkv_kernel` :110)
 // reads q, k and v out of one packed (B, S, 3W) projection [q | k | v]: the
-// same kernel with k = qkv + W, v = qkv + 2W and a 3W row stride, as the
-// SDPA step of fused_attn_block already runs. Its arithmetic is packed_sdpa's
-// to the bit: only the addresses differ.
+// same kernel with k = qkv + W, v = qkv + 2W and a 3W row stride. Its
+// arithmetic is packed_sdpa's to the bit: only the addresses differ.
 //
 // Bound and design: see short_sdpa.cuh. At batch 1 (the encoder's bucket 1,
 // the main-path caller of packed_sdpa) the whole call is ~0.3 MB and

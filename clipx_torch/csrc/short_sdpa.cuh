@@ -1,11 +1,11 @@
 // Short-sequence scaled dot-product attention for ViT towers on Hopper.
 //
-// Shared by short_sdpa.cu (packed_sdpa / packed_sdpa_rows) and
-// attn_block.cu (the SDPA step of fused_attn_block).
+// Used by short_sdpa.cu (packed_sdpa, packed_sdpa_rows, packed_sdpa_qkv);
+// it goes when those move to a tensor-core SDPA like attn_core_sm90.cuh's.
 //
 // Replaces the SDPA body of the Pallas kernels in clipx/ops/packed_sdpa.py:
 // `_kernel` (packed_sdpa, :35), `_rows_kernel` (packed_sdpa_rows, :75) and
-// the per-head loop of `_attn_block_core` (:220). Those kernels pack two
+// `_rows_qkv_kernel` (packed_sdpa_qkv, :110). Those kernels pack two
 // heads (or two batch rows) into one 128x128 MXU tile with a block-diagonal
 // mask; that is a TPU tile trick and is not carried over. Here one thread
 // block computes one (batch row, head) pair.

@@ -296,20 +296,29 @@ def _launch_long_qkv(qkv, wo, bo, heads: int, causal: bool) -> torch.Tensor:
     return out
 
 
+def gemm_tile_n(n: int) -> int:
+    """The out projection's tile width in ``csrc/gemm_sm90.cuh`` (one of
+    its template instances: 64, 128 or 192 columns) for N = heads * 64
+    output columns: the widest that divides N, so no tile is ragged."""
+    for bn in (192, 128, 64):
+        if n % bn == 0:
+            return bn
+    raise ValueError(f"gemm_tile_n: N={n} is not a multiple of 64")
+
+
 def _launch_attn_block(x, wqkv, bqkv, wo, bo, heads: int) -> torch.Tensor:
     name = "fused_attn_block"
     device = kernel_device(name, x)
     check_cuda(name, torch.bfloat16, device, x=x, wqkv=wqkv, wo=wo)
     check_cuda(name, torch.float32, device, bqkv=bqkv, bo=bo)
     b, s, w = x.shape
-    qkv_buf = torch.empty((b * s, 3 * w), dtype=x.dtype, device=device)
     attn_buf = torch.empty((b * s, w), dtype=x.dtype, device=device)
     out = torch.empty_like(x)
     fn = c_fn("attn_block", "clipx_fused_attn_block",
-              [P, P, P, P, P, P, P, P, I, I, I, I, P])
+              [P, P, P, P, P, P, P, I, I, I, I, I, P])
     launch(name, fn, device, x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
-           wo.data_ptr(), bo.data_ptr(), qkv_buf.data_ptr(),
-           attn_buf.data_ptr(), out.data_ptr(), b, s, w, heads)
+           wo.data_ptr(), bo.data_ptr(), attn_buf.data_ptr(), out.data_ptr(),
+           b, s, w, heads, gemm_tile_n(w))
     return out
 
 
@@ -322,16 +331,15 @@ def _launch_attn_sublayer(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
                ln_bias=ln_bias, bqkv=bqkv, bo=bo)
     b, s, w = x.shape
     ln_buf = torch.empty((b * s, w), dtype=x.dtype, device=device)
-    qkv_buf = torch.empty((b * s, 3 * w), dtype=x.dtype, device=device)
     attn_buf = torch.empty((b * s, w), dtype=x.dtype, device=device)
     out = torch.empty_like(x)
     fn = c_fn("attn_block", "clipx_fused_attn_sublayer",
-              [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P])
+              [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P])
     launch(name, fn, device, x.data_ptr(), ln_scale.data_ptr(),
            ln_bias.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
            wo.data_ptr(), bo.data_ptr(), ln_buf.data_ptr(),
-           qkv_buf.data_ptr(), attn_buf.data_ptr(), out.data_ptr(), b, s, w,
-           heads, eps)
+           attn_buf.data_ptr(), out.data_ptr(), b, s, w, heads,
+           gemm_tile_n(w), eps)
     return out
 
 

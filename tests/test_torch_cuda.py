@@ -43,9 +43,15 @@ def _bf(gen, device, *shape, scale=1.0):
                                                           torch.bfloat16)
 
 
+# B1 (and B2, B3 on the same shapes): the ragged last batch row of an odd
+# batch (TMA's zero fill past the end), S = 64 (no key masked), ViT-B/32's
+# indexing batch, W = 1024 (16 heads), widths 128 and 192, S = 1
 @pytest.mark.parametrize("b,s,w,heads", [(1, 50, 768, 12), (2, 50, 768, 12),
                                          (8, 50, 768, 12), (2, 17, 128, 2),
-                                         (4, 64, 192, 3), (3, 1, 128, 2)])
+                                         (4, 64, 192, 3), (3, 1, 128, 2),
+                                         (5, 50, 768, 12), (2, 64, 768, 12),
+                                         (128, 50, 768, 12),
+                                         (2, 50, 1024, 16)])
 def test_kernels_match_plain_versions(cuda_device, b, s, w, heads):
     gen = torch.Generator().manual_seed(b * s + w)
     x = _bf(gen, cuda_device, b, s, w)
@@ -55,6 +61,9 @@ def test_kernels_match_plain_versions(cuda_device, b, s, w, heads):
     bo = (torch.randn(w, generator=gen) * 0.01).to(cuda_device)
     before = dict(tps.LAUNCHES)
     out = tps.fused_attn_block(x, wqkv, bqkv, wo, bo, heads=heads)
+    # one count per call, though the call launches two kernels
+    assert {n: c - before[n] for n, c in tps.LAUNCHES.items()
+            if c != before[n]} == {"fused_attn_block": 1}
     ref = tps.fused_attn_block_plain(x, wqkv, bqkv, wo, bo, heads=heads)
     torch.cuda.synchronize()
     assert out.dtype == torch.bfloat16 and out.shape == x.shape
@@ -157,6 +166,19 @@ def test_packed_sdpa_qkv_equals_packed_sdpa(cuda_device, b, s, w, heads):
     torch.testing.assert_close(
         out.float(), tps.packed_sdpa_qkv_plain(qkv, heads=heads).float(),
         rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("b,s,w,heads", [(2, 50, 768, 12), (128, 50, 768, 12),
+                                         (4, 17, 128, 2), (2, 1, 128, 2)])
+def test_packed_sdpa_equals_packed_sdpa_rows(cuda_device, b, s, w, heads):
+    """B2 and B3 launch one kernel (short_sdpa.cuh, which B1 no longer
+    uses): the same bits on the same input, B4 too on the packed rows."""
+    gen = torch.Generator().manual_seed(b + s + w + 3)
+    qkv = _bf(gen, cuda_device, b, s, 3 * w)
+    q, k, v = (qkv[..., i * w:(i + 1) * w].contiguous() for i in range(3))
+    pairs = tps.packed_sdpa(q, k, v, heads=heads)
+    assert torch.equal(pairs, tps.packed_sdpa_rows(q, k, v, heads=heads))
+    assert torch.equal(pairs, tps.packed_sdpa_qkv(qkv, heads=heads))
 
 
 def test_long_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
@@ -412,7 +434,8 @@ def test_fused_mlp_w8a8_matches_plain(cuda_device, rows, w, h, quick):
 
 
 @pytest.mark.parametrize("b,s,w,heads", [(2, 50, 768, 12), (128, 50, 768, 12),
-                                         (4, 17, 128, 2), (2, 64, 192, 3)])
+                                         (4, 17, 128, 2), (2, 64, 192, 3),
+                                         (2, 64, 768, 12), (4, 50, 1024, 16)])
 def test_fused_attn_sublayer_matches_plain(cuda_device, b, s, w, heads):
     gen = torch.Generator().manual_seed(b * s + w + 2)
     x = _bf(gen, cuda_device, b, s, w)
@@ -423,9 +446,10 @@ def test_fused_attn_sublayer_matches_plain(cuda_device, b, s, w, heads):
     bqkv = (torch.randn(3 * w, generator=gen) * 0.01).to(cuda_device)
     bo = (torch.randn(w, generator=gen) * 0.01).to(cuda_device)
     args = (x, ln_s, ln_b, wqkv, bqkv, wo, bo)
-    before = tps.LAUNCHES["fused_attn_sublayer"]
+    before = dict(tps.LAUNCHES)
     out = tps.fused_attn_sublayer(*args, heads=heads)
-    assert tps.LAUNCHES["fused_attn_sublayer"] == before + 1
+    assert {n: c - before[n] for n, c in tps.LAUNCHES.items()
+            if c != before[n]} == {"fused_attn_sublayer": 1}
     ref = tps.fused_attn_sublayer_plain(*args, heads=heads)
     torch.cuda.synchronize()
     assert out.dtype == torch.bfloat16 and out.shape == x.shape

@@ -303,6 +303,57 @@ def test_cuda_kernel_path_raises_without_a_gpu(monkeypatch):
         tps._launch_sdpa("packed_sdpa", q, q, q, 2)
 
 
+@pytest.mark.parametrize("heads", [1, 2, 3, 5, 12, 16, 20])
+def test_gemm_tile_n_covers_every_width(heads):
+    """The out projection's tile width divides N = heads * 64 and is one of
+    the GEMM's instances; it is the widest that does."""
+    n = 64 * heads
+    bn = tps.gemm_tile_n(n)
+    assert bn in (64, 128, 192) and n % bn == 0
+    assert all(n % wider for wider in (64, 128, 192) if wider > bn)
+
+
+def test_gemm_tile_n_at_the_towers_widths():
+    assert [tps.gemm_tile_n(n) for n in (128, 192, 512, 768, 1024)] == [
+        128, 192, 128, 192, 128]
+    with pytest.raises(ValueError):
+        tps.gemm_tile_n(96)
+
+
+@pytest.mark.parametrize("name", ["fused_attn_block", "fused_attn_sublayer"])
+def test_attn_launchers_match_their_c_entries(name, monkeypatch):
+    """The launchers pass exactly the arguments their C entries declare
+    (the stream comes last), no qkv scratch, and the GEMM's tile width."""
+    import ctypes
+
+    calls = []
+    monkeypatch.setattr(tps, "kernel_device", lambda n, t: t.device)
+    monkeypatch.setattr(tps, "check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(tps, "c_fn", lambda lib, sym, argtypes: (lib, sym,
+                                                                argtypes))
+    monkeypatch.setattr(tps, "launch", lambda n, fn, device, *args:
+                        calls.append((n, fn, args)))
+    b, s, w, heads = 2, 17, 192, 3
+    x = torch.zeros((b, s, w), dtype=torch.bfloat16)
+    wqkv = torch.zeros((w, 3 * w), dtype=torch.bfloat16)
+    wo = torch.zeros((w, w), dtype=torch.bfloat16)
+    bqkv, bo, ln = torch.zeros(3 * w), torch.zeros(w), torch.ones(w)
+    if name == "fused_attn_block":
+        out = tps._launch_attn_block(x, wqkv, bqkv, wo, bo, heads)
+    else:
+        out = tps._launch_attn_sublayer(x, ln, ln, wqkv, bqkv, wo, bo, heads,
+                                        1e-5)
+    assert out.shape == x.shape
+    (launched, (lib, sym, argtypes), args), = calls
+    assert launched == name and lib == "attn_block"
+    assert sym == "clipx_" + name
+    assert len(args) + 1 == len(argtypes) and argtypes[-1] is ctypes.c_void_p
+    ints = [a for a, t in zip(args, argtypes) if t is ctypes.c_int]
+    assert ints == [b, s, w, heads, tps.gemm_tile_n(w)]
+    pointers = [a for a, t in zip(args, argtypes) if t is ctypes.c_void_p]
+    assert len(pointers) == (7 if name == "fused_attn_block" else 10)
+
+
 def test_launch_counters_reset():
     tps.LAUNCHES["packed_sdpa"] += 3
     tps.reset_launches()
