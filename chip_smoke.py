@@ -14,9 +14,11 @@ these phases, printing one JSON line per phase:
               and B6's first-stage int8 codes, B6's output within 1e-2 of
               max|ref|); CUDA-event medians of the kernel, the plain
               version and one PyTorch library call, and their device times
-              from torch.profiler; for B1 and B5 the device time and
-              TFLOP/s of each launch (LayerNorm, attention core, out
-              projection), and B1 at a ragged (5, 50, 768) too.
+              from torch.profiler; for B1, B5, B7 and B9 the device time
+              and TFLOP/s of each launch (LayerNorm, attention core, long
+              SDPA, each sm90 GEMM), and B1 at a ragged (5, 50, 768) too;
+              the device ms of B7's two GEMMs, B9's out projection and
+              B1's at every sm90 tile width, beside the wrappers' picks.
 3. encode   — the Encoder at ViT-B/32 full width (seeded random weights):
               1,024 seeded images in batches of 128, then one batch of 1;
               launch counts checked; a few images against the port's CPU f32
@@ -39,8 +41,9 @@ these phases, printing one JSON line per phase:
               (packed_sdpa_rows, packed_sdpa); ViT-L/14@336px int8 (no
               fused MLP there); a profile of one int8 batch.
    fused    — ViT-B/32 under CLIPX_FUSED_MLP=on (fused_mlp in both towers,
-              text p50) and CLIPX_PACKED_SDPA=sublayer
-              (fused_attn_sublayer), 1,024 images each, against the CPU.
+              text p50, device ms of one profiled 128-image batch) and
+              CLIPX_PACKED_SDPA=sublayer (fused_attn_sublayer), 1,024
+              images each, against the CPU.
 8. long     — ViT-L/14@336px at full width (S = 577): 256 seeded 336 x 336
               images in batches of 128, then one batch of 1, checked
               against the port's CPU f32 encode; text p50 of its 768-wide
@@ -72,6 +75,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -232,6 +236,24 @@ def phase_env() -> dict:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def ptxas_table(log: str) -> dict:
+    """{kernel: "registers; stack and spills"} from nvcc's -Xptxas -v log,
+    with gemm_sm90_kernel<BN, epilogue> instances named in that form."""
+    table, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            g = re.search(r"gemm_sm90_kernelILi(\d+)ELi(\d+)E", entry)
+            if g:
+                entry = f"gemm_sm90_kernel<{g.group(1)}, {g.group(2)}>"
+            table[entry] = ""
+        elif entry and ("registers" in line or "spill" in line):
+            table[entry] = "; ".join(
+                filter(None, (table[entry], line.split(":", 1)[-1].strip())))
+    return table
+
+
 def _close(out, ref, atol, rtol):
     err = (out.float() - ref.float()).abs()
     ok = bool((err <= atol + rtol * ref.float().abs()).all())
@@ -262,9 +284,7 @@ def phase_kernels(device) -> dict:
     t0 = time.perf_counter()
     logs = _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = {name: [line.strip() for line in log.splitlines()
-                    if "registers" in line or "spill" in line]
-             for name, log in logs.items()}
+    ptxas = {name: ptxas_table(log) for name, log in logs.items()}
     gen = torch.Generator().manual_seed(SEED)
     results = {}
 
@@ -356,7 +376,9 @@ def phase_kernels(device) -> dict:
     results.update(_kernels_long(device, gen))
     results["pq_scan_scores"] = _kernel_b11(device)
     results.update(_kernels_mlp(device, gen))
+    tiles = _tile_sweep(device, gen)
     emit({"phase": "kernels", "build_s": build_s, "ptxas": ptxas,
+          "tile_widths": tiles,
           "tolerance": {"vs_plain": [ATOL_PLAIN, RTOL_PLAIN],
                         "vs_f32": [ATOL_F32, RTOL_F32],
                         "packed_sdpa_qkv": "bitwise vs packed_sdpa",
@@ -397,9 +419,20 @@ def _f32(*ts):
     return [t.float() for t in ts]
 
 
-# the kernels one B1 or B5 call launches, by role and a part of their names
-SM90_ROLES = (("layernorm", "layernorm_rows"), ("attn_core", "attn_core_sm90"),
-              ("out_gemm", "gemm_sm90"))
+# the kernels one call launches, by role and a pattern of their names, for
+# each kernel whose launches are split: B1 and B5, B7, B9. A
+# gemm_sm90_kernel<BN, epilogue> instance carries its epilogue: 0 bias, 1
+# residual, 2 QuickGELU, 3 erf GELU (csrc/gemm_sm90.cuh's Epilogue)
+_GEMM_SM90 = r"gemm_sm90_kernel<(\d+), "
+SM90_ROLES = {
+    "attn_block": (("layernorm", r"layernorm_rows"),
+                   ("attn_core", r"attn_core_sm90"),
+                   ("out_gemm", _GEMM_SM90 + r"[01]>")),
+    "fused_mlp": (("up_gemm", _GEMM_SM90 + r"[23]>"),
+                  ("down_gemm", _GEMM_SM90 + r"0>")),
+    "fused_sdpa_long_qkv": (("long_sdpa", r"long_sdpa_kernel"),
+                            ("out_gemm", _GEMM_SM90 + r"0>")),
+}
 
 
 def _sm90_flops(b, s, w, h) -> dict:
@@ -413,29 +446,42 @@ def _sm90_flops(b, s, w, h) -> dict:
             "out_gemm": 2 * b * s * w * w}
 
 
-def _per_launch(fn, flops: dict, iters: int = 20) -> dict:
+def _per_launch(fn, flops: dict, roles: str = "attn_block",
+                required=("attn_core", "out_gemm"), iters: int = 20) -> dict:
     """Device ms of each kernel that one call of fn launches (torch.profiler,
-    mean of iters calls), by role, with the achieved TFLOP/s of the useful
-    operations in ``flops`` (and of the padded ones where given). Fails if
-    the call launches any other kernel."""
+    mean of iters calls), by role (``SM90_ROLES[roles]``), with the
+    achieved TFLOP/s of the useful operations in ``flops`` (and of the
+    padded ones where given), and each GEMM's tile width. Fails if the call
+    launches any other kernel, misses a role in ``required``, or launches a
+    role's kernel more than once."""
     fn()
     torch.cuda.synchronize()
     kernels, _ = _profiled(fn, iters)
+    table = SM90_ROLES[roles]
     out = {}
-    for role, key in SM90_ROLES:
-        ms = sum(t for name, t, _ in kernels if key in name)
-        if ms:
-            out[role] = {"device_ms": ms,
-                         "calls": sum(n for name, _, n in kernels
-                                      if key in name)}
-            if role in flops:
-                out[role]["tflops"] = flops[role] / ms / 1e9
-            if role + "_padded" in flops:
-                out[role]["tflops_padded"] = flops[role + "_padded"] / ms / 1e9
-    others = [name[:80] for name, _, _ in kernels
-              if not any(key in name for _, key in SM90_ROLES)]
-    check(not others and "attn_core" in out and "out_gemm" in out,
-          f"B1/B5 launched other kernels than the sm90 ones: {others}")
+    for role, pattern in table:
+        hits = [(name, t, n) for name, t, n in kernels
+                if re.search(pattern, name)]
+        if not hits:
+            continue
+        out[role] = {"device_ms": sum(t for _, t, _ in hits),
+                     "calls": sum(n for _, _, n in hits),
+                     "kernels": sorted({name[:100] for name, _, _ in hits})}
+        bn = re.search(_GEMM_SM90, hits[0][0])
+        if bn:
+            out[role]["tile_n"] = int(bn.group(1))
+        if role in flops:
+            out[role]["tflops"] = flops[role] / out[role]["device_ms"] / 1e9
+        if role + "_padded" in flops:
+            out[role]["tflops_padded"] = (flops[role + "_padded"]
+                                          / out[role]["device_ms"] / 1e9)
+    others = [name[:100] for name, _, _ in kernels
+              if not any(re.search(p, name) for _, p in table)]
+    check(not others and all(r in out for r in required),
+          f"{roles}: launched other kernels than {[r for r, _ in table]}: "
+          f"{others}, or missed one of {required}: {sorted(out)}")
+    check(all(abs(r["calls"] - 1) < 1e-6 for r in out.values()),
+          f"{roles}: a role launched more than once a call: {out}")
     return out
 
 
@@ -504,6 +550,11 @@ def _kernels_long(device, gen) -> dict:
         lambda: ps.fused_sdpa_long_qkv_plain(*_f32(qkv, wo), bo, heads=h),
         lib_b9, flops=_attn_flops(b, h, s, w // h) + 2 * b * s * w * w,
         nbytes=b * s * 3 * w * 2 + w * w * 2 + w * 4 + b * s * w * 2)
+    res["fused_sdpa_long_qkv"]["launches"] = _per_launch(
+        lambda: ps.fused_sdpa_long_qkv(qkv, wo, bo, heads=h),
+        {"long_sdpa": _attn_flops(b, h, s, w // h),
+         "out_gemm": 2 * b * s * w * w},
+        roles="fused_sdpa_long_qkv", required=("long_sdpa", "out_gemm"))
     del qkv, wo, bo, bo16
 
     # B10 on (B, H, S, D): ViT-L/14@336px's heads (the main shape), the
@@ -658,9 +709,9 @@ def _kernels_mlp(device, gen) -> dict:
         flops=2 * b * s * w * 4 * w + _attn_flops(b, h, s, 64),
         nbytes=2 * b * s * w * 2 + 4 * w * w * 2 + 6 * w * 4)
     res["fused_attn_sublayer"]["launches"] = _per_launch(
-        lambda: ps.fused_attn_sublayer(*args, heads=h), _sm90_flops(b, s, w, h))
-    check("layernorm" in res["fused_attn_sublayer"]["launches"],
-          "fused_attn_sublayer launched no LayerNorm kernel")
+        lambda: ps.fused_attn_sublayer(*args, heads=h),
+        _sm90_flops(b, s, w, h), required=("layernorm", "attn_core",
+                                           "out_gemm"))
     del x, args, wqkv, wo
 
     hid = 4 * w
@@ -693,6 +744,10 @@ def _kernels_mlp(device, gen) -> dict:
                                    w2_16.float(), b2), lib_b7,
         flops=4 * MLP_ROWS * w * hid,
         nbytes=2 * MLP_ROWS * w * 2 + 2 * w * hid * 2 + (hid + w) * 4)
+    res["fused_mlp"]["launches"] = _per_launch(
+        b7(x), {"up_gemm": 2 * MLP_ROWS * w * hid,
+                "down_gemm": 2 * MLP_ROWS * hid * w},
+        roles="fused_mlp", required=("up_gemm", "down_gemm"))
     res["fused_mlp"]["odd_rows"] = _attn_check(
         "fused_mlp 3x33", b7(odd), b7_plain(odd),
         lambda: ps.fused_mlp_plain(odd.float(), w1_16.float(), b1,
@@ -729,6 +784,83 @@ def _kernels_mlp(device, gen) -> dict:
         **_times(lambda: ps.fused_mlp_w8a8(x, *qargs),
                  lambda: ps.fused_mlp_w8a8_plain(x, *qargs), lib_b6),
         "bound_ms": bms, "bound_by": by, "ops": ops, "bytes": nbytes}
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tile_sweep(device, gen) -> dict:
+    """Device ms of each GEMM that B7 and B9 launch, and of B1's out
+    projection, at every tile width of csrc/gemm_sm90.cuh that divides its
+    N, read by role from torch.profiler; with the width that
+    ``gemm_tile_n_mn`` (B7, B9) or ``gemm_tile_n`` (B1) picks. B7 at the
+    image tower's 6,400 rows and the text tower's 77 (one query) and 4,928
+    (its largest bucket, 64 texts); B9 and B1 at their kernels-phase
+    shapes."""
+    from clipx_torch.ops import packed_sdpa as ps
+
+    res = {}
+
+    def record(key, m, n, k, bn, ms, rule):
+        r = res.setdefault(key, {"m": m, "n": n, "k": k, "rule": rule,
+                                 "device_ms": {}, "tflops": {}})
+        r["device_ms"][bn] = ms
+        r["tflops"][bn] = 2 * m * n * k / ms / 1e9
+
+    for tag, (rows, w, hid) in {"image": (MLP_ROWS, 768, 3072),
+                                "text_1": (77, 512, 2048),
+                                "text_64": (77 * 64, 512, 2048)}.items():
+        x = _bf16(gen, (rows, w), 1.0, device)
+        w1 = _bf16(gen, (w, hid), 0.03, device)
+        w2 = _bf16(gen, (hid, w), 0.03, device)
+        b1 = (torch.randn(hid, generator=gen) * 0.01).to(device)
+        b2 = (torch.randn(w, generator=gen) * 0.01).to(device)
+        for bn in ps.GEMM_TILES:
+            up = bn if hid % bn == 0 else None
+            down = bn if w % bn == 0 else None
+            if up is None and down is None:
+                continue
+            split = _per_launch(
+                lambda: ps._launch_mlp(x, w1, b1, w2, b2, True, (up, down)),
+                {}, roles="fused_mlp", required=("up_gemm", "down_gemm"))
+            if up:
+                record(f"fused_mlp_up_{tag}", rows, hid, w, bn,
+                       split["up_gemm"]["device_ms"],
+                       ps.gemm_tile_n_mn(rows, hid))
+            if down:
+                record(f"fused_mlp_down_{tag}", rows, w, hid, bn,
+                       split["down_gemm"]["device_ms"],
+                       ps.gemm_tile_n_mn(rows, w))
+        del x, w1, w2
+
+    b, s, w, h = 128, 577, 1024, 16
+    qkv = _bf16(gen, (b, s, 3 * w), 1.0, device)
+    wo = _bf16(gen, (w, w), 0.03, device)
+    bo = (torch.randn(w, generator=gen) * 0.01).to(device)
+    for bn in ps.GEMM_TILES:
+        if w % bn == 0:
+            split = _per_launch(
+                lambda: ps._launch_long_qkv(qkv, wo, bo, h, False, bn), {},
+                roles="fused_sdpa_long_qkv",
+                required=("long_sdpa", "out_gemm"))
+            record("fused_sdpa_long_qkv_out", b * s, w, w, bn,
+                   split["out_gemm"]["device_ms"], ps.gemm_tile_n_mn(b * s, w))
+    del qkv, wo
+
+    b, s, w, h = 128, 50, 768, VIT_B32_HEADS
+    x = _bf16(gen, (b, s, w), 1.0, device)
+    wqkv = _bf16(gen, (w, 3 * w), 0.03, device)
+    wo = _bf16(gen, (w, w), 0.03, device)
+    bqkv = (torch.randn(3 * w, generator=gen) * 0.01).to(device)
+    bo = (torch.randn(w, generator=gen) * 0.01).to(device)
+    for bn in ps.GEMM_TILES:
+        split = _per_launch(
+            lambda: ps._launch_attn_block(x, wqkv, bqkv, wo, bo, h, bn), {})
+        record("fused_attn_block_out", b * s, w, w, bn,
+               split["out_gemm"]["device_ms"], ps.gemm_tile_n(w))
+    for r in res.values():
+        r["fastest"] = min(r["device_ms"], key=r["device_ms"].get)
+        r["rule_over_fastest"] = (r["device_ms"][r["rule"]]
+                                  / r["device_ms"][r["fastest"]])
     torch.cuda.empty_cache()
     return res
 
@@ -1136,9 +1268,9 @@ def _kernel_class(name: str) -> str:
     if "gemm_s8" in low or "quant_rows" in low:
         return "int8 GEMM / row quantizer (B6)"
     if "sm90" in low or "layernorm_rows" in low:
-        return "sm90 attention core / GEMM, LayerNorm (B1, B5)"
-    if "short_sdpa" in low or "gemm_bias" in low:
-        return "short_sdpa / mma.sync GEMM (B2-B4, B7, B9)"
+        return "sm90 attention core / GEMM, LayerNorm (B1, B5, B7, B9's GEMM)"
+    if "short_sdpa" in low:
+        return "short_sdpa (B2-B4)"
     if "pq_scan" in low:
         return "pq_scan (B11)"
     if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
@@ -1304,7 +1436,8 @@ def phase_int8(device, images: np.ndarray, base: np.ndarray) -> dict:
 
 def phase_fused(enc, images: np.ndarray, cpu_ref: np.ndarray) -> dict:
     """ViT-B/32 bf16 under CLIPX_FUSED_MLP=on (B7 in both towers: 1,024
-    images, then the text p50) and under CLIPX_PACKED_SDPA=sublayer (B5 on
+    images, the text p50, then torch.profiler over one 128-image batch)
+    and under CLIPX_PACKED_SDPA=sublayer (B5 on
     every even batch: 1,024 images, then a batch of 1 on packed_sdpa), each
     against the CPU f32 encode of phase encode (cosine >= COS_MIN)."""
     layers = enc.cfg.vision.layers
@@ -1320,6 +1453,8 @@ def phase_fused(enc, images: np.ndarray, cpu_ref: np.ndarray) -> dict:
         check(n == {"fused_mlp": text_layers},
               f"CLIPX_FUSED_MLP text launched {n}")
         info["text_fused_mlp"] = text_latency(enc)
+        info["profile_fused_mlp"] = encode_profile(enc, images[:BATCH],
+                                                   reps=1, plain_reps=4)
     info["cos_fused_mlp_vs_cpu_f32_min"] = _cos_min(cpu_ref,
                                                     embs[:CPU_CHECK])
     with _env("CLIPX_PACKED_SDPA", "sublayer"):

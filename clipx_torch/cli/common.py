@@ -31,9 +31,12 @@ IDX_DB = b"idx_db"
 QUANT_AUTO_THRESHOLD = 100_000
 
 # flag values accepted (clipx's choices) whose paths are not ported yet,
-# with the slice of the port (ROADMAP.md) that brings each
-_NOT_PORTED = {"search_mode": {"ivf": "slice 5"},
-               "preprocess": {"device": "a later slice"}}
+# with the item of ROADMAP.md's queue A (modules still to port) that
+# brings each
+_NOT_PORTED = {
+    "search_mode": {"ivf": 'the port of IVF, ROADMAP.md queue A, "IVF"'},
+    "preprocess": {"device": "the port of device preprocessing, ROADMAP.md "
+                             'queue A, "Device preprocess"'}}
 
 
 def add_model_flags(parser: argparse.ArgumentParser) -> None:
@@ -95,8 +98,8 @@ def check_ported(args) -> None:
 
 def _not_ported(flag: str, value: str, when: str) -> str:
     name = "--" + flag.replace("_", "-")
-    return (f"error: {name} {value} is not yet ported to clipx_torch ({when} "
-            "of the port; use the clipx package for it)")
+    return (f"error: {name} {value} is not yet ported to clipx_torch (it "
+            f"comes with {when}; use the clipx package for it)")
 
 
 def _refuse_ivf(args) -> None:

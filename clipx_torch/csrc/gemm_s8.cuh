@@ -18,9 +18,10 @@
 // tile, each warp a 32x32 quarter, staged through shared memory (the B tile
 // transposed so fragments are k-contiguous), here with 64-byte K tiles and
 // mma.sync m16n8k32 s8 -> s32. The int8 fragments hold four values a
-// register in the byte positions the bf16 m16n8k16 fragments hold two, so
-// the addressing is the bf16 GEMM's in bytes. No load pipeline and no
-// wgmma: a later, faster version adds them.
+// register in the byte positions the bf16 m16n8k16 fragments hold two. No
+// load pipeline and no wgmma: a later, faster version adds them. The
+// activations are act.cuh's, the same functions the bf16 MLP's epilogue
+// calls.
 
 #pragma once
 
@@ -28,6 +29,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "act.cuh"
 #include "gemm.cuh"
 
 namespace clipx {

@@ -3,23 +3,38 @@
 // in registers. Also the PTX helpers (mbarrier, TMA, wgmma, shared-memory
 // descriptors, tensor maps) that attn_core_sm90.cuh builds on.
 //
-// Used by attn_block.cu for the out projections of fused_attn_block and
-// fused_attn_sublayer. With attn_core_sm90.cuh it replaces the Pallas
-// kernels' GEMM steps, clipx/ops/packed_sdpa.py::fused_attn_block (:312)
-// and ::fused_attn_sublayer (:261), `_attn_block_core` (:220-257):
+// Every bf16 GEMM of the port runs on it:
+// - attn_block.cu: the out projections of fused_attn_block and
+//   fused_attn_sublayer (clipx/ops/packed_sdpa.py:312, :261; the GEMM steps
+//   of `_attn_block_core`, :220-257);
+// - long_sdpa.cu: the out projection of fused_sdpa_long_qkv (:715;
+//   `_long_qkv_kernel`, :670);
+// - mlp.cu: both GEMMs of fused_mlp (:504; `_mlp_block_kernel`, :370).
 //
 //     t = x[M, K] @ w[K, N] + bias[N]                  (f32 accumulate)
-//     kEpiBias:     y = bf16(t)
-//     kEpiResidual: y = bf16(f32(res) + f32(bf16(t)))  (B5: round, then add)
+//     kEpiBias:      y = bf16(t)
+//     kEpiResidual:  y = bf16(f32(res) + f32(bf16(t)))  (B5: round, then add)
+//     kEpiQuickGelu: y = bf16(a(f32(bf16(t)))), a(v) = v * sigmoid(1.702 v)
+//     kEpiGelu:      the same with the exact erf GELU
 //
-// What bounds it on this card: at ViT-B/32, batch 128 the out projection is
-// M = 6400, N = K = 768: 7.55 GFLOP against ~21 MB of compulsory traffic,
-// about 360 FLOP a byte, above the H100's ~295 ridge, so it is bound by
-// operations (7.6 us at the 989 TFLOP/s bf16 peak), a rate that only
+// The activation forms keep _mlp_block_kernel's rounding points (:379-389):
+// x @ w1 + b1 rounds to bf16, the activation (act.cuh) runs in f32 on that,
+// and its result rounds to bf16 again.
+//
+// What bounds it on this card: every GEMM on the port's paths is above the
+// H100's ~295 FLOP-a-byte ridge, so bound by operations, a rate that only
 // wgmma reaches, fed by TMA so that no thread spends instructions on loads.
+// At ViT-B/32, batch 128 the out projection is M = 6400, N = K = 768 (7.55
+// GFLOP, ~21 MB, ~360 FLOP a byte: 7.6 us at the 989 TFLOP/s bf16 peak);
+// fused_mlp's up projection 6400 x 3072 x 768 (30.2 GFLOP, ~54 MB with the
+// bf16 hidden layer written) and its down projection 6400 x 768 x 3072;
+// at ViT-L/14@336px fused_sdpa_long_qkv's out projection is 73856 x 1024 x
+// 1024 (155 GFLOP, ~305 MB: 0.157 ms at the peak).
 //
 // Design: a block owns a 128 x BN output tile (BN in {64, 128, 192}, the
-// caller picks one that divides N). One producer thread keeps kStages
+// caller picks one that divides N: ops/packed_sdpa.py's gemm_tile_n for the
+// out projections of B1 and B5, its measured rule gemm_tile_n_mn for the
+// others). One producer thread keeps kStages
 // stages full through TMA with the 128-byte swizzle: a 128 x 64 box of x
 // and BN/64 boxes of 64 x 64 of w per stage, signalled on an mbarrier. Two
 // consumer warpgroups each run wgmma m64nBNk16 on their 64 rows, A from
@@ -39,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "act.cuh"
+
 namespace clipx {
 namespace sm90 {
 
@@ -54,7 +71,7 @@ constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr int kGemmRows = 64 * kConsumers;  // 128
 
-enum Epilogue : int { kEpiBias = 0, kEpiResidual = 1 };
+enum Epilogue : int { kEpiBias = 0, kEpiResidual = 1, kEpiQuickGelu = 2, kEpiGelu = 3 };
 
 // ---------------------------------------------------------------------------
 // PTX helpers
@@ -386,6 +403,12 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant
                         __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(res + at));
                     v0 = r.x + __bfloat162float(__float2bfloat16_rn(v0));
                     v1 = r.y + __bfloat162float(__float2bfloat16_rn(v1));
+                } else if constexpr (kEpi == kEpiQuickGelu) {
+                    v0 = quick_gelu_f32(__bfloat162float(__float2bfloat16_rn(v0)));
+                    v1 = quick_gelu_f32(__bfloat162float(__float2bfloat16_rn(v1)));
+                } else if constexpr (kEpi == kEpiGelu) {
+                    v0 = gelu_erf_f32(__bfloat162float(__float2bfloat16_rn(v0)));
+                    v1 = gelu_erf_f32(__bfloat162float(__float2bfloat16_rn(v1)));
                 }
                 *reinterpret_cast<__nv_bfloat162*>(y + at) = __floats2bfloat162_rn(v0, v1);
             }

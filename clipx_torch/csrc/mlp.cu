@@ -5,8 +5,9 @@
 // - fused_mlp (`_mlp_block_kernel`, :370; pallas_call at :530):
 //       h = bf16(x @ W1 + b1);  a = bf16(act(f32(h)));  y = bf16(a @ W2 + b2)
 //   with f32 accumulation, act QuickGELU (x * sigmoid(1.702 x)) or the exact
-//   erf GELU in f32. Two launches of gemm.cuh's bf16 GEMM: the first with
-//   the activation epilogue, the second with the bias epilogue.
+//   erf GELU in f32. Two launches of gemm_sm90.cuh's TMA + wgmma GEMM: the
+//   up projection with the activation epilogue into the bf16 hidden layer,
+//   the down projection with the bias epilogue.
 // - fused_mlp_w8a8 (`_mlp_w8a8_kernel`, :426; pallas_call at :485):
 //       xq, xs = quant_rows(f32(x))
 //       h = act(f32(xq @ W1q) * (xs * s1) + b1)        (f32)
@@ -18,44 +19,51 @@
 //
 // On the TPU one program held both weight matrices in VMEM and kept its
 // 128 rows' hidden tile on chip. Here the hidden layer makes one round trip
-// through L2/HBM: bf16 (R, H) for fused_mlp (39 MB at ViT-B/32, batch 128),
-// f32 plus int8 codes for fused_mlp_w8a8 (79 + 20 MB). The weights (4.7 MB
-// bf16, 2.4 MB int8 a layer at ViT-B/32) stay in the 50 MB L2 across blocks.
+// through L2/HBM: bf16 (R, H) for fused_mlp (39 MB at ViT-B/32, batch 128,
+// against a 50 MB L2), f32 plus int8 codes for fused_mlp_w8a8 (79 + 20
+// MB). Keeping it on chip does not fit: a 128-row block's f32 accumulator
+// of the output at W = 768 is 384 KB. The weights (4.7 MB bf16, 2.4 MB
+// int8 a layer at ViT-B/32) stay in L2 across blocks.
 //
 // What bounds them on this card, at ViT-B/32 batch 128 (R = 6,400, W = 768,
 // H = 3,072): 4 R W H = 60.4 G operations against ~24-29 MB of compulsory
 // traffic, so operations: 0.061 ms at the bf16 peak (989 TFLOP/s) and 0.031
-// ms at the int8 peak (1,979 TOP/s). mma.sync without a load pipeline, the
-// hidden round trip and the byte-wise transposed B tiles keep these first
-// versions far from that; wgmma with TMA-fed tiles and the hidden layer
-// kept on chip are the next step.
+// ms at the int8 peak (1,979 TOP/s). fused_mlp reaches that rate only
+// through wgmma, which its two GEMMs now use; what stays between it and
+// the bound is the GEMM's own (one block an SM, a tail of partial waves:
+// the wrapper picks each GEMM's tile width by a measured rule). The int8
+// GEMMs are still mma.sync without a load pipeline.
 //
 // C interface for ctypes; each entry returns cudaGetLastError() after its
 // launches.
 
-#include "gemm.cuh"
 #include "gemm_s8.cuh"
+#include "gemm_sm90.cuh"
 
 // x: (R, W) bf16; w1: (W, H) bf16; b1: (H,) f32; w2: (H, W) bf16; b2: (W,)
-// f32; h_buf: (R, H) bf16 scratch; out: (R, W) bf16. W % 64 == 0,
-// H % 64 == 0. quick: 1 for QuickGELU, 0 for the erf GELU.
+// f32; h_buf: (R, H) bf16 scratch; out: (R, W) bf16; every pointer 16-byte
+// aligned (the TMA tensor maps need it). W % 64 == 0, H % 64 == 0. quick:
+// 1 for QuickGELU, 0 for the erf GELU. bn_up, bn_down: the two GEMMs' tile
+// widths (64, 128 or 192), dividing H and W.
 extern "C" int clipx_fused_mlp(const void* x, const void* w1, const void* b1, const void* w2,
                                const void* b2, void* h_buf, void* out, int rows, int width,
-                               int hidden, int quick, void* stream) {
+                               int hidden, int quick, int bn_up, int bn_down, void* stream) {
+    namespace sm = clipx::sm90;
     using bf16 = __nv_bfloat16;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     bf16* h = static_cast<bf16*>(h_buf);
-    if (quick)
-        clipx::launch_gemm<clipx::kEpiQuickGelu>(
-            static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-            static_cast<const float*>(b1), nullptr, h, rows, hidden, width, st);
-    else
-        clipx::launch_gemm<clipx::kEpiGelu>(
-            static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-            static_cast<const float*>(b1), nullptr, h, rows, hidden, width, st);
-    clipx::launch_gemm_bias(h, static_cast<const bf16*>(w2), static_cast<const float*>(b2),
-                            static_cast<bf16*>(out), rows, width, hidden, st);
-    return static_cast<int>(cudaGetLastError());
+    const bf16* xb = static_cast<const bf16*>(x);
+    const bf16* w1b = static_cast<const bf16*>(w1);
+    const float* b1f = static_cast<const float*>(b1);
+    const cudaError_t e =
+        quick ? sm::launch_gemm<sm::kEpiQuickGelu>(xb, w1b, b1f, nullptr, h, rows, hidden,
+                                                   width, bn_up, st)
+              : sm::launch_gemm<sm::kEpiGelu>(xb, w1b, b1f, nullptr, h, rows, hidden, width,
+                                              bn_up, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(sm::launch_gemm<sm::kEpiBias>(
+        h, static_cast<const bf16*>(w2), static_cast<const float*>(b2), nullptr,
+        static_cast<bf16*>(out), rows, width, hidden, bn_down, st));
 }
 
 // x: (R, W) bf16; w1q: (W, H) int8, s1, b1: (H,) f32; w2q: (H, W) int8,

@@ -280,45 +280,93 @@ def _launch_long(q, k, v, heads: int, causal: bool) -> torch.Tensor:
     return out
 
 
-def _launch_long_qkv(qkv, wo, bo, heads: int, causal: bool) -> torch.Tensor:
+def _launch_long_qkv(qkv, wo, bo, heads: int, causal: bool,
+                     bn: int | None = None) -> torch.Tensor:
+    """B9's C call: the long SDPA, then the out projection on the sm90
+    GEMM at tile width ``bn`` (default ``gemm_tile_n_mn(B*S, W)``)."""
     name = "fused_sdpa_long_qkv"
     device = kernel_device(name, qkv)
     check_cuda(name, torch.bfloat16, device, qkv=qkv, wo=wo)
     check_cuda(name, torch.float32, device, bo=bo)
     b, s, w3 = qkv.shape
     w = w3 // 3
+    bn = _tile(name, b * s, w, bn)
     attn_buf = torch.empty((b * s, w), dtype=qkv.dtype, device=device)
     out = torch.empty((b, s, w), dtype=qkv.dtype, device=device)
     fn = c_fn("long_sdpa", "clipx_fused_sdpa_long_qkv",
-              [P, P, P, P, P, I, I, I, I, I, P])
+              [P, P, P, P, P, I, I, I, I, I, I, P])
     launch(name, fn, device, qkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-           attn_buf.data_ptr(), out.data_ptr(), b, s, w, heads, int(causal))
+           attn_buf.data_ptr(), out.data_ptr(), b, s, w, heads, int(causal),
+           bn)
     return out
+
+
+GEMM_TILES = (192, 128, 64)  # csrc/gemm_sm90.cuh's tile widths, widest first
 
 
 def gemm_tile_n(n: int) -> int:
     """The out projection's tile width in ``csrc/gemm_sm90.cuh`` (one of
     its template instances: 64, 128 or 192 columns) for N = heads * 64
     output columns: the widest that divides N, so no tile is ragged."""
-    for bn in (192, 128, 64):
+    for bn in GEMM_TILES:
         if n % bn == 0:
             return bn
     raise ValueError(f"gemm_tile_n: N={n} is not a multiple of 64")
 
 
-def _launch_attn_block(x, wqkv, bqkv, wo, bo, heads: int) -> torch.Tensor:
+_SMS = 132  # SMs of an H100 SXM (and of an H200)
+
+
+def gemm_tile_n_mn(m: int, n: int) -> int:
+    """The tile width of B7's two GEMMs and B9's out projection for an
+    (M, N) output, among the widths that divide N. The GEMM holds one
+    128 x width block an SM, so a grid runs in waves of ``_SMS`` blocks.
+    Where the widest width leaves the grid short of one wave, the
+    narrowest: more blocks put more SMs to work. Otherwise 64 only if
+    nothing wider divides N (on wgmma m64n64 it ran B7's down projection
+    at 384 TFLOP/s against 513 at 192), and among the others the least
+    waves x width,
+    ties to the wider (fewer tiles to fill and drain). This reproduces the
+    widths measured fastest (``chip_smoke.py`` phase ``kernels``,
+    ``tile_widths``): ViT-B/32's image MLP 128 up, 192 down (6,400 rows);
+    the text tower's single query 64 (77 rows), its 4,928-row bucket 128;
+    ViT-L/14@336px's out projection 128 (73,856 x 1,024)."""
+    widths = [bn for bn in GEMM_TILES if n % bn == 0]
+    if not widths:
+        raise ValueError(f"gemm_tile_n_mn: N={n} is not a multiple of 64")
+    rows = -(-m // 128)
+    if rows * (n // widths[0]) < _SMS:
+        return widths[-1]
+    wide = [bn for bn in widths if bn > 64] or widths
+    return min(wide, key=lambda bn: -(-rows * (n // bn) // _SMS) * bn)
+
+
+def _tile(name: str, m: int, n: int, bn: int | None) -> int:
+    if bn is None:
+        return gemm_tile_n_mn(m, n)
+    if bn not in GEMM_TILES or n % bn:
+        raise ValueError(f"{name}: tile width {bn} is not one of "
+                         f"{GEMM_TILES} dividing N={n}")
+    return bn
+
+
+def _launch_attn_block(x, wqkv, bqkv, wo, bo, heads: int,
+                       bn: int | None = None) -> torch.Tensor:
+    """B1's C call; the out projection's tile width is ``gemm_tile_n(W)``
+    unless ``bn`` names another (for timing)."""
     name = "fused_attn_block"
     device = kernel_device(name, x)
     check_cuda(name, torch.bfloat16, device, x=x, wqkv=wqkv, wo=wo)
     check_cuda(name, torch.float32, device, bqkv=bqkv, bo=bo)
     b, s, w = x.shape
+    bn = gemm_tile_n(w) if bn is None else _tile(name, b * s, w, bn)
     attn_buf = torch.empty((b * s, w), dtype=x.dtype, device=device)
     out = torch.empty_like(x)
     fn = c_fn("attn_block", "clipx_fused_attn_block",
               [P, P, P, P, P, P, P, I, I, I, I, I, P])
     launch(name, fn, device, x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
            wo.data_ptr(), bo.data_ptr(), attn_buf.data_ptr(), out.data_ptr(),
-           b, s, w, heads, gemm_tile_n(w))
+           b, s, w, heads, bn)
     return out
 
 
@@ -343,19 +391,28 @@ def _launch_attn_sublayer(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
     return out
 
 
-def _launch_mlp(x2, w1, b1, w2, b2, quick: bool) -> torch.Tensor:
+def _launch_mlp(x2, w1, b1, w2, b2, quick: bool,
+                tiles: tuple | None = None) -> torch.Tensor:
+    """B7's C call: two sm90 GEMMs, (R, W) @ w1 with the activation into a
+    bf16 (R, H) scratch, then @ w2. ``tiles`` = (up, down) tile widths,
+    default ``gemm_tile_n_mn`` of each (M, N). ``check_cuda`` refuses an
+    operand that is not 16-byte aligned, by name: the kernel's TMA tensor
+    maps cannot take it."""
     name = "fused_mlp"
     device = kernel_device(name, x2)
     check_cuda(name, torch.bfloat16, device, x=x2, w1=w1, w2=w2)
     check_cuda(name, torch.float32, device, b1=b1, b2=b2)
     rows, width = x2.shape
     hidden = w1.shape[1]
+    up, down = tiles or (None, None)
+    up, down = _tile(name, rows, hidden, up), _tile(name, rows, width, down)
     h_buf = torch.empty((rows, hidden), dtype=x2.dtype, device=device)
     out = torch.empty_like(x2)
-    fn = c_fn("mlp", "clipx_fused_mlp", [P, P, P, P, P, P, P, I, I, I, I, P])
+    fn = c_fn("mlp", "clipx_fused_mlp",
+              [P, P, P, P, P, P, P, I, I, I, I, I, I, P])
     launch(name, fn, device, x2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
            w2.data_ptr(), b2.data_ptr(), h_buf.data_ptr(), out.data_ptr(),
-           rows, width, hidden, int(quick))
+           rows, width, hidden, int(quick), up, down)
     return out
 
 

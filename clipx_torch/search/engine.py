@@ -39,7 +39,7 @@ CUDA ``torch._int_mm`` (int8 x int8 -> int32); on the CPU an f32 matmul of
 the codes, exact because every partial sum is an integer below
 127 * 127 * D < 2**24 for D <= 1040.
 
-Not ported yet: IVF (slice 5 of the port) and sharding across devices.
+Not ported yet: IVF (ROADMAP.md queue A, "IVF") and sharding across devices.
 """
 
 from __future__ import annotations

@@ -209,7 +209,7 @@ def test_refresh_rewrites(sidecar, monkeypatch):
 
 def test_search_mode_ivf_is_refused(sidecar):
     path, _, _ = sidecar
-    with pytest.raises(SystemExit, match="slice 5"):
+    with pytest.raises(SystemExit, match='the port of IVF, ROADMAP.md queue A, "IVF"'):
         tcommon.load_index(_args(path, "pq", search_mode="ivf"))
 
 

@@ -117,8 +117,11 @@ def test_fused_sdpa_long_matches_plain(cuda_device, b, s, w, heads, causal):
                                atol=ATOL)
 
 
+# B9: W = 256 (tile 64), 768 (ViT-B/16's width; tile 192 at 64 x 197
+# rows, 64 at 2 x 77), 1024 (ViT-L/14@336's; tile 64 at 2 x 577)
 @pytest.mark.parametrize("b,s,w,heads,causal", [
-    (2, 130, 256, 4, False), (2, 77, 768, 12, True), (2, 577, 1024, 16, False)])
+    (2, 130, 256, 4, False), (2, 77, 768, 12, True), (2, 577, 1024, 16, False),
+    (64, 197, 768, 12, False)])
 def test_fused_sdpa_long_qkv_matches_plain(cuda_device, b, s, w, heads,
                                            causal):
     gen = torch.Generator().manual_seed(b * s + w + 1)
@@ -386,11 +389,13 @@ def _mlp_weights(gen, device, w, h):
     return w1, b1, w2, b2
 
 
-# B7 and B6: ViT-B/32's image MLP at an odd row count and at a row count
-# past several 64-row tiles, and its text tower's 512-wide MLP
+# B7: ViT-B/32's image MLP at an odd row count, a row count past several
+# 128-row tiles, its batch-128 rows and a single row, and its text tower's
+# 512-wide MLP
 @pytest.mark.parametrize("quick", [True, False])
 @pytest.mark.parametrize("rows,w,h", [(99, 768, 3072), (640, 768, 3072),
-                                      (154, 512, 2048)])
+                                      (154, 512, 2048), (6400, 768, 3072),
+                                      (1, 768, 3072)])
 def test_fused_mlp_matches_plain(cuda_device, rows, w, h, quick):
     gen = torch.Generator().manual_seed(rows + w + quick)
     x = _bf(gen, cuda_device, rows, w)
@@ -405,6 +410,7 @@ def test_fused_mlp_matches_plain(cuda_device, rows, w, h, quick):
                                atol=ATOL)
 
 
+# B6 at the same image-MLP shapes and a narrow one
 @pytest.mark.parametrize("quick", [True, False])
 @pytest.mark.parametrize("rows,w,h", [(99, 768, 3072), (640, 768, 3072),
                                       (64, 128, 512)])
@@ -455,6 +461,70 @@ def test_fused_attn_sublayer_matches_plain(cuda_device, b, s, w, heads):
     assert out.dtype == torch.bfloat16 and out.shape == x.shape
     torch.testing.assert_close(out.float(), ref.float(), rtol=RTOL,
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("bn", [64, 128, 192])
+def test_sm90_gemm_tile_widths_match_plain(cuda_device, bn):
+    """Every gemm_sm90 instance that B7 and B9 can launch (each tile width
+    with the bias and both activation epilogues), whatever width the
+    wrappers' rule picks at the tested shapes: B7 at 99 rows x 768 -> 3072
+    with both activations, B9 at W = 768 (tile 64, 128 and 192 divide it)."""
+    gen = torch.Generator().manual_seed(bn)
+    x = _bf(gen, cuda_device, 99, 768)
+    args = _mlp_weights(gen, cuda_device, 768, 3072)
+    for quick in (True, False):
+        out = tps._launch_mlp(x, *args, quick, (bn, bn))
+        ref = tps.fused_mlp_plain(x, *args, quick=quick)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref.float(), rtol=RTOL,
+                                   atol=ATOL)
+    qkv = _bf(gen, cuda_device, 2, 130, 3 * 768)
+    wo = _bf(gen, cuda_device, 768, 768, scale=0.03)
+    bo = (torch.randn(768, generator=gen) * 0.01).to(cuda_device)
+    out = tps._launch_long_qkv(qkv, wo, bo, 12, False, bn)
+    ref = tps.fused_sdpa_long_qkv_plain(qkv, wo, bo, heads=12)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=RTOL, atol=ATOL)
+
+
+def _kernel_names(fn) -> list:
+    """The CUDA kernels one call of fn launches, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("kernel", ["fused_mlp", "fused_sdpa_long_qkv"])
+def test_b7_and_b9_gemms_run_on_the_sm90_gemm(cuda_device, kernel):
+    """B7 launches two gemm_sm90 kernels and B9 its long SDPA and one
+    gemm_sm90 kernel; neither launches the retired mma.sync GEMM
+    (gemm_bias_kernel) or anything else."""
+    gen = torch.Generator().manual_seed(4)
+    if kernel == "fused_mlp":
+        x = _bf(gen, cuda_device, 640, 768)
+        args = _mlp_weights(gen, cuda_device, 768, 3072)
+        names = _kernel_names(lambda: tps.fused_mlp(x, *args))
+        want = {"gemm_sm90": 2}
+    else:
+        qkv = _bf(gen, cuda_device, 2, 130, 3 * 256)
+        wo = _bf(gen, cuda_device, 256, 256, scale=0.03)
+        bo = torch.zeros(256, device=cuda_device)
+        names = _kernel_names(
+            lambda: tps.fused_sdpa_long_qkv(qkv, wo, bo, heads=4))
+        want = {"gemm_sm90": 1, "long_sdpa": 1}
+    if not names:
+        pytest.fail("torch.profiler saw no CUDA kernel")
+    assert not any("gemm_bias" in n for n in names), names
+    got = {key: sum(key in n for n in names) for key in want}
+    assert got == want and len(names) == sum(want.values()), names
 
 
 def test_mlp_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):

@@ -320,10 +320,41 @@ def test_gemm_tile_n_at_the_towers_widths():
         tps.gemm_tile_n(96)
 
 
-@pytest.mark.parametrize("name", ["fused_attn_block", "fused_attn_sublayer"])
+# (M, N) of B7's GEMMs and B9's out projection on the paths, and the width
+# the H100 measured fastest there (chip_smoke.py, phase kernels)
+TOWER_GEMMS = {
+    (6400, 3072): 128,   # ViT-B/32 image MLP, up, batch 128 (192: +1-2 %)
+    (6400, 768): 192,    # its down projection (1.5 waves beat 2.3 and 4.5)
+    (77, 2048): 64,      # text tower, one query: 32 blocks beat 16
+    (77, 512): 64,
+    (4928, 2048): 128,   # text tower, the 64-text bucket
+    (4928, 512): 128,
+    (73856, 1024): 128,  # B9 at ViT-L/14@336px, batch 128
+}
+
+
+@pytest.mark.parametrize("m,n", sorted(TOWER_GEMMS))
+def test_gemm_tile_n_mn_picks_the_measured_widths(m, n):
+    assert tps.gemm_tile_n_mn(m, n) == TOWER_GEMMS[(m, n)]
+
+
+@pytest.mark.parametrize("n", [64 * h for h in (1, 2, 3, 4, 5, 8, 12, 16,
+                                                 20, 32, 48, 64)])
+def test_gemm_tile_n_mn_divides_n(n):
+    for m in (1, 77, 128, 129, 3152, 6400, 25216, 73856):
+        bn = tps.gemm_tile_n_mn(m, n)
+        assert bn in tps.GEMM_TILES and n % bn == 0
+    with pytest.raises(ValueError):
+        tps.gemm_tile_n_mn(64, n + 32)
+
+
+@pytest.mark.parametrize("name", ["fused_attn_block", "fused_attn_sublayer",
+                                  "fused_mlp", "fused_sdpa_long_qkv"])
 def test_attn_launchers_match_their_c_entries(name, monkeypatch):
     """The launchers pass exactly the arguments their C entries declare
-    (the stream comes last), no qkv scratch, and the GEMM's tile width."""
+    (the stream comes last), no qkv scratch, and each GEMM's tile width:
+    ``gemm_tile_n`` for B1 and B5, ``gemm_tile_n_mn`` of (M, N) for B7's
+    two GEMMs and B9's out projection."""
     import ctypes
 
     calls = []
@@ -340,18 +371,58 @@ def test_attn_launchers_match_their_c_entries(name, monkeypatch):
     bqkv, bo, ln = torch.zeros(3 * w), torch.zeros(w), torch.ones(w)
     if name == "fused_attn_block":
         out = tps._launch_attn_block(x, wqkv, bqkv, wo, bo, heads)
-    else:
+        lib, want, n_ptr = "attn_block", [b, s, w, heads,
+                                          tps.gemm_tile_n(w)], 7
+    elif name == "fused_attn_sublayer":
         out = tps._launch_attn_sublayer(x, ln, ln, wqkv, bqkv, wo, bo, heads,
                                         1e-5)
+        lib, want, n_ptr = "attn_block", [b, s, w, heads,
+                                          tps.gemm_tile_n(w)], 10
+    elif name == "fused_mlp":
+        x = x.reshape(b * s, w)
+        out = tps._launch_mlp(x, wqkv, bqkv, wqkv.T.contiguous(), bo, False)
+        lib, n_ptr = "mlp", 7
+        want = [b * s, w, 3 * w, 0, tps.gemm_tile_n_mn(b * s, 3 * w),
+                tps.gemm_tile_n_mn(b * s, w)]
+    else:
+        qkv = torch.zeros((b, s, 3 * w), dtype=torch.bfloat16)
+        out = tps._launch_long_qkv(qkv, wo, bo, heads, True)
+        lib, n_ptr = "long_sdpa", 5
+        want = [b, s, w, heads, 1, tps.gemm_tile_n_mn(b * s, w)]
     assert out.shape == x.shape
-    (launched, (lib, sym, argtypes), args), = calls
-    assert launched == name and lib == "attn_block"
+    (launched, (lib_got, sym, argtypes), args), = calls
+    assert launched == name and lib_got == lib
     assert sym == "clipx_" + name
     assert len(args) + 1 == len(argtypes) and argtypes[-1] is ctypes.c_void_p
     ints = [a for a, t in zip(args, argtypes) if t is ctypes.c_int]
-    assert ints == [b, s, w, heads, tps.gemm_tile_n(w)]
+    assert ints == want
     pointers = [a for a, t in zip(args, argtypes) if t is ctypes.c_void_p]
-    assert len(pointers) == (7 if name == "fused_attn_block" else 10)
+    assert len(pointers) == n_ptr
+
+
+@pytest.mark.parametrize("launcher", ["mlp", "long_qkv", "attn_block"])
+def test_launchers_refuse_a_tile_width_that_does_not_divide_n(launcher,
+                                                             monkeypatch):
+    monkeypatch.setattr(tps, "kernel_device", lambda n, t: t.device)
+    monkeypatch.setattr(tps, "check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(tps, "launch", lambda *a: pytest.fail("launched"))
+    w = 256
+    wo, bo = torch.zeros((w, w), dtype=torch.bfloat16), torch.zeros(w)
+    with pytest.raises(ValueError, match="tile width 192"):
+        if launcher == "mlp":
+            tps._launch_mlp(torch.zeros((5, w), dtype=torch.bfloat16),
+                            torch.zeros((w, 4 * w), dtype=torch.bfloat16),
+                            torch.zeros(4 * w), wo, bo, True, (192, 64))
+        elif launcher == "long_qkv":
+            tps._launch_long_qkv(torch.zeros((1, 70, 3 * w),
+                                             dtype=torch.bfloat16),
+                                 wo, bo, 4, False, 192)
+        else:
+            tps._launch_attn_block(torch.zeros((1, 50, w),
+                                               dtype=torch.bfloat16),
+                                   torch.zeros((w, 3 * w),
+                                               dtype=torch.bfloat16),
+                                   torch.zeros(3 * w), wo, bo, 4, 192)
 
 
 def test_launch_counters_reset():
