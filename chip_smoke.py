@@ -15,10 +15,13 @@ these phases, printing one JSON line per phase:
               max|ref|); CUDA-event medians of the kernel, the plain
               version and one PyTorch library call, and their device times
               from torch.profiler; for B1, B5, B7 and B9 the device time
-              and TFLOP/s of each launch (LayerNorm, attention core, long
-              SDPA, each sm90 GEMM), and B1 at a ragged (5, 50, 768) too;
+              and TFLOP/s of each launch (LayerNorm, attention core, SDPA,
+              each sm90 GEMM), and B1 at a ragged (5, 50, 768) too;
               the device ms of B7's two GEMMs, B9's out projection and
-              B1's at every sm90 tile width, beside the wrappers' picks.
+              B1's at every sm90 tile width, beside the wrappers' picks;
+              the SDPA kernel (csrc/sdpa_sm90.cuh) swept over S, D, causal,
+              odd and even B and its three layouts, each case against
+              plain, and its ptxas registers.
 3. encode   — the Encoder at ViT-B/32 full width (seeded random weights):
               1,024 seeded images in batches of 128, then one batch of 1;
               launch counts checked; a few images against the port's CPU f32
@@ -140,6 +143,9 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 5) -> float:
 # profiler sessions that saw no device kernel and were repeated
 EMPTY_PROFILES = []
 PROFILE_TRIES = 3
+# names of kernels whose sources are gone: the FMA short SDPA and the
+# mma.sync long SDPA, both replaced by csrc/sdpa_sm90.cuh
+RETIRED_KERNELS = ("short_sdpa", "long_sdpa_kernel")
 
 
 def _profiled(fn, iters: int):
@@ -148,7 +154,7 @@ def _profiled(fn, iters: int):
     that records no device kernel at all is repeated, up to PROFILE_TRIES
     sessions, and counted in EMPTY_PROFILES: on the H100 one such session
     came back empty for a kernel that the same code had profiled in earlier
-    runs."""
+    runs. A kernel of a retired source (RETIRED_KERNELS) fails the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -168,6 +174,9 @@ def _profiled(fn, iters: int):
         if kernels:
             break
         EMPTY_PROFILES.append(getattr(fn, "__qualname__", str(fn)))
+    retired = [name[:100] for name, _, _ in kernels
+               if any(r in name for r in RETIRED_KERNELS)]
+    check(not retired, f"a retired kernel was launched: {retired}")
     return kernels, wall * 1e3 / iters
 
 
@@ -247,6 +256,9 @@ def ptxas_table(log: str) -> dict:
             g = re.search(r"gemm_sm90_kernelILi(\d+)ELi(\d+)E", entry)
             if g:
                 entry = f"gemm_sm90_kernel<{g.group(1)}, {g.group(2)}>"
+            g = re.search(r"sdpa_sm90_kernelILi(\d+)E", entry)
+            if g:
+                entry = f"sdpa_sm90_kernel<{g.group(1)}>"
             table[entry] = ""
         elif entry and ("registers" in line or "spill" in line):
             table[entry] = "; ".join(
@@ -368,20 +380,19 @@ def phase_kernels(device) -> dict:
         check(ok_p, f"{name} vs plain: max err {err_p}")
         check(ok_k, f"{name} vs f32: max err {err_k}")
 
-    # the rows and pairs wrappers launch one kernel: same bits on one input
-    q, k, v = (_bf16(gen, (2, s, w), 1.0, device) for _ in range(3))
-    check(torch.equal(ps.packed_sdpa(q, k, v, heads=h),
-                      ps.packed_sdpa_rows(q, k, v, heads=h)),
-          "packed_sdpa and packed_sdpa_rows disagree")
+    sweep = _sdpa_sweep(device, gen)
     results.update(_kernels_long(device, gen))
     results["pq_scan_scores"] = _kernel_b11(device)
     results.update(_kernels_mlp(device, gen))
     tiles = _tile_sweep(device, gen)
     emit({"phase": "kernels", "build_s": build_s, "ptxas": ptxas,
-          "tile_widths": tiles,
+          "tile_widths": tiles, "sdpa_sweep": sweep,
           "tolerance": {"vs_plain": [ATOL_PLAIN, RTOL_PLAIN],
                         "vs_f32": [ATOL_F32, RTOL_F32],
                         "packed_sdpa_qkv": "bitwise vs packed_sdpa",
+                        "sdpa": "packed_sdpa = packed_sdpa_rows = "
+                        "packed_sdpa_qkv = fused_sdpa_long bitwise at "
+                        "S <= 64, D = 64",
                         "pq_scan_scores": "bitwise",
                         "fused_mlp_w8a8": "first-stage codes and scales "
                         f"bitwise; output within {W8A8_REL} x max|ref|"},
@@ -430,7 +441,7 @@ SM90_ROLES = {
                    ("out_gemm", _GEMM_SM90 + r"[01]>")),
     "fused_mlp": (("up_gemm", _GEMM_SM90 + r"[23]>"),
                   ("down_gemm", _GEMM_SM90 + r"0>")),
-    "fused_sdpa_long_qkv": (("long_sdpa", r"long_sdpa_kernel"),
+    "fused_sdpa_long_qkv": (("attention", r"sdpa_sm90_kernel"),
                             ("out_gemm", _GEMM_SM90 + r"0>")),
 }
 
@@ -552,9 +563,9 @@ def _kernels_long(device, gen) -> dict:
         nbytes=b * s * 3 * w * 2 + w * w * 2 + w * 4 + b * s * w * 2)
     res["fused_sdpa_long_qkv"]["launches"] = _per_launch(
         lambda: ps.fused_sdpa_long_qkv(qkv, wo, bo, heads=h),
-        {"long_sdpa": _attn_flops(b, h, s, w // h),
+        {"attention": _attn_flops(b, h, s, w // h),
          "out_gemm": 2 * b * s * w * w},
-        roles="fused_sdpa_long_qkv", required=("long_sdpa", "out_gemm"))
+        roles="fused_sdpa_long_qkv", required=("attention", "out_gemm"))
     del qkv, wo, bo, bo16
 
     # B10 on (B, H, S, D): ViT-L/14@336px's heads (the main shape), the
@@ -598,6 +609,97 @@ def _kernels_long(device, gen) -> dict:
     del qkv, q, k, v
     torch.cuda.empty_cache()
     return res
+
+
+# The SDPA kernel's sweep: S of one key tile and its edges, of several, and
+# of the long towers (77 the text tower's, 197 ViT-B/16's, 257 ViT-L/14's,
+# 577 ViT-L/14@336px's); causal at the S in SWEEP_CAUSAL too
+SWEEP_S = (1, 50, 63, 64, 65, 77, 127, 128, 129, 197, 257, 577)
+SWEEP_CAUSAL = (1, 65, 77, 129, 257)
+SWEEP_HEADS = 4
+
+
+def _sdpa_sweep(device, gen) -> dict:
+    """csrc/sdpa_sm90.cuh over SWEEP_S x D in (32, 64, 128) x causal, batch
+    3 and 2 in turn, in each layout its wrappers give it: B8's (B, S, H*D),
+    the packed (B, S, 3W) projection of B4 and B9 (through B4's launcher,
+    which takes any S and D) and B10's (B, H, S, D); every case against its
+    plain version (ATOL_PLAIN) and an f32 plain run (ATOL_F32). Then the
+    bitwise rules of the one-tile path: packed_sdpa = packed_sdpa_rows =
+    packed_sdpa_qkv = fused_sdpa_long at S <= 64, D = 64."""
+    from clipx_torch.ops import flash_attention as fa
+    from clipx_torch.ops import packed_sdpa as ps
+
+    h = SWEEP_HEADS
+    worst, n = {}, 0
+    for d in ps.LONG_HEAD_DIMS:
+        w = h * d
+        for s in SWEEP_S:
+            for causal in (False, True) if s in SWEEP_CAUSAL else (False,):
+                b = 3 - n % 2
+                n += 1
+                qkv = _bf16(gen, (b, s, 3 * w), 1.0, device)
+                q, k, v = (qkv[..., i * w:(i + 1) * w].contiguous()
+                           for i in range(3))
+                bhsd = [t.view(b, s, h, d).transpose(1, 2).contiguous()
+                        for t in (q, k, v)]
+                cases = {
+                    "bshd": (
+                        lambda: ps.fused_sdpa_long(q, k, v, heads=h,
+                                                   causal=causal),
+                        lambda: ps.sdpa_plain(q, k, v, heads=h, causal=causal),
+                        lambda: ps.sdpa_plain(*_f32(q, k, v), heads=h,
+                                              causal=causal)),
+                    "packed": (
+                        lambda: ps._launch_sdpa_qkv(qkv, h, causal),
+                        lambda: ps.sdpa_plain(q, k, v, heads=h, causal=causal),
+                        lambda: ps.sdpa_plain(*_f32(q, k, v), heads=h,
+                                              causal=causal)),
+                    "bhsd": (
+                        lambda: fa.flash_attention(*bhsd, causal=causal),
+                        lambda: fa.flash_attention_plain(*bhsd, causal=causal),
+                        lambda: fa.flash_attention_plain(*_f32(*bhsd),
+                                                         causal=causal))}
+                for layout, fns in cases.items():
+                    info = _attn_check(f"sdpa sweep {layout} B={b} S={s} "
+                                       f"D={d} causal={causal}", *fns)
+                    r = worst.setdefault(layout, {"max_abs_err": 0.0,
+                                                  "max_abs_err_vs_f32": 0.0})
+                    for key in r:
+                        r[key] = max(r[key], info[key])
+                del qkv, q, k, v, bhsd
+    equal = {}
+    w, h = 768, VIT_B32_HEADS
+    for b, s in ((2, 50), (128, 50), (2, 64), (2, 1)):
+        qkv = _bf16(gen, (b, s, 3 * w), 1.0, device)
+        q, k, v = (qkv[..., i * w:(i + 1) * w].contiguous() for i in range(3))
+        ref = ps.packed_sdpa(q, k, v, heads=h)
+        same = [torch.equal(ref, ps.packed_sdpa_rows(q, k, v, heads=h)),
+                torch.equal(ref, ps.packed_sdpa_qkv(qkv, heads=h)),
+                torch.equal(ref, ps.fused_sdpa_long(q, k, v, heads=h))]
+        check(all(same), f"SDPA at ({b}, {s}, {w}): packed_sdpa_rows, "
+              f"packed_sdpa_qkv, fused_sdpa_long equal packed_sdpa: {same}")
+        equal[f"{b}x{s}"] = True
+    torch.cuda.empty_cache()
+    return {"cases": n * len(cases), "heads": SWEEP_HEADS, "S": SWEEP_S,
+            "causal_S": SWEEP_CAUSAL, "head_dims": ps.LONG_HEAD_DIMS,
+            "worst": worst, "bitwise_equal": equal}
+
+
+def sdpa_ptxas() -> dict:
+    """ptxas -v's lines for each sdpa_sm90_kernel<D> instance, from the
+    build log of csrc/sdpa.cu; fails if an instance spills."""
+    from clipx_torch.ops import _build
+    from clipx_torch.ops import packed_sdpa as ps
+
+    with open(os.path.join(_build.BUILD_DIR, "libsdpa.log")) as f:
+        table = ptxas_table(f.read())
+    out = {k: v for k, v in table.items() if k.startswith("sdpa_sm90_kernel")}
+    check(len(out) == len(ps.LONG_HEAD_DIMS),
+          f"csrc/sdpa.cu's ptxas log names {sorted(out)}")
+    check(all("0 bytes spill stores" in v for v in out.values()),
+          f"sdpa_sm90_kernel spills: {out}")
+    return out
 
 
 # B11 at the path's shapes: the 1,001,024-row corpus pads to a 2^20-row
@@ -841,7 +943,7 @@ def _tile_sweep(device, gen) -> dict:
             split = _per_launch(
                 lambda: ps._launch_long_qkv(qkv, wo, bo, h, False, bn), {},
                 roles="fused_sdpa_long_qkv",
-                required=("long_sdpa", "out_gemm"))
+                required=("attention", "out_gemm"))
             record("fused_sdpa_long_qkv_out", b * s, w, w, bn,
                    split["out_gemm"]["device_ms"], ps.gemm_tile_n_mn(b * s, w))
     del qkv, wo
@@ -865,21 +967,22 @@ def _tile_sweep(device, gen) -> dict:
     return res
 
 
+SDPA_SOURCE = "clipx_torch/csrc/sdpa.cu"
 KERNEL_TABLE = (
     # name, source, the Pallas kernel it replaces
     ("fused_attn_block", "clipx_torch/csrc/attn_block.cu",
      "clipx/ops/packed_sdpa.py:312"),
-    ("packed_sdpa", "clipx_torch/csrc/short_sdpa.cu",
+    ("packed_sdpa", SDPA_SOURCE,
      "clipx/ops/packed_sdpa.py:763"),
-    ("packed_sdpa_rows", "clipx_torch/csrc/short_sdpa.cu",
+    ("packed_sdpa_rows", SDPA_SOURCE,
      "clipx/ops/packed_sdpa.py:548"),
-    ("packed_sdpa_qkv", "clipx_torch/csrc/short_sdpa.cu",
+    ("packed_sdpa_qkv", SDPA_SOURCE,
      "clipx/ops/packed_sdpa.py:144"),
-    ("fused_sdpa_long", "clipx_torch/csrc/long_sdpa.cu",
+    ("fused_sdpa_long", SDPA_SOURCE,
      "clipx/ops/packed_sdpa.py:621"),
-    ("fused_sdpa_long_qkv", "clipx_torch/csrc/long_sdpa.cu",
+    ("fused_sdpa_long_qkv", SDPA_SOURCE,
      "clipx/ops/packed_sdpa.py:715"),
-    ("flash_attention", "clipx_torch/csrc/long_sdpa.cu",
+    ("flash_attention", SDPA_SOURCE,
      "clipx/ops/flash_attention.py:64"),
     ("pq_scan_scores", "clipx_torch/csrc/pq_scan.cu",
      "clipx/ops/pq_scan.py:106"),
@@ -892,10 +995,12 @@ KERNEL_TABLE = (
 )
 
 
-def kernels_line(results: dict, launches: dict) -> dict:
+def kernels_line(results: dict, launches: dict, ptxas: dict) -> dict:
+    """One row a kernel; the SDPA kernel's rows carry its ptxas lines."""
     rows = []
     for name, source, replaces in KERNEL_TABLE:
         r = results[name]
+        extra = {"ptxas": ptxas} if source == SDPA_SOURCE else {}
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -904,7 +1009,7 @@ def kernels_line(results: dict, launches: dict) -> dict:
                      "library_ms": r["library_ms"],
                      "device_ms": r["device_ms"],
                      "plain_device_ms": r["plain_device_ms"],
-                     "library_device_ms": r["library_device_ms"]})
+                     "library_device_ms": r["library_device_ms"], **extra})
     return {"kernels": rows}
 
 
@@ -1263,14 +1368,12 @@ def _capacity_scan(device) -> dict:
 def _kernel_class(name: str) -> str:
     """A coarse class of a CUDA kernel name, for the time by class."""
     low = name.lower()
-    if "long_sdpa" in low:
-        return "long_sdpa (B8/B9/B10)"
+    if "sdpa_sm90" in low:
+        return "sdpa_sm90 (B2-B4, B8, B10, B9's attention)"
     if "gemm_s8" in low or "quant_rows" in low:
         return "int8 GEMM / row quantizer (B6)"
     if "sm90" in low or "layernorm_rows" in low:
         return "sm90 attention core / GEMM, LayerNorm (B1, B5, B7, B9's GEMM)"
-    if "short_sdpa" in low:
-        return "short_sdpa (B2-B4)"
     if "pq_scan" in low:
         return "pq_scan (B11)"
     if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
@@ -1880,7 +1983,7 @@ def main() -> int:
     emit({"phase": "seconds", "by_phase": seconds,
           "total": time.perf_counter() - start,
           "empty_profiles_repeated": EMPTY_PROFILES})
-    emit(kernels_line(results, total))
+    emit(kernels_line(results, total, sdpa_ptxas()))
     print(info["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

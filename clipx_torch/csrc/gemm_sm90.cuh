@@ -1,13 +1,14 @@
 // Warp-specialised bf16 GEMM for Hopper (sm_90a): TMA loads into a ring of
 // shared-memory stages, wgmma on two consumer warpgroups, f32 accumulators
 // in registers. Also the PTX helpers (mbarrier, TMA, wgmma, shared-memory
-// descriptors, tensor maps) that attn_core_sm90.cuh builds on.
+// descriptors, tensor maps) that attn_core_sm90.cuh and sdpa_sm90.cuh
+// build on.
 //
 // Every bf16 GEMM of the port runs on it:
 // - attn_block.cu: the out projections of fused_attn_block and
 //   fused_attn_sublayer (clipx/ops/packed_sdpa.py:312, :261; the GEMM steps
 //   of `_attn_block_core`, :220-257);
-// - long_sdpa.cu: the out projection of fused_sdpa_long_qkv (:715;
+// - sdpa.cu: the out projection of fused_sdpa_long_qkv (:715;
 //   `_long_qkv_kernel`, :670);
 // - mlp.cu: both GEMMs of fused_mlp (:504; `_mlp_block_kernel`, :370).
 //

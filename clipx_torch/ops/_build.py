@@ -32,7 +32,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-SOURCES = ("attn_block", "short_sdpa", "long_sdpa", "pq_scan", "mlp")
+SOURCES = ("attn_block", "sdpa", "pq_scan", "mlp")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

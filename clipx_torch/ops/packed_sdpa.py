@@ -8,14 +8,16 @@ Counterpart of ``clipx/ops/packed_sdpa.py``:
 - ``fused_attn_sublayer`` — ``x + fused_attn_block(LayerNorm(x))``, the whole
   pre-LN attention sublayer on raw x (the same file);
 - ``packed_sdpa``         — SDPA only, (B, S, H*64) in and out, S <= 64,
-  even heads (``csrc/short_sdpa.cu``);
+  even heads (``csrc/sdpa.cu`` on ``csrc/sdpa_sm90.cuh``'s TMA + wgmma
+  kernel, which serves every SDPA below);
 - ``packed_sdpa_rows``    — the same function, any heads, even batch (the
   same CUDA kernel; the TPU's row-pair packing is not carried over);
 - ``packed_sdpa_qkv``     — the same function reading q, k, v out of one
   packed (B, S, 3W) projection, even batch (the same CUDA kernel, bitwise
   equal to ``packed_sdpa``);
 - ``fused_sdpa_long``     — SDPA for any S on (B, S, H*D), D in {32, 64,
-  128}, optional causal mask (``csrc/long_sdpa.cu``);
+  128}, optional causal mask (the same kernel; bitwise ``packed_sdpa`` at
+  S <= 64, D = 64);
 - ``fused_sdpa_long_qkv`` — ``fused_sdpa_long`` on a packed (B, S, 3W)
   projection, then the out projection and its bias (the same file);
 - ``fused_mlp``           — the bf16 MLP, x @ W1 + b1 -> activation -> @ W2
@@ -62,7 +64,7 @@ __all__ = ["LAUNCHES", "reset_launches", "fused_attn_block", "packed_sdpa",
 _SP = 64  # padded sequence block
 _D = 64
 _NEG = -1e30
-LONG_HEAD_DIMS = (32, 64, 128)  # the long kernel's template instances
+LONG_HEAD_DIMS = (32, 64, 128)  # the SDPA kernel's template instances
 _MLP_ROWS = 128  # clipx's token rows a program, read by its VMEM rules
 # clipx's budget: both weight matrices in VMEM (~16 MB a core) beside the
 # row blocks and the hidden tile
@@ -229,61 +231,68 @@ def fused_mlp_w8a8_plain(x: torch.Tensor, w1_q: torch.Tensor,
 # kernel launches
 # ---------------------------------------------------------------------------
 
-def _launch_sdpa(name: str, q, k, v, heads: int) -> torch.Tensor:
-    device = kernel_device(name, q)
-    check_cuda(name, torch.bfloat16, device, q=q, k=k, v=v)
-    b, s, w = q.shape
-    out = torch.empty_like(q)
-    fn = c_fn("short_sdpa", "clipx_short_sdpa",
-              [P, P, P, P, I, I, I, I, I, P])
-    launch(name, fn, device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-           out.data_ptr(), b, s, heads, w, w)
-    return out
-
-
-def _launch_sdpa_qkv(qkv, heads: int) -> torch.Tensor:
-    name = "packed_sdpa_qkv"
-    device = kernel_device(name, qkv)
-    check_cuda(name, torch.bfloat16, device, qkv=qkv)
-    b, s, w3 = qkv.shape
-    out = torch.empty((b, s, w3 // 3), dtype=qkv.dtype, device=device)
-    fn = c_fn("short_sdpa", "clipx_packed_sdpa_qkv", [P, P, I, I, I, I, P])
-    launch(name, fn, device, qkv.data_ptr(), out.data_ptr(), b, s, heads,
-           w3 // 3)
-    return out
-
-
-def launch_long_sdpa(name: str, q, k, v, out, *, batch: int, heads: int,
-                     seq: int, head_dim: int, in_strides, out_strides,
-                     causal: bool) -> None:
-    """The long-SDPA kernel on bf16 CUDA tensors whose element (b, h, s, d)
-    sits at b*sb + h*sh + s*ss + d of each (strides (sb, sh, ss); q, k and
-    v share theirs). Counts the launch under ``name``."""
-    fn = c_fn("long_sdpa", "clipx_long_sdpa",
+def launch_sdpa(name: str, q: int, k: int, v: int, out: torch.Tensor, *,
+                batch: int, heads: int, seq: int, head_dim: int, in_strides,
+                out_strides, causal: bool) -> None:
+    """The SDPA kernel (``csrc/sdpa.cu``) on bf16 CUDA data: q, k and v are
+    the addresses of element (0, 0, 0, 0), and element (b, h, s, d) sits
+    at b*sb + h*sh + s*ss + d of each (strides (sb, sh, ss); q, k and v
+    share theirs). The kernel reads them through TMA tensor maps, which
+    take only 16-byte aligned addresses and strides: anything else raises
+    ValueError. Counts the launch under ``name``."""
+    for arg, ptr in (("q", q), ("k", k), ("v", v), ("out", out.data_ptr())):
+        if ptr % 16:
+            raise ValueError(f"{name}: {arg} is not 16-byte aligned; the "
+                             "kernel's TMA tensor maps need it")
+    if any(st * 2 % 16 for st in in_strides) or any(
+            st % 2 for st in out_strides):
+        raise ValueError(f"{name}: strides {tuple(in_strides)} (q, k, v) "
+                         f"and {tuple(out_strides)} (out) are not 16-byte "
+                         "and 4-byte multiples; the kernel's TMA tensor "
+                         "maps and bf16 pair stores need them")
+    fn = c_fn("sdpa", "clipx_sdpa",
               [P, P, P, P, I, I, I, I, L, L, L, L, L, L, I, P])
-    launch(name, fn, out.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-           out.data_ptr(), batch, heads, seq, head_dim, *in_strides,
-           *out_strides, int(causal))
+    launch(name, fn, out.device, q, k, v, out.data_ptr(), batch, heads, seq,
+           head_dim, *in_strides, *out_strides, int(causal))
 
 
-def _launch_long(q, k, v, heads: int, causal: bool) -> torch.Tensor:
-    name = "fused_sdpa_long"
+def _launch_sdpa(name: str, q, k, v, heads: int,
+                 causal: bool = False) -> torch.Tensor:
+    """B2, B3 and B8: SDPA on (B, S, W) q, k, v."""
     device = kernel_device(name, q)
     check_cuda(name, torch.bfloat16, device, q=q, k=k, v=v)
     b, s, w = q.shape
     d = w // heads
     out = torch.empty_like(q)
     strides = (s * w, d, w)
-    launch_long_sdpa(name, q, k, v, out, batch=b, heads=heads, seq=s,
-                     head_dim=d, in_strides=strides, out_strides=strides,
-                     causal=causal)
+    launch_sdpa(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), out,
+                batch=b, heads=heads, seq=s, head_dim=d, in_strides=strides,
+                out_strides=strides, causal=causal)
+    return out
+
+
+def _launch_sdpa_qkv(qkv, heads: int, causal: bool = False) -> torch.Tensor:
+    """B4: the same kernel on q, k and v at columns 0, W and 2W of the
+    packed (B, S, 3W) projection (any S and D, as B9's attention step)."""
+    name = "packed_sdpa_qkv"
+    device = kernel_device(name, qkv)
+    check_cuda(name, torch.bfloat16, device, qkv=qkv)
+    b, s, w3 = qkv.shape
+    w = w3 // 3
+    d = w // heads
+    out = torch.empty((b, s, w), dtype=qkv.dtype, device=device)
+    base, step = qkv.data_ptr(), w * qkv.element_size()
+    launch_sdpa(name, base, base + step, base + 2 * step, out, batch=b,
+                heads=heads, seq=s, head_dim=d, in_strides=(s * w3, d, w3),
+                out_strides=(s * w, d, w), causal=causal)
     return out
 
 
 def _launch_long_qkv(qkv, wo, bo, heads: int, causal: bool,
                      bn: int | None = None) -> torch.Tensor:
-    """B9's C call: the long SDPA, then the out projection on the sm90
-    GEMM at tile width ``bn`` (default ``gemm_tile_n_mn(B*S, W)``)."""
+    """B9's C call: the SDPA kernel on the packed projection, then the out
+    projection on the sm90 GEMM at tile width ``bn`` (default
+    ``gemm_tile_n_mn(B*S, W)``)."""
     name = "fused_sdpa_long_qkv"
     device = kernel_device(name, qkv)
     check_cuda(name, torch.bfloat16, device, qkv=qkv, wo=wo)
@@ -293,7 +302,7 @@ def _launch_long_qkv(qkv, wo, bo, heads: int, causal: bool,
     bn = _tile(name, b * s, w, bn)
     attn_buf = torch.empty((b * s, w), dtype=qkv.dtype, device=device)
     out = torch.empty((b, s, w), dtype=qkv.dtype, device=device)
-    fn = c_fn("long_sdpa", "clipx_fused_sdpa_long_qkv",
+    fn = c_fn("sdpa", "clipx_fused_sdpa_long_qkv",
               [P, P, P, P, P, I, I, I, I, I, I, P])
     launch(name, fn, device, qkv.data_ptr(), wo.data_ptr(), bo.data_ptr(),
            attn_buf.data_ptr(), out.data_ptr(), b, s, w, heads, int(causal),
@@ -555,7 +564,7 @@ def fused_sdpa_long(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_long_width("fused_sdpa_long", q.shape[-1], heads, q.device)
     if q.device.type == "cpu":
         return fused_sdpa_long_plain(q, k, v, heads=heads, causal=causal)
-    return _launch_long(q, k, v, heads, causal)
+    return _launch_sdpa("fused_sdpa_long", q, k, v, heads, causal)
 
 
 def fused_sdpa_long_qkv(qkv: torch.Tensor, wo: torch.Tensor,

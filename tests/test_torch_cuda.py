@@ -172,16 +172,82 @@ def test_packed_sdpa_qkv_equals_packed_sdpa(cuda_device, b, s, w, heads):
 
 
 @pytest.mark.parametrize("b,s,w,heads", [(2, 50, 768, 12), (128, 50, 768, 12),
-                                         (4, 17, 128, 2), (2, 1, 128, 2)])
+                                         (4, 17, 128, 2), (2, 1, 128, 2),
+                                         (2, 64, 768, 12)])
 def test_packed_sdpa_equals_packed_sdpa_rows(cuda_device, b, s, w, heads):
-    """B2 and B3 launch one kernel (short_sdpa.cuh, which B1 no longer
-    uses): the same bits on the same input, B4 too on the packed rows."""
+    """B2, B3 and B4 launch one kernel (csrc/sdpa_sm90.cuh) on its
+    one-tile path: the same bits on the same input, B4 on the packed rows,
+    and fused_sdpa_long too, which takes that path at S <= 64."""
     gen = torch.Generator().manual_seed(b + s + w + 3)
     qkv = _bf(gen, cuda_device, b, s, 3 * w)
     q, k, v = (qkv[..., i * w:(i + 1) * w].contiguous() for i in range(3))
     pairs = tps.packed_sdpa(q, k, v, heads=heads)
     assert torch.equal(pairs, tps.packed_sdpa_rows(q, k, v, heads=heads))
     assert torch.equal(pairs, tps.packed_sdpa_qkv(qkv, heads=heads))
+    assert torch.equal(pairs, tps.fused_sdpa_long(q, k, v, heads=heads))
+
+
+# The SDPA kernel's sweep: S of one key tile and its edges, of several, and
+# of the long towers; D of each instance; causal where marked
+SWEEP = [(s, False) for s in (1, 50, 63, 64, 65, 77, 127, 128, 129, 197, 257,
+                              577)] + [(s, True) for s in (1, 65, 77, 129, 257)]
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("s,causal", SWEEP)
+def test_sdpa_kernel_sweep_matches_plain(cuda_device, s, causal, d):
+    """csrc/sdpa_sm90.cuh in each layout its wrappers give it: B8's
+    (B, S, H*D), the packed (B, S, 3W) projection of B4 and B9 (B4's
+    launcher takes any S and D) and B10's (B, H, S, D); odd and even B.
+    1e-2 + 2e-2 |y| against plain bf16, 3e-2 + 3e-2 |y| against f32."""
+    h, w = 4, 4 * d
+    b = 3 if (s + d) % 2 else 2
+    gen = torch.Generator().manual_seed(s * d + causal)
+    qkv = _bf(gen, cuda_device, b, s, 3 * w)
+    q, k, v = (qkv[..., i * w:(i + 1) * w].contiguous() for i in range(3))
+    ref = tps.sdpa_plain(q, k, v, heads=h, causal=causal).float()
+    truth = tps.sdpa_plain(q.float(), k.float(), v.float(), heads=h,
+                           causal=causal)
+
+    def bhsd(t):
+        return t.view(b, s, h, d).transpose(1, 2)
+
+    outs = {"bshd": tps.fused_sdpa_long(q, k, v, heads=h, causal=causal),
+            "packed": tps._launch_sdpa_qkv(qkv, h, causal),
+            "bhsd": tfa.flash_attention(*(bhsd(t).contiguous()
+                                          for t in (q, k, v)),
+                                        causal=causal).transpose(1, 2)
+            .reshape(b, s, w)}
+    torch.cuda.synchronize()
+    for layout, out in outs.items():
+        assert out.shape == (b, s, w), layout
+        torch.testing.assert_close(out.float(), ref, rtol=RTOL, atol=ATOL,
+                                   msg=lambda m: f"{layout}: {m}")
+        torch.testing.assert_close(out.float(), truth, rtol=3e-2, atol=3e-2,
+                                   msg=lambda m: f"{layout} vs f32: {m}")
+
+
+def test_sdpa_refuses_layouts_tma_cannot_take(cuda_device):
+    """A base that is not 16-byte aligned or a stride that is not a 16-byte
+    multiple raises ValueError: the kernel's tensor maps cannot read it,
+    and no other kernel takes its place."""
+    gen = torch.Generator().manual_seed(5)
+    flat = _bf(gen, cuda_device, 2 * 100 * 256 + 8)
+    q = flat[1:1 + 2 * 100 * 256].view(2, 100, 256)      # 2 bytes off
+    before = dict(tps.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tps.fused_sdpa_long(q, q, q, heads=4)
+    q = flat[1:1 + 2 * 50 * 256].view(2, 50, 256)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tps.packed_sdpa(q, q, q, heads=4)
+    ok = _bf(gen, cuda_device, 2, 100, 256)
+    out = torch.empty_like(ok)
+    with pytest.raises(ValueError, match="strides"):
+        tps.launch_sdpa("fused_sdpa_long", ok.data_ptr(), ok.data_ptr(),
+                        ok.data_ptr(), out, batch=2, heads=4, seq=50,
+                        head_dim=64, in_strides=(100 * 256, 64, 260),
+                        out_strides=(100 * 256, 64, 256), causal=False)
+    assert tps.LAUNCHES == before
 
 
 def test_long_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
@@ -504,8 +570,8 @@ def _kernel_names(fn) -> list:
 
 @pytest.mark.parametrize("kernel", ["fused_mlp", "fused_sdpa_long_qkv"])
 def test_b7_and_b9_gemms_run_on_the_sm90_gemm(cuda_device, kernel):
-    """B7 launches two gemm_sm90 kernels and B9 its long SDPA and one
-    gemm_sm90 kernel; neither launches the retired mma.sync GEMM
+    """B7 launches two gemm_sm90 kernels and B9 its SDPA (sdpa_sm90) and
+    one gemm_sm90 kernel; neither launches the retired mma.sync GEMM
     (gemm_bias_kernel) or anything else."""
     gen = torch.Generator().manual_seed(4)
     if kernel == "fused_mlp":
@@ -519,7 +585,7 @@ def test_b7_and_b9_gemms_run_on_the_sm90_gemm(cuda_device, kernel):
         bo = torch.zeros(256, device=cuda_device)
         names = _kernel_names(
             lambda: tps.fused_sdpa_long_qkv(qkv, wo, bo, heads=4))
-        want = {"gemm_sm90": 1, "long_sdpa": 1}
+        want = {"gemm_sm90": 1, "sdpa_sm90": 1}
     if not names:
         pytest.fail("torch.profiler saw no CUDA kernel")
     assert not any("gemm_bias" in n for n in names), names
@@ -546,6 +612,29 @@ def test_mlp_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         tps.fused_attn_sublayer(x.float().reshape(2, 32, 128), ln, ln,
                                 w1[:, :384], b1[:384], w1[:, :128], b2,
                                 heads=2)
+
+
+@pytest.mark.parametrize("kernel", ["packed_sdpa", "packed_sdpa_rows",
+                                    "packed_sdpa_qkv", "fused_sdpa_long",
+                                    "flash_attention"])
+def test_sdpa_wrappers_launch_only_the_sm90_kernel(cuda_device, kernel):
+    """Each SDPA wrapper launches one sdpa_sm90_kernel and nothing else; no
+    retired kernel (short_sdpa, long_sdpa_kernel) is left to launch."""
+    gen = torch.Generator().manual_seed(6)
+    s = 130 if kernel in ("fused_sdpa_long", "flash_attention") else 50
+    qkv = _bf(gen, cuda_device, 2, s, 3 * 768)
+    q, k, v = (qkv[..., i * 768:(i + 1) * 768].contiguous() for i in range(3))
+    if kernel == "packed_sdpa_qkv":
+        names = _kernel_names(lambda: tps.packed_sdpa_qkv(qkv, heads=12))
+    elif kernel == "flash_attention":
+        t = q.view(2, s, 12, 64).transpose(1, 2).contiguous()
+        names = _kernel_names(lambda: tfa.flash_attention(t, t, t))
+    else:
+        fn = getattr(tps, kernel)
+        names = _kernel_names(lambda: fn(q, k, v, heads=12))
+    if not names:
+        pytest.fail("torch.profiler saw no CUDA kernel")
+    assert len(names) == 1 and "sdpa_sm90_kernel<64>" in names[0], names
 
 
 @pytest.mark.parametrize("route", ["int8", "int8_fused", "fused", "sublayer"])

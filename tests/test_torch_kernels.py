@@ -349,26 +349,37 @@ def test_gemm_tile_n_mn_divides_n(n):
 
 
 @pytest.mark.parametrize("name", ["fused_attn_block", "fused_attn_sublayer",
-                                  "fused_mlp", "fused_sdpa_long_qkv"])
+                                  "fused_mlp", "fused_sdpa_long_qkv",
+                                  "packed_sdpa", "packed_sdpa_rows",
+                                  "packed_sdpa_qkv", "fused_sdpa_long",
+                                  "flash_attention"])
 def test_attn_launchers_match_their_c_entries(name, monkeypatch):
     """The launchers pass exactly the arguments their C entries declare
     (the stream comes last), no qkv scratch, and each GEMM's tile width:
     ``gemm_tile_n`` for B1 and B5, ``gemm_tile_n_mn`` of (M, N) for B7's
-    two GEMMs and B9's out projection."""
+    two GEMMs and B9's out projection. The SDPA wrappers all call
+    ``clipx_sdpa`` with their layout's element strides (16-byte multiples,
+    as the kernel's TMA tensor maps need) and, for the packed projection,
+    k and v at W and 2W elements past q."""
     import ctypes
 
+    from clipx_torch.ops import flash_attention as tfa
+
     calls = []
-    monkeypatch.setattr(tps, "kernel_device", lambda n, t: t.device)
-    monkeypatch.setattr(tps, "check_cuda", lambda *a, **k: None)
+    for mod in (tps, tfa):
+        monkeypatch.setattr(mod, "kernel_device", lambda n, t: t.device)
+        monkeypatch.setattr(mod, "check_cuda", lambda *a, **k: None)
     monkeypatch.setattr(tps, "c_fn", lambda lib, sym, argtypes: (lib, sym,
                                                                 argtypes))
     monkeypatch.setattr(tps, "launch", lambda n, fn, device, *args:
                         calls.append((n, fn, args)))
     b, s, w, heads = 2, 17, 192, 3
+    d = w // heads
     x = torch.zeros((b, s, w), dtype=torch.bfloat16)
     wqkv = torch.zeros((w, 3 * w), dtype=torch.bfloat16)
     wo = torch.zeros((w, w), dtype=torch.bfloat16)
     bqkv, bo, ln = torch.zeros(3 * w), torch.zeros(w), torch.ones(w)
+    sym, longs = "clipx_" + name, []
     if name == "fused_attn_block":
         out = tps._launch_attn_block(x, wqkv, bqkv, wo, bo, heads)
         lib, want, n_ptr = "attn_block", [b, s, w, heads,
@@ -384,20 +395,85 @@ def test_attn_launchers_match_their_c_entries(name, monkeypatch):
         lib, n_ptr = "mlp", 7
         want = [b * s, w, 3 * w, 0, tps.gemm_tile_n_mn(b * s, 3 * w),
                 tps.gemm_tile_n_mn(b * s, w)]
-    else:
+    elif name == "fused_sdpa_long_qkv":
         qkv = torch.zeros((b, s, 3 * w), dtype=torch.bfloat16)
         out = tps._launch_long_qkv(qkv, wo, bo, heads, True)
-        lib, n_ptr = "long_sdpa", 5
+        lib, n_ptr = "sdpa", 5
         want = [b, s, w, heads, 1, tps.gemm_tile_n_mn(b * s, w)]
+    else:
+        lib, sym, n_ptr = "sdpa", "clipx_sdpa", 4
+        causal = name == "fused_sdpa_long"
+        want = [b, heads, s, d, int(causal)]
+        bshd = [s * w, d, w]
+        if name == "packed_sdpa_qkv":
+            qkv = torch.zeros((b, s, 3 * w), dtype=torch.bfloat16)
+            out = tps._launch_sdpa_qkv(qkv, heads)
+            longs = [s * 3 * w, d, 3 * w] + bshd
+            q0 = qkv.data_ptr()
+            ptrs = [q0, q0 + 2 * w, q0 + 4 * w]
+        elif name == "flash_attention":
+            x = torch.zeros((b, heads, s, d), dtype=torch.bfloat16)
+            out = tfa._launch(x, x, x, False)
+            longs = [heads * s * d, s * d, d] * 2
+            want[-1] = 0
+            ptrs = [x.data_ptr()] * 3
+        else:
+            out = tps._launch_sdpa(name, x, x, x, heads, causal)
+            longs = bshd * 2
+            ptrs = [x.data_ptr()] * 3
     assert out.shape == x.shape
-    (launched, (lib_got, sym, argtypes), args), = calls
-    assert launched == name and lib_got == lib
-    assert sym == "clipx_" + name
+    (launched, (lib_got, sym_got, argtypes), args), = calls
+    assert launched == name and lib_got == lib and sym_got == sym
     assert len(args) + 1 == len(argtypes) and argtypes[-1] is ctypes.c_void_p
     ints = [a for a, t in zip(args, argtypes) if t is ctypes.c_int]
     assert ints == want
+    assert [a for a, t in zip(args, argtypes)
+            if t is ctypes.c_longlong] == longs
     pointers = [a for a, t in zip(args, argtypes) if t is ctypes.c_void_p]
     assert len(pointers) == n_ptr
+    if lib == "sdpa" and n_ptr == 4:
+        assert pointers == ptrs + [out.data_ptr()]
+
+
+def test_sdpa_launcher_refuses_what_tma_cannot_take(monkeypatch):
+    """The SDPA kernel reads q, k and v through TMA tensor maps: a base
+    that is not 16-byte aligned, or a stride that is not a multiple of 16
+    bytes, raises ValueError before anything is built or launched."""
+    monkeypatch.setattr(tps, "c_fn", lambda *a: pytest.fail("built"))
+    monkeypatch.setattr(tps, "launch", lambda *a: pytest.fail("launched"))
+    out = torch.zeros((2, 17, 128), dtype=torch.bfloat16)
+    base = out.data_ptr()
+    good = dict(batch=2, heads=2, seq=17, head_dim=64,
+                in_strides=(17 * 128, 64, 128), out_strides=(17 * 128, 64, 128),
+                causal=False)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tps.launch_sdpa("fused_sdpa_long", base + 2, base, base, out, **good)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tps.launch_sdpa("fused_sdpa_long", base, base, base + 8, out, **good)
+    bad = dict(good, in_strides=(17 * 132, 64, 132))
+    with pytest.raises(ValueError, match="strides"):
+        tps.launch_sdpa("fused_sdpa_long", base, base, base, out, **bad)
+    bad = dict(good, out_strides=(17 * 128, 63, 128))
+    with pytest.raises(ValueError, match="strides"):
+        tps.launch_sdpa("flash_attention", base, base, base, out, **bad)
+
+
+def test_build_sources_are_the_cuda_files():
+    """``_build.SOURCES`` names every csrc/*.cu and nothing else, and every
+    quoted ``#include`` of a csrc file names a header that exists (the
+    retired short_sdpa.cuh and long_sdpa.cu are gone with their users)."""
+    import os
+    import re
+
+    from clipx_torch.ops import _build
+
+    files = os.listdir(_build.CSRC_DIR)
+    assert set(_build.SOURCES) == {f[:-3] for f in files if f.endswith(".cu")}
+    assert not {"short_sdpa.cu", "short_sdpa.cuh", "long_sdpa.cu"} & set(files)
+    for f in files:
+        with open(os.path.join(_build.CSRC_DIR, f)) as fh:
+            for inc in re.findall(r'#include\s+"([^"]+)"', fh.read()):
+                assert inc in files, f"{f} includes missing {inc}"
 
 
 @pytest.mark.parametrize("launcher", ["mlp", "long_qkv", "attn_block"])
