@@ -12,16 +12,20 @@ these phases, printing one JSON line per phase:
               an f32 plain run for the attention kernels, B5 and B7;
               bitwise for the PQ scan, packed_sdpa_qkv against packed_sdpa
               and B6's first-stage int8 codes, B6's output within 1e-2 of
-              max|ref|); CUDA-event medians of the kernel, the plain
-              version and one PyTorch library call, and their device times
-              from torch.profiler; for B1, B5, B7 and B9 the device time
-              and TFLOP/s of each launch (LayerNorm, attention core, SDPA,
-              each sm90 GEMM), and B1 at a ragged (5, 50, 768) too;
-              the device ms of B7's two GEMMs, B9's out projection and
-              B1's at every sm90 tile width, beside the wrappers' picks;
-              the SDPA kernel (csrc/sdpa_sm90.cuh) swept over S, D, causal,
-              odd and even B and its three layouts, each case against
-              plain, and its ptxas registers.
+              max|ref| and its hidden layer bitwise the retired mma.sync
+              GEMM's, by a recorded sha256); CUDA-event medians of the
+              kernel, the plain version and one PyTorch library call, and
+              their device times from torch.profiler; for B1, B5, B6, B7
+              and B9 the device time and TFLOP/s (TOP/s for B6) of each
+              launch (LayerNorm, attention core, SDPA, row quantizer, each
+              GEMM), and B1 at a ragged (5, 50, 768) too; the device ms of
+              B6's and B7's two GEMMs, B9's out projection and B1's at
+              every tile width, beside the wrappers' picks; the PQ scan
+              swept bitwise over rows, halves, queries, LUT types and the
+              extreme sums; the SDPA kernel (csrc/sdpa_sm90.cuh) swept over
+              S, D, causal, odd and even B and its three layouts, each case
+              against plain; the ptxas registers of the SDPA, PQ-scan and
+              int8-GEMM kernels (no spill, no wgmma-serialisation warning).
 3. encode   — the Encoder at ViT-B/32 full width (seeded random weights):
               1,024 seeded images in batches of 128, then one batch of 1;
               launch counts checked; a few images against the port's CPU f32
@@ -39,8 +43,10 @@ these phases, printing one JSON line per phase:
               kernel name, and the card's busy share of the host's wall
               per batch without the profiler (and with it).
    int8     — --compute int8 at ViT-B/32: 1,024 images and a batch of 1
-              with CLIPX_FUSED_MLP_INT8=on (fused_mlp_w8a8) and without,
-              against the CPU's f32 int8 encode; CLIPX_INT8_ATTN/PATCH
+              with CLIPX_FUSED_MLP_INT8=on (fused_mlp_w8a8, on the K-major
+              weight copies made at quantization: no per-call transpose)
+              and without, against the CPU's f32 int8 encode;
+              CLIPX_INT8_ATTN/PATCH
               (packed_sdpa_rows, packed_sdpa); ViT-L/14@336px int8 (no
               fused MLP there); a profile of one int8 batch.
    fused    — ViT-B/32 under CLIPX_FUSED_MLP=on (fused_mlp in both towers,
@@ -144,8 +150,11 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 5) -> float:
 EMPTY_PROFILES = []
 PROFILE_TRIES = 3
 # names of kernels whose sources are gone: the FMA short SDPA and the
-# mma.sync long SDPA, both replaced by csrc/sdpa_sm90.cuh
-RETIRED_KERNELS = ("short_sdpa", "long_sdpa_kernel")
+# mma.sync long SDPA, both replaced by csrc/sdpa_sm90.cuh; the mma.sync
+# int8 GEMM (gemm_s8_kernel), replaced by csrc/gemm_s8_sm90.cuh; the
+# lane-packed PQ scan (pq_scan_kernel<QW>), replaced by the one-hot scan
+RETIRED_KERNELS = ("short_sdpa", "long_sdpa_kernel", "gemm_s8_kernel",
+                   "pq_scan_kernel<")
 
 
 def _profiled(fn, iters: int):
@@ -245,20 +254,31 @@ def phase_env() -> dict:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# readable names of the mangled kernel instances in nvcc's log
+_PTXAS_NAMES = (
+    (r"gemm_sm90_kernelILi(\d+)ELi(\d+)E", "gemm_sm90_kernel<{}, {}>"),
+    (r"gemm_s8_sm90_kernelILi(\d+)ELi(\d+)E", "gemm_s8_sm90_kernel<{}, {}>"),
+    (r"sdpa_sm90_kernelILi(\d+)E", "sdpa_sm90_kernel<{}>"),
+    (r"pq_scan_onehot_kernelILi(\d+)E", "pq_scan_onehot_kernel<{}>"),
+    (r"quant_rows_kernelI(13__nv_bfloat16|f)E", "quant_rows_kernel<{}>"))
+
+
 def ptxas_table(log: str) -> dict:
     """{kernel: "registers; stack and spills"} from nvcc's -Xptxas -v log,
-    with gemm_sm90_kernel<BN, epilogue> instances named in that form."""
+    with template instances named as in the source, such as
+    gemm_sm90_kernel<BN, epilogue>."""
     table, entry = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             entry = m.group(1)
-            g = re.search(r"gemm_sm90_kernelILi(\d+)ELi(\d+)E", entry)
-            if g:
-                entry = f"gemm_sm90_kernel<{g.group(1)}, {g.group(2)}>"
-            g = re.search(r"sdpa_sm90_kernelILi(\d+)E", entry)
-            if g:
-                entry = f"sdpa_sm90_kernel<{g.group(1)}>"
+            for pattern, form in _PTXAS_NAMES:
+                g = re.search(pattern, entry)
+                if g:
+                    entry = form.format(*(
+                        "bf16" if a == "13__nv_bfloat16" else
+                        "float" if a == "f" else a for a in g.groups()))
+                    break
             table[entry] = ""
         elif entry and ("registers" in line or "spill" in line):
             table[entry] = "; ".join(
@@ -386,6 +406,7 @@ def phase_kernels(device) -> dict:
     results.update(_kernels_mlp(device, gen))
     tiles = _tile_sweep(device, gen)
     emit({"phase": "kernels", "build_s": build_s, "ptxas": ptxas,
+          "ptxas_redesigned": kernels_ptxas(),
           "tile_widths": tiles, "sdpa_sweep": sweep,
           "tolerance": {"vs_plain": [ATOL_PLAIN, RTOL_PLAIN],
                         "vs_f32": [ATOL_F32, RTOL_F32],
@@ -395,7 +416,9 @@ def phase_kernels(device) -> dict:
                         "S <= 64, D = 64",
                         "pq_scan_scores": "bitwise",
                         "fused_mlp_w8a8": "first-stage codes and scales "
-                        f"bitwise; output within {W8A8_REL} x max|ref|"},
+                        f"bitwise; output within {W8A8_REL} x max|ref|; "
+                        "hidden layer bitwise the mma.sync GEMM's "
+                        "(B6_H_SHA256)"},
           "results": results})
     return results
 
@@ -435,6 +458,7 @@ def _f32(*ts):
 # gemm_sm90_kernel<BN, epilogue> instance carries its epilogue: 0 bias, 1
 # residual, 2 QuickGELU, 3 erf GELU (csrc/gemm_sm90.cuh's Epilogue)
 _GEMM_SM90 = r"gemm_sm90_kernel<(\d+), "
+_GEMM_S8 = r"gemm_s8_sm90_kernel<(\d+), "
 SM90_ROLES = {
     "attn_block": (("layernorm", r"layernorm_rows"),
                    ("attn_core", r"attn_core_sm90"),
@@ -443,6 +467,12 @@ SM90_ROLES = {
                   ("down_gemm", _GEMM_SM90 + r"0>")),
     "fused_sdpa_long_qkv": (("attention", r"sdpa_sm90_kernel"),
                             ("out_gemm", _GEMM_SM90 + r"0>")),
+    # B6: gemm_s8_sm90_kernel<BN, epilogue, out>, 0 bf16 out, 1 QuickGELU, 2
+    # erf GELU (csrc/gemm_s8_sm90.cuh's GemmS8Epilogue)
+    "fused_mlp_w8a8": (("quant_x", r"quant_rows_kernel<__nv_bfloat16>"),
+                       ("up_gemm", _GEMM_S8 + r"[12], "),
+                       ("quant_h", r"quant_rows_kernel<float>"),
+                       ("down_gemm", _GEMM_S8 + r"0, ")),
 }
 
 
@@ -478,7 +508,8 @@ def _per_launch(fn, flops: dict, roles: str = "attn_block",
         out[role] = {"device_ms": sum(t for _, t, _ in hits),
                      "calls": sum(n for _, _, n in hits),
                      "kernels": sorted({name[:100] for name, _, _ in hits})}
-        bn = re.search(_GEMM_SM90, hits[0][0])
+        bn = re.search(_GEMM_SM90, hits[0][0]) or re.search(_GEMM_S8,
+                                                             hits[0][0])
         if bn:
             out[role]["tile_n"] = int(bn.group(1))
         if role in flops:
@@ -686,19 +717,36 @@ def _sdpa_sweep(device, gen) -> dict:
             "worst": worst, "bitwise_equal": equal}
 
 
-def sdpa_ptxas() -> dict:
-    """ptxas -v's lines for each sdpa_sm90_kernel<D> instance, from the
-    build log of csrc/sdpa.cu; fails if an instance spills."""
-    from clipx_torch.ops import _build
-    from clipx_torch.ops import packed_sdpa as ps
+# the ptxas warnings that mean a kernel lost performance: setmaxnreg
+# ignored (C7508), every wgmma serialised (C7514, C7515, C7518)
+PTXAS_WARNINGS = ("C7508", "C7514", "C7515", "C7518")
+# the instances each source's ptxas log must name: B8-B10's SDPA kernel
+# (one a head dim), B11's scan (one or two n8 query blocks), B6's int8 GEMM
+# (three tile widths x three epilogues) and its row quantizer
+PTXAS_KERNELS = {"sdpa": (r"sdpa_sm90_kernel<", 3),
+                 "pq_scan": (r"pq_scan_onehot_kernel<", 2),
+                 "mlp": (r"gemm_s8_sm90_kernel<|quant_rows_kernel<", 11)}
 
-    with open(os.path.join(_build.BUILD_DIR, "libsdpa.log")) as f:
-        table = ptxas_table(f.read())
-    out = {k: v for k, v in table.items() if k.startswith("sdpa_sm90_kernel")}
-    check(len(out) == len(ps.LONG_HEAD_DIMS),
-          f"csrc/sdpa.cu's ptxas log names {sorted(out)}")
-    check(all("0 bytes spill stores" in v for v in out.values()),
-          f"sdpa_sm90_kernel spills: {out}")
+
+def kernels_ptxas() -> dict:
+    """{source: {kernel: ptxas -v line}} for the redesigned kernels of
+    csrc/sdpa.cu, pq_scan.cu and mlp.cu, from their build logs; fails if an
+    instance is missing, spills, or the log has a PTXAS_WARNINGS code."""
+    from clipx_torch.ops import _build
+
+    out = {}
+    for src, (pattern, count) in PTXAS_KERNELS.items():
+        with open(os.path.join(_build.BUILD_DIR, f"lib{src}.log")) as f:
+            log = f.read()
+        table = {k: v for k, v in ptxas_table(log).items()
+                 if re.match(pattern, k)}
+        check(len(table) == count,
+              f"csrc/{src}.cu's ptxas log names {sorted(table)}")
+        check(all("0 bytes spill stores" in v for v in table.values()),
+              f"csrc/{src}.cu: a kernel spills: {table}")
+        warned = [w for w in PTXAS_WARNINGS if w in log]
+        check(not warned, f"csrc/{src}.cu: ptxas warned {warned}")
+        out[src] = table
     return out
 
 
@@ -708,13 +756,61 @@ def sdpa_ptxas() -> dict:
 PQ_ROWS = 1 << 20
 
 
+# B11's bitwise sweep: row counts around the 64-row warp tile and the
+# ragged corpus, halves that are and are not multiples of the kernel's
+# 8-byte loads (up to D = 1024 at dsub 2), 1 to 16 queries (one and two n8
+# blocks), int8 and integer bf16 LUTs; the extreme sums (all-0 and all-15
+# nibbles against +-127 LUTs) at the big row count
+PQ_SWEEP_ROWS = (1, 63, 64, 65)
+PQ_BIG_ROWS = 1_000_037
+PQ_SWEEP_HALVES = (8, 24, 64, 128, 256)
+PQ_SWEEP_Q = (1, 3, 8, 9, 16)
+
+
+def _pq_sweep(pqs, codes, lut, device) -> dict:
+    """Every case of B11's sweep against pq_scan_scores_plain, bitwise."""
+    cases = 0
+
+    def same(p, t, what):
+        out = pqs.pq_scan_scores(p, t)
+        ref = pqs.pq_scan_scores_plain(p, t)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"pq_scan_scores {what} differs from "
+              f"plain: max err {float((out - ref).abs().max())}")
+        return out
+
+    for half in PQ_SWEEP_HALVES:
+        for n in PQ_SWEEP_ROWS + (PQ_BIG_ROWS,):
+            p = codes(n, half)
+            for q in PQ_SWEEP_Q:
+                for dt in (torch.int8, torch.bfloat16):
+                    if n == PQ_BIG_ROWS and dt == torch.bfloat16 and q != 16:
+                        continue
+                    same(p, lut(half, q).to(dt), (n, half, q, str(dt)))
+                    cases += 1
+        for byte, nibble in ((0, 0), (-1, 15)):
+            p = torch.full((PQ_BIG_ROWS, half), byte, dtype=torch.int8,
+                           device=device)
+            for v in (127, -127):
+                t = torch.full((half * 32, 16), v, dtype=torch.int8,
+                               device=device)
+                out = same(p, t, ("extreme", half, nibble, v))
+                check(bool((out == v * 2 * half).all()),
+                      f"pq_scan_scores extreme sum {half, nibble, v}")
+                cases += 1
+        del p
+    return {"cases": cases, "rows": list(PQ_SWEEP_ROWS) + [PQ_BIG_ROWS],
+            "halves": list(PQ_SWEEP_HALVES), "queries": list(PQ_SWEEP_Q),
+            "all_bitwise": True}
+
+
 def _kernel_b11(device) -> dict:
     """pq_scan_scores against its plain version, BITWISE (integer sums), at
-    the flat pq search's shapes: (2^20, 128) codes x a (4096, 16) int8 LUT,
-    the same with a bf16 LUT, (2^20, 64) at Q = 1 (dsub 4), and a row count
-    that is not a multiple of the 256-row tile. Times at the first shape;
-    the library yardstick is torch._int_mm of a prebuilt (N, 4096) int8
-    one-hot by the LUT (the port never calls it)."""
+    the flat pq search's shapes, (2^20, 128) codes x a (4096, 16) int8 LUT,
+    the same with a bf16 LUT, (2^20, 64) at Q = 1 (dsub 4), and over
+    _pq_sweep's cases. Times at the first shape, and device times at Q = 1
+    (the REPL's single query); the library yardstick is torch._int_mm of a
+    prebuilt (N, 4096) int8 one-hot by the LUT (the port never calls it)."""
     from clipx_torch.ops import pq_scan as pqs
 
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -731,8 +827,7 @@ def _kernel_b11(device) -> dict:
     for name, (n, half, q, dt) in {
             "dsub2_q16": (PQ_ROWS, 128, 16, torch.int8),
             "dsub2_q16_bf16_lut": (PQ_ROWS, 128, 16, torch.bfloat16),
-            "dsub4_q1": (PQ_ROWS, 64, 1, torch.int8),
-            "dsub2_q3_ragged": (1_000_037, 128, 3, torch.int8)}.items():
+            "dsub4_q1": (PQ_ROWS, 64, 1, torch.int8)}.items():
         p, t = codes(n, half), lut(half, q).to(dt)
         out = pqs.pq_scan_scores(p, t)
         ref = pqs.pq_scan_scores_plain(p, t)
@@ -741,7 +836,15 @@ def _kernel_b11(device) -> dict:
         check(torch.equal(out, ref),
               f"pq_scan_scores {name} differs from plain: max err {err}")
         cases[name] = {"shape": [n, half, q], "max_abs_err": err}
+        if q == 1:
+            cases[name]["device_ms"] = device_ms(
+                lambda: pqs.pq_scan_scores(p, t))
         del p, t, out, ref
+    sweep = _pq_sweep(pqs, codes, lut, device)
+    p, t = codes(PQ_ROWS, 128), lut(128, 1)
+    cases["dsub2_q1"] = {"shape": [PQ_ROWS, 128, 1], "device_ms": device_ms(
+        lambda: pqs.pq_scan_scores(p, t))}
+    del p, t
 
     n, half, q = PQ_ROWS, 128, 16
     p, t = codes(n, half), lut(half, q)
@@ -755,11 +858,14 @@ def _kernel_b11(device) -> dict:
     ops = n * m * q                              # one add per lookup
     bms, by = bound(ops, nbytes, PEAK_INT8_OPS)
     info = {"shape": [n, half, q], "max_abs_err": cases["dsub2_q16"][
-                "max_abs_err"], "cases": cases,
+                "max_abs_err"], "cases": cases, "sweep": sweep,
             **_times(lambda: pqs.pq_scan_scores(p, t),
                      lambda: pqs.pq_scan_scores_plain(p, t),
                      lambda: torch._int_mm(onehot, t)),
             "bound_ms": bms, "bound_by": by, "ops": ops, "bytes": nbytes}
+    # the tensor cores' rate: the one-hot product, 2 N (M * 16) Q int8
+    # operations, and as the kernel runs it, with Q padded to 16
+    info["onehot_tops"] = 2 * n * m * 16 * q / info["device_ms"] / 1e9
     del onehot
     torch.cuda.empty_cache()
     return info
@@ -770,6 +876,53 @@ def _kernel_b11(device) -> dict:
 # bitwise; an activation a few ulps off can round a later code the other way
 W8A8_REL = 1e-2
 MLP_ROWS = 128 * 50   # ViT-B/32's token rows at the indexing batch
+
+
+# B6's hidden layer, bitwise: the sha256 of the f32 h (R, H) that the up
+# GEMM writes at a seeded 6,400 x 768 -> 3,072 input, QuickGELU then erf
+# GELU. B6_H_SHA256 holds the digests of h as the mma.sync int8 GEMM that
+# the TMA + wgmma GEMM replaced wrote it, taken on the H100 by this
+# function before that kernel was deleted: the int32 sums are exact in any
+# order, so with the same epilogue h must not move by a bit.
+B6_H_SHA256 = {
+    "quick": ("359cc6f1df2c9020d12a89f3797e30779e237dea65f0640edc044983c1f8"
+              "4af2"),
+    "erf": ("80f24e043ccba4cc08d588b9c90a946ffaebd6f9afe232bc1bdcf44821e6"
+            "75a9")}
+
+
+def b6_hidden(device, run) -> dict:
+    """{"quick": sha256, "erf": sha256} of the hidden layer that
+    ``run(x, w1_q, s1, b1, w2_q, s2, b2, quick, h)`` writes into the
+    (R, H) f32 tensor h, at B6's seeded inputs."""
+    import hashlib
+
+    from clipx_torch.models import quant
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    w, hid = 768, 3072
+    x = _bf16(gen, (MLP_ROWS, w), 1.0, device)
+    w1 = (torch.randn((w, hid), generator=gen) * 0.03).to(device)
+    w2 = (torch.randn((hid, w), generator=gen) * 0.03).to(device)
+    b1 = (torch.randn(hid, generator=gen) * 0.01).to(device)
+    b2 = (torch.randn(w, generator=gen) * 0.01).to(device)
+    (w1_q, s1), (w2_q, s2) = quant.quantize_weight(w1), quant.quantize_weight(
+        w2)
+    out = {}
+    for tag, quick in (("quick", True), ("erf", False)):
+        h = torch.full((MLP_ROWS, hid), float("nan"), device=device)
+        run(x, w1_q, s1, b1, w2_q, s2, b2, quick, h)
+        torch.cuda.synchronize()
+        out[tag] = hashlib.sha256(h.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def _b6_run(x, w1_q, s1, b1, w2_q, s2, b2, quick, h):
+    """B6's kernel, writing its hidden layer into h."""
+    from clipx_torch.ops import packed_sdpa as ps
+
+    ps.launch_mlp_w8a8(x, w1_q.T.contiguous(), s1, b1, w2_q.T.contiguous(),
+                       s2, b2, quick=quick, h=h)
 
 
 def _kernels_mlp(device, gen) -> dict:
@@ -857,9 +1010,12 @@ def _kernels_mlp(device, gen) -> dict:
 
     # B6: the first stage's codes and scales bitwise, the output within
     # W8A8_REL of max|ref|, at both row counts
+    # the K-major weight copies that quantize_mlp_stack makes once
+    kmajor = {"w1_qt": w1_q.T.contiguous(), "w2_qt": w2_q.T.contiguous()}
+    kargs = (kmajor["w1_qt"], s1, b1, kmajor["w2_qt"], s2, b2)
     cases = {}
     for tag, t in (("rows_6400", x), ("rows_3x33", odd.reshape(-1, w))):
-        out, xq, xs = ps.launch_mlp_w8a8(t, *qargs, quick=True)
+        out, xq, xs = ps.launch_mlp_w8a8(t, *kargs, quick=True)
         ref = ps.fused_mlp_w8a8_plain(t, *qargs, quick=True)
         ref_q, ref_s = quant.quantize_rows(t.float())
         torch.cuda.synchronize()
@@ -883,21 +1039,32 @@ def _kernels_mlp(device, gen) -> dict:
     res["fused_mlp_w8a8"] = {
         "shape": [MLP_ROWS, w, hid], "max_abs_err": cases["rows_6400"][
             "max_abs_err"], "cases": cases,
-        **_times(lambda: ps.fused_mlp_w8a8(x, *qargs),
+        **_times(lambda: ps.fused_mlp_w8a8(x, *qargs, **kmajor),
                  lambda: ps.fused_mlp_w8a8_plain(x, *qargs), lib_b6),
-        "bound_ms": bms, "bound_by": by, "ops": ops, "bytes": nbytes}
+        "bound_ms": bms, "bound_by": by, "ops": ops, "bytes": nbytes,
+        "launches": _per_launch(
+            lambda: ps.fused_mlp_w8a8(x, *qargs, **kmajor),
+            {"up_gemm": 2 * MLP_ROWS * w * hid,
+             "down_gemm": 2 * MLP_ROWS * hid * w},
+            roles="fused_mlp_w8a8",
+            required=("quant_x", "up_gemm", "quant_h", "down_gemm")),
+        "hidden_sha256": b6_hidden(device, _b6_run)}
+    check(res["fused_mlp_w8a8"]["hidden_sha256"] == B6_H_SHA256,
+          "fused_mlp_w8a8's hidden layer differs from the mma.sync GEMM's: "
+          f"{res['fused_mlp_w8a8']['hidden_sha256']}")
     torch.cuda.empty_cache()
     return res
 
 
 def _tile_sweep(device, gen) -> dict:
-    """Device ms of each GEMM that B7 and B9 launch, and of B1's out
-    projection, at every tile width of csrc/gemm_sm90.cuh that divides its
-    N, read by role from torch.profiler; with the width that
-    ``gemm_tile_n_mn`` (B7, B9) or ``gemm_tile_n`` (B1) picks. B7 at the
-    image tower's 6,400 rows and the text tower's 77 (one query) and 4,928
-    (its largest bucket, 64 texts); B9 and B1 at their kernels-phase
-    shapes."""
+    """Device ms of each GEMM that B6, B7 and B9 launch, and of B1's out
+    projection, at every tile width of csrc/gemm_sm90.cuh (and of
+    csrc/gemm_s8_sm90.cuh for B6's int8 GEMMs, "tflops" there being TOP/s)
+    that divides its N, read by role from torch.profiler; with the width
+    that ``gemm_tile_n_mn`` (B6, B7, B9) or ``gemm_tile_n`` (B1) picks. B7
+    at the image tower's 6,400 rows and the text tower's 77 (one query) and
+    4,928 (its largest bucket, 64 texts); B6 at the image tower's rows; B9
+    and B1 at their kernels-phase shapes."""
     from clipx_torch.ops import packed_sdpa as ps
 
     res = {}
@@ -933,6 +1100,29 @@ def _tile_sweep(device, gen) -> dict:
                        split["down_gemm"]["device_ms"],
                        ps.gemm_tile_n_mn(rows, w))
         del x, w1, w2
+
+    # B6's two int8 GEMMs at the image tower's 6,400 rows
+    from clipx_torch.models import quant
+
+    rows, w, hid = MLP_ROWS, 768, 3072
+    x = _bf16(gen, (rows, w), 1.0, device)
+    (w1_q, s1), (w2_q, s2) = (quant.quantize_weight(
+        torch.randn(shape, generator=gen).to(device) * 0.03)
+        for shape in ((w, hid), (hid, w)))
+    b1 = (torch.randn(hid, generator=gen) * 0.01).to(device)
+    b2 = (torch.randn(w, generator=gen) * 0.01).to(device)
+    w1_qt, w2_qt = w1_q.T.contiguous(), w2_q.T.contiguous()
+    for bn in ps.GEMM_TILES:
+        split = _per_launch(
+            lambda: ps.launch_mlp_w8a8(x, w1_qt, s1, b1, w2_qt, s2, b2,
+                                       quick=True, tiles=(bn, bn)), {},
+            roles="fused_mlp_w8a8",
+            required=("quant_x", "up_gemm", "quant_h", "down_gemm"))
+        record("fused_mlp_w8a8_up", rows, hid, w, bn,
+               split["up_gemm"]["device_ms"], ps.gemm_tile_n_mn(rows, hid))
+        record("fused_mlp_w8a8_down", rows, w, hid, bn,
+               split["down_gemm"]["device_ms"], ps.gemm_tile_n_mn(rows, w))
+    del x, w1_q, w2_q, w1_qt, w2_qt
 
     b, s, w, h = 128, 577, 1024, 16
     qkv = _bf16(gen, (b, s, 3 * w), 1.0, device)
@@ -996,11 +1186,15 @@ KERNEL_TABLE = (
 
 
 def kernels_line(results: dict, launches: dict, ptxas: dict) -> dict:
-    """One row a kernel; the SDPA kernel's rows carry its ptxas lines."""
+    """One row a kernel; the rows of the SDPA kernel, B11 and B6 carry
+    their kernels' ptxas lines (``kernels_ptxas``)."""
     rows = []
     for name, source, replaces in KERNEL_TABLE:
         r = results[name]
-        extra = {"ptxas": ptxas} if source == SDPA_SOURCE else {}
+        key = ("sdpa" if source == SDPA_SOURCE else
+               {"pq_scan_scores": "pq_scan",
+                "fused_mlp_w8a8": "mlp"}.get(name))
+        extra = {"ptxas": ptxas[key]} if key else {}
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1462,11 +1656,19 @@ def phase_int8(device, images: np.ndarray, base: np.ndarray) -> dict:
     (not fusible: no B6); a profile of one 128-image encode."""
     from clipx_torch import config as config_lib
     from clipx_torch.models import convert
+    from clipx_torch.ops import packed_sdpa as ps
     from clipx_torch.runtime.encoder import Encoder
 
     layers = 12
     enc = Encoder.create("ViT-B/32", seed=SEED, device=device,
                          compute_quant="int8")
+    # B6 reads the K-major weight copies that quantize_mlp_stack made once:
+    # no call of the encode may transpose the weights itself
+    mlp = enc.params["visual"]["blocks"]["mlp"]
+    check(all(torch.equal(mlp[f"w{i}_qt"], mlp[f"w{i}_q"].transpose(-1, -2))
+              and mlp[f"w{i}_qt"].is_contiguous() for i in (1, 2)),
+          "the int8 Encoder has no K-major copies of its MLP weights")
+    ps.W8A8_WEIGHT_COPIES["calls"] = 0
     cpu = Encoder.create("ViT-B/32", seed=SEED, device="cpu",
                          compute_quant="int8", batch_buckets=(CPU_CHECK,))
     ref = cpu.encode_images(images[:CPU_CHECK])
@@ -1485,6 +1687,9 @@ def phase_int8(device, images: np.ndarray, base: np.ndarray) -> dict:
               f"int8 fused batch of 1 launched {n}")
         info["profile_fused"] = encode_profile(enc, images[:BATCH], reps=1,
                                                plain_reps=4)
+    info["w8a8_weight_transposes"] = ps.W8A8_WEIGHT_COPIES["calls"]
+    check(info["w8a8_weight_transposes"] == 0,
+          "the Encoder's fused W8A8 route transposed its weights per call")
     info["cos_vs_cpu_f32_int8_min"] = _cos_min(ref, embs[:CPU_CHECK])
     info["cos_vs_card_bf16_min"] = _cos_min(embs, base)
     info["cos_batch1_vs_batch128"] = float(one[0] @ embs[0])
@@ -1983,7 +2188,7 @@ def main() -> int:
     emit({"phase": "seconds", "by_phase": seconds,
           "total": time.perf_counter() - start,
           "empty_profiles_repeated": EMPTY_PROFILES})
-    emit(kernels_line(results, total, sdpa_ptxas()))
+    emit(kernels_line(results, total, kernels_ptxas()))
     print(info["card"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 // The MLP activations in f32, one copy for every GEMM epilogue that applies
-// them: gemm_sm90.cuh (fused_mlp, bf16) and gemm_s8.cuh (fused_mlp_w8a8,
+// them: gemm_sm90.cuh (fused_mlp, bf16) and gemm_s8_sm90.cuh (fused_mlp_w8a8,
 // int8). The forms are the Pallas kernels' (clipx/ops/packed_sdpa.py
 // :386-388, :447-449): QuickGELU v * sigmoid(1.702 v) through expf, and
 // the exact erf GELU through erff. The build uses no fast-math, so both are the

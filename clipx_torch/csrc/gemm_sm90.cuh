@@ -1,8 +1,8 @@
 // Warp-specialised bf16 GEMM for Hopper (sm_90a): TMA loads into a ring of
 // shared-memory stages, wgmma on two consumer warpgroups, f32 accumulators
 // in registers. Also the PTX helpers (mbarrier, TMA, wgmma, shared-memory
-// descriptors, tensor maps) that attn_core_sm90.cuh and sdpa_sm90.cuh
-// build on.
+// descriptors, tensor maps) that attn_core_sm90.cuh, sdpa_sm90.cuh and
+// gemm_s8_sm90.cuh build on.
 //
 // Every bf16 GEMM of the port runs on it:
 // - attn_block.cu: the out projections of fused_attn_block and
@@ -168,6 +168,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
     for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // Shared-memory matrix descriptor of a tile stored in 128-byte rows with
 // the 128-byte swizzle (as TMA writes it), 8-row groups 1024 bytes apart
 // (the stride byte offset). K-major operands step 32 bytes per k16 inside
@@ -291,21 +297,29 @@ inline EncodeTiledFn encode_tiled() {
     return fn;
 }
 
-// A row-major (rows, cols) bf16 matrix read in (box_rows, 64) boxes with
-// the 128-byte swizzle; a box's rows past the end arrive as zeros. Needs a
-// 16-byte aligned base and cols % 8 == 0 (the wrappers check).
-inline bool make_tmap(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols,
-                      uint32_t box_rows) {
+// A row-major (rows, cols) matrix of elem_bytes-wide elements read in
+// (box_rows, 128-byte) boxes with the 128-byte swizzle; a box's rows past
+// the end arrive as zeros. Needs a 16-byte aligned base and a row pitch
+// that is a multiple of 16 bytes (the wrappers check).
+inline bool make_tmap_sw128(CUtensorMap* map, CUtensorMapDataType type, uint32_t elem_bytes,
+                            const void* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows) {
     const EncodeTiledFn fn = encode_tiled();
     if (fn == nullptr) return false;
     const cuuint64_t dims[2] = {cols, rows};
-    const cuuint64_t strides[1] = {cols * sizeof(bf16)};
-    const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK), box_rows};
+    const cuuint64_t strides[1] = {cols * elem_bytes};
+    const cuuint32_t box[2] = {128 / elem_bytes, box_rows};
     const cuuint32_t elem[2] = {1, 1};
-    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
-              box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+    return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A row-major (rows, cols) bf16 matrix in (box_rows, 64) boxes.
+inline bool make_tmap(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t cols,
+                      uint32_t box_rows) {
+    return make_tmap_sw128(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(bf16), ptr, rows, cols,
+                           box_rows);
 }
 
 // ---------------------------------------------------------------------------

@@ -13,9 +13,12 @@
 //       h = act(f32(xq @ W1q) * (xs * s1) + b1)        (f32)
 //       hq, hs = quant_rows(h)
 //       y = bf16(f32(hq @ W2q) * (hs * s2) + b2)
-//   Four launches: the row quantizer, the int8 GEMM of gemm_s8.cuh with the
-//   dequantize + activation epilogue into an f32 scratch, the quantizer
-//   again, the int8 GEMM with the dequantize epilogue.
+//   Four launches: the row quantizer, gemm_s8_sm90.cuh's TMA + wgmma int8
+//   GEMM with the dequantize + activation epilogue into an f32 scratch (its
+//   epilogue also folds each row's |h| max by atomicMax, so that the second
+//   quantizer reads h once), the quantizer again, the int8 GEMM with the
+//   dequantize epilogue. The int8 GEMM reads K-major (N, K) weight copies,
+//   w1_qt (H, W) and w2_qt (W, H): int8 wgmma has no transpose bit.
 //
 // On the TPU one program held both weight matrices in VMEM and kept its
 // 128 rows' hidden tile on chip. Here the hidden layer makes one round trip
@@ -28,17 +31,16 @@
 // What bounds them on this card, at ViT-B/32 batch 128 (R = 6,400, W = 768,
 // H = 3,072): 4 R W H = 60.4 G operations against ~24-29 MB of compulsory
 // traffic, so operations: 0.061 ms at the bf16 peak (989 TFLOP/s) and 0.031
-// ms at the int8 peak (1,979 TOP/s). fused_mlp reaches that rate only
-// through wgmma, which its two GEMMs now use; what stays between it and
-// the bound is the GEMM's own (one block an SM, a tail of partial waves:
-// the wrapper picks each GEMM's tile width by a measured rule). The int8
-// GEMMs are still mma.sync without a load pipeline.
+// ms at the int8 peak (1,979 TOP/s). Both reach that rate only through
+// wgmma, which their GEMMs use; what stays between them and the bound is
+// the GEMM's own (one block an SM, a tail of partial waves: the wrapper
+// picks each GEMM's tile width by a measured rule) and, for the W8A8 MLP,
+// the f32 hidden layer's round trip and its two quantizer passes.
 //
 // C interface for ctypes; each entry returns cudaGetLastError() after its
 // launches.
 
-#include "gemm_s8.cuh"
-#include "gemm_sm90.cuh"
+#include "gemm_s8_sm90.cuh"
 
 // x: (R, W) bf16; w1: (W, H) bf16; b1: (H,) f32; w2: (H, W) bf16; b2: (W,)
 // f32; h_buf: (R, H) bf16 scratch; out: (R, W) bf16; every pointer 16-byte
@@ -66,15 +68,17 @@ extern "C" int clipx_fused_mlp(const void* x, const void* w1, const void* b1, co
         static_cast<bf16*>(out), rows, width, hidden, bn_down, st));
 }
 
-// x: (R, W) bf16; w1q: (W, H) int8, s1, b1: (H,) f32; w2q: (H, W) int8,
-// s2, b2: (W,) f32; scratch xq: (R, W) int8, xs: (R,) f32, h: (R, H) f32,
-// hq: (R, H) int8, hs: (R,) f32; out: (R, W) bf16. W % 64 == 0,
-// H % 64 == 0.
-extern "C" int clipx_fused_mlp_w8a8(const void* x, const void* w1q, const void* s1,
-                                    const void* b1, const void* w2q, const void* s2,
+// x: (R, W) bf16; w1qt: (H, W) int8 (W1's codes, K-major), s1, b1: (H,)
+// f32; w2qt: (W, H) int8, s2, b2: (W,) f32; scratch xq: (R, W) int8, xs:
+// (R,) f32, h: (R, H) f32, hq: (R, H) int8, hs: (R,) f32; out: (R, W) bf16;
+// every pointer 16-byte aligned. W % 64 == 0, H % 64 == 0. bn_up, bn_down:
+// the two GEMMs' tile widths (64, 128 or 192), dividing H and W.
+extern "C" int clipx_fused_mlp_w8a8(const void* x, const void* w1qt, const void* s1,
+                                    const void* b1, const void* w2qt, const void* s2,
                                     const void* b2, void* xq, void* xs, void* h, void* hq,
                                     void* hs, void* out, int rows, int width, int hidden,
-                                    int quick, void* stream) {
+                                    int quick, int bn_up, int bn_down, void* stream) {
+    namespace sm = clipx::sm90;
     using bf16 = __nv_bfloat16;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     int8_t* xq8 = static_cast<int8_t*>(xq);
@@ -82,18 +86,27 @@ extern "C" int clipx_fused_mlp_w8a8(const void* x, const void* w1q, const void* 
     float* xsf = static_cast<float*>(xs);
     float* hsf = static_cast<float*>(hs);
     float* hf = static_cast<float*>(h);
-    clipx::launch_quant_rows(static_cast<const bf16*>(x), xq8, xsf, rows, width, st);
-    if (quick)
-        clipx::launch_gemm_s8<clipx::kS8QuickGelu, float>(
-            xq8, static_cast<const int8_t*>(w1q), xsf, static_cast<const float*>(s1),
-            static_cast<const float*>(b1), hf, rows, hidden, width, st);
-    else
-        clipx::launch_gemm_s8<clipx::kS8Gelu, float>(
-            xq8, static_cast<const int8_t*>(w1q), xsf, static_cast<const float*>(s1),
-            static_cast<const float*>(b1), hf, rows, hidden, width, st);
-    clipx::launch_quant_rows(static_cast<const float*>(hf), hq8, hsf, rows, hidden, st);
-    clipx::launch_gemm_s8<clipx::kS8Bf16, bf16>(
-        hq8, static_cast<const int8_t*>(w2q), hsf, static_cast<const float*>(s2),
-        static_cast<const float*>(b2), static_cast<bf16*>(out), rows, width, hidden, st);
-    return static_cast<int>(cudaGetLastError());
+    const auto* w1 = static_cast<const int8_t*>(w1qt);
+    const auto* s1f = static_cast<const float*>(s1);
+    const auto* b1f = static_cast<const float*>(b1);
+    // hs first carries the hidden rows' |h| maxima as f32 bits: zeroed by
+    // the first quantizer, folded by the up GEMM's epilogue, read by the
+    // second quantizer, which overwrites each with the row's scale
+    unsigned* h_amax = reinterpret_cast<unsigned*>(hsf);
+    sm::launch_quant_rows(static_cast<const bf16*>(x), xq8, xsf, nullptr, h_amax, rows, width,
+                          st);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = quick ? sm::launch_gemm_s8<sm::kS8QuickGelu>(xq8, w1, xsf, s1f, b1f, hf, h_amax, rows,
+                                                     hidden, width, bn_up, st)
+              : sm::launch_gemm_s8<sm::kS8Gelu>(xq8, w1, xsf, s1f, b1f, hf, h_amax, rows, hidden,
+                                                width, bn_up, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sm::launch_quant_rows(static_cast<const float*>(hf), hq8, hsf, h_amax, nullptr, rows, hidden,
+                          st);
+    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(sm::launch_gemm_s8<sm::kS8Bf16>(
+        hq8, static_cast<const int8_t*>(w2qt), hsf, static_cast<const float*>(s2),
+        static_cast<const float*>(b2), static_cast<bf16*>(out), nullptr, rows, width, hidden,
+        bn_down, st));
 }

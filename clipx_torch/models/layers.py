@@ -195,7 +195,8 @@ def mlp_block(x: torch.Tensor, p: Params, use_quick_gelu: bool) -> torch.Tensor:
     """The MLP, clipx's dispatch (``clipx/models/layers.py:197-238``):
     W8A8 when the params are quantized (``w1_q``), through
     ``fused_mlp_w8a8`` under ``CLIPX_FUSED_MLP_INT8=on`` where
-    ``mlp_w8a8_fusible`` allows it; otherwise ``fused_mlp`` under
+    ``mlp_w8a8_fusible`` allows it (with the K-major weight copies
+    ``quantize_mlp_stack`` made); otherwise ``fused_mlp`` under
     ``CLIPX_FUSED_MLP=on`` where ``mlp_fusible`` allows it for x's dtype;
     else dense -> activation (in x's dtype) -> dense."""
     from clipx_torch.ops import packed_sdpa as ps
@@ -208,7 +209,9 @@ def mlp_block(x: torch.Tensor, p: Params, use_quick_gelu: bool) -> torch.Tensor:
                 and ps.mlp_w8a8_fusible(w, hidden)):
             return ps.fused_mlp_w8a8(x, p["w1_q"], p["s1"], p["b1"],
                                      p["w2_q"], p["s2"], p["b2"],
-                                     quick=use_quick_gelu)
+                                     quick=use_quick_gelu,
+                                     w1_qt=p.get("w1_qt"),
+                                     w2_qt=p.get("w2_qt"))
         h = _activation(quant.dense_w8a8(x, p["w1_q"], p["s1"], p["b1"]),
                         use_quick_gelu)
         return quant.dense_w8a8(h, p["w2_q"], p["s2"], p["b2"])

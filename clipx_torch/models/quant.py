@@ -108,8 +108,14 @@ def quantize_attn_stack(attn: Params) -> Params:
 def quantize_mlp_stack(mlp: Params) -> Params:
     """A (possibly layer-stacked) MLP param group in int8 storage:
     ``w1_q/s1/w2_q/s2`` replace ``w1/w2``, biases unchanged.
-    ``layers.mlp_block`` dispatches on the ``w1_q`` key."""
+    ``layers.mlp_block`` dispatches on the ``w1_q`` key. ``w1_qt`` and
+    ``w2_qt`` are the same codes transposed ((..., H, W) and (..., W, H),
+    contiguous), made once here for the fused W8A8 MLP's kernel, whose
+    int8 GEMM reads only K-major weights; ``w1_q``/``w2_q`` stay for the
+    plain and unfused paths."""
     w1_q, s1 = quantize_weight(mlp["w1"])
     w2_q, s2 = quantize_weight(mlp["w2"])
     return {"w1_q": w1_q, "s1": s1, "b1": mlp["b1"],
-            "w2_q": w2_q, "s2": s2, "b2": mlp["b2"]}
+            "w2_q": w2_q, "s2": s2, "b2": mlp["b2"],
+            "w1_qt": w1_q.transpose(-1, -2).contiguous(),
+            "w2_qt": w2_q.transpose(-1, -2).contiguous()}

@@ -66,6 +66,9 @@ _D = 64
 _NEG = -1e30
 LONG_HEAD_DIMS = (32, 64, 128)  # the SDPA kernel's template instances
 _MLP_ROWS = 128  # clipx's token rows a program, read by its VMEM rules
+# calls of fused_mlp_w8a8 on CUDA that had to transpose the weights
+# themselves (no w1_qt/w2_qt given); the Encoder's route makes none
+W8A8_WEIGHT_COPIES = {"calls": 0}
 # clipx's budget: both weight matrices in VMEM (~16 MB a core) beside the
 # row blocks and the hidden tile
 _MLP_VMEM_BUDGET = 12 * 2 ** 20
@@ -425,34 +428,52 @@ def _launch_mlp(x2, w1, b1, w2, b2, quick: bool,
     return out
 
 
-def launch_mlp_w8a8(x2, w1_q, s1, b1, w2_q, s2, b2, *, quick: bool):
-    """The W8A8 MLP kernel on (R, W) bf16 CUDA rows: returns (out, xq, xs),
+def launch_mlp_w8a8(x2, w1_qt, s1, b1, w2_qt, s2, b2, *, quick: bool,
+                    tiles: tuple | None = None, h: torch.Tensor | None = None):
+    """The W8A8 MLP kernel on (R, W) bf16 CUDA rows, with the K-major
+    weight codes w1_qt (H, W) and w2_qt (W, H) (``w1_q``, ``w2_q``
+    transposed: int8 wgmma reads no other layout). Returns (out, xq, xs),
     the output and the first stage's int8 codes (R, W) and f32 row scales
     (R,), which are bitwise those of ``models.quant.quantize_rows``.
-    Counts the launch under ``fused_mlp_w8a8``."""
+    ``tiles`` = (up, down) tile widths, default ``gemm_tile_n_mn`` of each
+    (M, N); ``h``, an (R, H) f32 tensor, receives the hidden layer (else a
+    scratch does). Counts the launch under ``fused_mlp_w8a8``."""
     name = "fused_mlp_w8a8"
     device = kernel_device(name, x2)
     check_cuda(name, torch.bfloat16, device, x=x2)
-    check_cuda(name, torch.int8, device, w1_q=w1_q, w2_q=w2_q)
+    check_cuda(name, torch.int8, device, w1_qt=w1_qt, w2_qt=w2_qt)
     check_cuda(name, torch.float32, device, s1=s1, b1=b1, s2=s2, b2=b2)
     rows, width = x2.shape
-    hidden = w1_q.shape[1]
+    hidden = w1_qt.shape[0]
+    if (tuple(w1_qt.shape) != (hidden, width)
+            or tuple(w2_qt.shape) != (width, hidden)):
+        raise ValueError(f"{name}: w1_qt {tuple(w1_qt.shape)} and w2_qt "
+                         f"{tuple(w2_qt.shape)} are not (H, W) and (W, H) "
+                         f"for W={width}")
+    up, down = tiles or (None, None)
+    up, down = _tile(name, rows, hidden, up), _tile(name, rows, width, down)
 
     def scratch(*shape, dtype):
         return torch.empty(shape, dtype=dtype, device=device)
 
     xq, xs = scratch(rows, width, dtype=torch.int8), scratch(
         rows, dtype=torch.float32)
-    h = scratch(rows, hidden, dtype=torch.float32)
+    if h is None:
+        h = scratch(rows, hidden, dtype=torch.float32)
+    check_cuda(name, torch.float32, device, h=h)
+    if tuple(h.shape) != (rows, hidden):
+        raise ValueError(f"{name}: h is {tuple(h.shape)}, expected "
+                         f"{(rows, hidden)}")
     hq, hs = scratch(rows, hidden, dtype=torch.int8), scratch(
         rows, dtype=torch.float32)
     out = torch.empty_like(x2)
     fn = c_fn("mlp", "clipx_fused_mlp_w8a8",
-              [P] * 13 + [I, I, I, I, P])
-    launch(name, fn, device, x2.data_ptr(), w1_q.data_ptr(), s1.data_ptr(),
-           b1.data_ptr(), w2_q.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+              [P] * 13 + [I, I, I, I, I, I, P])
+    launch(name, fn, device, x2.data_ptr(), w1_qt.data_ptr(), s1.data_ptr(),
+           b1.data_ptr(), w2_qt.data_ptr(), s2.data_ptr(), b2.data_ptr(),
            xq.data_ptr(), xs.data_ptr(), h.data_ptr(), hq.data_ptr(),
-           hs.data_ptr(), out.data_ptr(), rows, width, hidden, int(quick))
+           hs.data_ptr(), out.data_ptr(), rows, width, hidden, int(quick),
+           up, down)
     return out, xq, xs
 
 
@@ -653,18 +674,28 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 def fused_mlp_w8a8(x: torch.Tensor, w1_q: torch.Tensor, s1: torch.Tensor,
                    b1: torch.Tensor, w2_q: torch.Tensor, s2: torch.Tensor,
-                   b2: torch.Tensor, *, quick: bool = True) -> torch.Tensor:
+                   b2: torch.Tensor, *, quick: bool = True,
+                   w1_qt: torch.Tensor | None = None,
+                   w2_qt: torch.Tensor | None = None) -> torch.Tensor:
     """The W8A8 transformer MLP over x (..., W), with int8 weights w1_q (W,
     H), w2_q (H, W) and their per-output-channel f32 scales
     (``models.quant.quantize_weight``'s layout); returns x's dtype. On CUDA
-    x is bf16 and W and H are multiples of 64."""
+    x is bf16 and W and H are multiples of 64, and the kernel reads the
+    K-major copies ``w1_qt`` (H, W) and ``w2_qt`` (W, H) that
+    ``models.quant.quantize_mlp_stack`` makes once; without them it makes
+    them on every call (counted in ``W8A8_WEIGHT_COPIES``). The plain
+    version ignores them."""
     width, hidden = _check_mlp("fused_mlp_w8a8", x, w1_q, w2_q, b1, b2,
                                x.device)
     if x.device.type == "cpu":
         return fused_mlp_w8a8_plain(x, w1_q, s1, b1, w2_q, s2, b2,
                                     quick=quick)
+    if w1_qt is None or w2_qt is None:
+        W8A8_WEIGHT_COPIES["calls"] += 1
+        w1_qt = w1_q.transpose(-1, -2).contiguous()
+        w2_qt = w2_q.transpose(-1, -2).contiguous()
     out, _, _ = launch_mlp_w8a8(
-        x.reshape(-1, width).contiguous(), w1_q, s1.reshape(hidden).float(),
-        b1.reshape(hidden).float(), w2_q, s2.reshape(width).float(),
+        x.reshape(-1, width).contiguous(), w1_qt, s1.reshape(hidden).float(),
+        b1.reshape(hidden).float(), w2_qt, s2.reshape(width).float(),
         b2.reshape(width).float(), quick=quick)
     return out.reshape(x.shape)

@@ -1,6 +1,9 @@
 """The PQ asymmetric-distance scan: a wrapper over ``csrc/pq_scan.cu``.
 
-Counterpart of ``clipx/ops/pq_scan.py::pq_scan_scores``. For packed codes
+Counterpart of ``clipx/ops/pq_scan.py::pq_scan_scores``, and like it a
+one-hot product: the CUDA kernel builds each 64-row tile's one-hot in
+registers and multiplies it by the LUT on the tensor cores (mma.sync, s8 x
+s8 -> s32), as the Pallas kernel did on the MXU. For packed codes
 (N, M/2) int8 in the split nibble layout (byte j = subspace j low, subspace
 j + M/2 high; unsigned nibbles) and an integer-valued LUT (M*16, Q), row
 m*16 + c, it returns the (Q, N) f32 scores
@@ -26,8 +29,9 @@ from clipx_torch.ops._launch import (I, P, c_fn, check_cuda, kernel_device,
                                      launch)
 
 PQ_K = 16
-MAX_Q = 16              # queries per call (the kernel's register tile)
+MAX_Q = 16              # queries per call (the kernel's two n8 blocks)
 _PLAIN_CHUNK = 1 << 16  # rows per one-hot product in the plain version
+_ROW_ALIGN = 8          # code bytes the kernel loads at a time
 
 
 def unpack_codes4(packed: torch.Tensor) -> torch.Tensor:
@@ -110,11 +114,16 @@ def pq_scan_scores(packed: torch.Tensor, lut_t: torch.Tensor) -> torch.Tensor:
         return pq_scan_scores_plain(packed, lut_t)
     device = kernel_device(name, packed)
     lut8 = lut_t.to(torch.int8).contiguous()
+    # the kernel reads code rows 8 bytes at a time: a half that is not a
+    # multiple of 8 is padded with zero bytes, whose LUT rows it zeroes
+    pitch = -(-half // _ROW_ALIGN) * _ROW_ALIGN
+    if pitch != half:
+        packed = torch.nn.functional.pad(packed, (0, pitch - half))
     check_cuda(name, torch.int8, device, packed=packed, lut_t=lut8)
     out = torch.empty((q, n), dtype=torch.float32, device=device)
     if n == 0:
         return out
-    fn = c_fn("pq_scan", "clipx_pq_scan", [P, P, P, I, I, I, P])
+    fn = c_fn("pq_scan", "clipx_pq_scan", [P, P, P, I, I, I, I, P])
     launch(name, fn, device, packed.data_ptr(), lut8.data_ptr(),
-           out.data_ptr(), n, half, q)
+           out.data_ptr(), n, half, pitch, q)
     return out

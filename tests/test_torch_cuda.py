@@ -375,31 +375,51 @@ def test_search_on_the_card_matches_the_cpu(cuda_device, quantized):
                           ).cpu(), teng._int8_scores(codes, q_codes))
 
 
-# B11: N not a multiple of the 256-row tile in most cases; half = M/2 of 128
-# and 64 (D = 512 at dsub 2 and 4, the path's shapes), 16 (16-byte loads)
-# and 8 (the byte-load branch)
-@pytest.mark.parametrize("lut_dtype", [torch.int8, torch.bfloat16])
-@pytest.mark.parametrize("n,half,q", [(4096 + 37, 128, 16), (4096, 128, 1),
-                                      (1000, 64, 3), (70_001, 64, 16),
-                                      (513, 16, 4), (300, 8, 16)])
-def test_pq_scan_kernel_matches_plain_bitwise(cuda_device, lut_dtype, n,
-                                              half, q):
-    """Integer sums: the kernel and its plain version agree bitwise."""
-    rng = np.random.default_rng(n + half + q)
+# B11: row counts around the 64-row warp tile and a ragged corpus, halves
+# that are and are not multiples of the kernel's 8-byte loads (up to D =
+# 1024 at dsub 2), 1 to 16 queries (one and two n8 blocks), int8 and
+# integer bf16 LUTs
+@pytest.mark.parametrize("half", [8, 24, 64, 128, 256])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1_000_037])
+def test_pq_scan_kernel_matches_plain_bitwise(cuda_device, n, half):
+    """Integer sums: the kernel and its plain version agree bitwise, for Q
+    in {1, 3, 8, 9, 16} and both LUT types (and the CPU's plain version too,
+    at the small row counts)."""
+    rng = np.random.default_rng(n + half)
     packed = torch.from_numpy(rng.integers(-128, 128, (n, half),
                                            dtype=np.int8)).to(cuda_device)
-    lut = torch.from_numpy(rng.integers(-127, 128, (half * 32, q),
-                                        dtype=np.int8)).to(cuda_device)
-    lut = lut.to(lut_dtype)
-    before = tps.LAUNCHES["pq_scan_scores"]
-    out = tpq_scan.pq_scan_scores(packed, lut)
-    assert tps.LAUNCHES["pq_scan_scores"] == before + 1
-    ref = tpq_scan.pq_scan_scores_plain(packed, lut)
-    torch.cuda.synchronize()
-    assert out.shape == (q, n) and out.dtype == torch.float32
-    assert torch.equal(out, ref)
-    assert torch.equal(out.cpu(), tpq_scan.pq_scan_scores(packed.cpu(),
-                                                          lut.cpu()))
+    for q in (1, 3, 8, 9, 16):
+        lut8 = torch.from_numpy(rng.integers(-127, 128, (half * 32, q),
+                                             dtype=np.int8)).to(cuda_device)
+        for lut in (lut8, lut8.to(torch.bfloat16)):
+            before = tps.LAUNCHES["pq_scan_scores"]
+            out = tpq_scan.pq_scan_scores(packed, lut)
+            assert tps.LAUNCHES["pq_scan_scores"] == before + 1
+            ref = tpq_scan.pq_scan_scores_plain(packed, lut)
+            torch.cuda.synchronize()
+            assert out.shape == (q, n) and out.dtype == torch.float32
+            assert torch.equal(out, ref), (q, lut.dtype)
+            if n < 1000:
+                assert torch.equal(out.cpu(), tpq_scan.pq_scan_scores(
+                    packed.cpu(), lut.cpu()))
+
+
+@pytest.mark.parametrize("half", [24, 256])
+@pytest.mark.parametrize("n", [65, 1_000_037])
+def test_pq_scan_kernel_extreme_sums(cuda_device, n, half):
+    """All-0 and all-15 nibbles against +-127 LUTs: every score is the
+    extreme sum +-127 * M, exactly, as in the plain version."""
+    for byte in (0, -1):
+        packed = torch.full((n, half), byte, dtype=torch.int8,
+                            device=cuda_device)
+        for v in (127, -127):
+            lut = torch.full((half * 32, 16), v, dtype=torch.int8,
+                             device=cuda_device)
+            out = tpq_scan.pq_scan_scores(packed, lut)
+            ref = tpq_scan.pq_scan_scores_plain(packed, lut)
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref)
+            assert bool((out == v * 2 * half).all())
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "int8", "int4", "pq"])
@@ -476,15 +496,19 @@ def test_fused_mlp_matches_plain(cuda_device, rows, w, h, quick):
                                atol=ATOL)
 
 
-# B6 at the same image-MLP shapes and a narrow one
+# B6 at the same image-MLP shapes and a narrow one, with and without the
+# K-major weight copies that quantize_mlp_stack makes
+@pytest.mark.parametrize("kmajor", [True, False])
 @pytest.mark.parametrize("quick", [True, False])
 @pytest.mark.parametrize("rows,w,h", [(99, 768, 3072), (640, 768, 3072),
                                       (64, 128, 512)])
-def test_fused_mlp_w8a8_matches_plain(cuda_device, rows, w, h, quick):
+def test_fused_mlp_w8a8_matches_plain(cuda_device, rows, w, h, quick,
+                                      kmajor):
     """The first stage's int8 codes and row scales bitwise; the output
     within 1e-2 of max|ref| (clipx's fused-versus-unfused bound: an
     activation a few ulps off can round a requantized code the other
-    way)."""
+    way); the wrapper gives the same output with the copies as without,
+    and transposes the weights itself only without them."""
     gen = torch.Generator().manual_seed(rows + w + quick + 1)
     x = _bf(gen, cuda_device, rows, w)
     w1, b1, w2, b2 = _mlp_weights(gen, cuda_device, w, h)
@@ -492,8 +516,10 @@ def test_fused_mlp_w8a8_matches_plain(cuda_device, rows, w, h, quick):
     cpu_q, cpu_s = tquant.quantize_weight(w1.cpu())  # the same bits
     assert torch.equal(w1_q.cpu(), cpu_q) and torch.equal(s1.cpu(), cpu_s)
     args = (w1_q, s1, b1, w2_q, s2, b2)
+    copies = {"w1_qt": w1_q.T.contiguous(), "w2_qt": w2_q.T.contiguous()}
     before = tps.LAUNCHES["fused_mlp_w8a8"]
-    out, xq, xs = tps.launch_mlp_w8a8(x, *args, quick=quick)
+    out, xq, xs = tps.launch_mlp_w8a8(x, copies["w1_qt"], s1, b1,
+                                      copies["w2_qt"], s2, b2, quick=quick)
     assert tps.LAUNCHES["fused_mlp_w8a8"] == before + 1
     ref = tps.fused_mlp_w8a8_plain(x, *args, quick=quick)
     ref_q, ref_s = tquant.quantize_rows(x.float())
@@ -502,7 +528,11 @@ def test_fused_mlp_w8a8_matches_plain(cuda_device, rows, w, h, quick):
     assert out.dtype == torch.bfloat16 and out.shape == x.shape
     err = float((out.float() - ref.float()).abs().max())
     assert err <= 1e-2 * float(ref.float().abs().max())
-    assert torch.equal(tps.fused_mlp_w8a8(x, *args, quick=quick), out)
+    transposes = tps.W8A8_WEIGHT_COPIES["calls"]
+    again = tps.fused_mlp_w8a8(x, *args, quick=quick,
+                               **(copies if kmajor else {}))
+    assert torch.equal(again, out)
+    assert tps.W8A8_WEIGHT_COPIES["calls"] == transposes + (not kmajor)
 
 
 @pytest.mark.parametrize("b,s,w,heads", [(2, 50, 768, 12), (128, 50, 768, 12),
@@ -553,19 +583,26 @@ def test_sm90_gemm_tile_widths_match_plain(cuda_device, bn):
     torch.testing.assert_close(out.float(), ref.float(), rtol=RTOL, atol=ATOL)
 
 
-def _kernel_names(fn) -> list:
-    """The CUDA kernels one call of fn launches, by torch.profiler."""
+def _kernel_names(fn, tries: int = 3) -> list:
+    """The CUDA kernels one call of fn launches, by torch.profiler. A
+    session that records no device kernel at all is repeated, up to tries
+    sessions, as chip_smoke.py repeats its own: on the H100 such a session
+    has come back empty for kernels that the same code profiled before."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+    return []
 
 
 @pytest.mark.parametrize("kernel", ["fused_mlp", "fused_sdpa_long_qkv"])
@@ -612,6 +649,39 @@ def test_mlp_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         tps.fused_attn_sublayer(x.float().reshape(2, 32, 128), ln, ln,
                                 w1[:, :384], b1[:384], w1[:, :128], b2,
                                 heads=2)
+
+
+@pytest.mark.parametrize("kernel", ["fused_mlp_w8a8", "pq_scan_scores"])
+def test_b6_and_b11_launch_only_their_redesigned_kernels(cuda_device, kernel):
+    """B6 launches its two row quantizers and two TMA + wgmma int8 GEMMs
+    (gemm_s8_sm90_kernel), B11 its one-hot scan (pq_scan_onehot_kernel), and
+    nothing else: no retired kernel (the mma.sync gemm_s8_kernel, the
+    lane-packed pq_scan_kernel<QW>) and no library GEMM (_int_mm, cuBLAS,
+    CUTLASS)."""
+    gen = torch.Generator().manual_seed(9)
+    if kernel == "fused_mlp_w8a8":
+        x = _bf(gen, cuda_device, 640, 768)
+        w1, b1, w2, b2 = _mlp_weights(gen, cuda_device, 768, 3072)
+        (w1_q, s1), (w2_q, s2) = (tquant.quantize_weight(w1),
+                                  tquant.quantize_weight(w2))
+        kw = {"w1_qt": w1_q.T.contiguous(), "w2_qt": w2_q.T.contiguous()}
+        names = _kernel_names(lambda: tps.fused_mlp_w8a8(
+            x, w1_q, s1, b1, w2_q, s2, b2, **kw))
+        want = {"quant_rows_kernel": 2, "gemm_s8_sm90_kernel": 2}
+    else:
+        packed = torch.randint(-128, 128, (4096 + 37, 128), generator=gen,
+                               dtype=torch.int8).to(cuda_device)
+        lut = torch.randint(-127, 128, (128 * 32, 16), generator=gen,
+                            dtype=torch.int8).to(cuda_device)
+        names = _kernel_names(lambda: tpq_scan.pq_scan_scores(packed, lut))
+        want = {"pq_scan_onehot_kernel": 1}
+    if not names:
+        pytest.fail("torch.profiler saw no CUDA kernel")
+    banned = ("gemm_s8_kernel", "pq_scan_kernel<", "_int_mm", "cublas",
+              "cutlass", "gemmk", "sm90_xmma")
+    assert not any(b in n.lower() for n in names for b in banned), names
+    got = {key: sum(key in n for n in names) for key in want}
+    assert got == want and len(names) == sum(want.values()), names
 
 
 @pytest.mark.parametrize("kernel", ["packed_sdpa", "packed_sdpa_rows",

@@ -303,6 +303,74 @@ def test_cuda_kernel_path_raises_without_a_gpu(monkeypatch):
         tps._launch_sdpa("packed_sdpa", q, q, q, 2)
 
 
+def _capture_launch(monkeypatch, module):
+    """Sends ``module``'s kernel path to a recorder on meta tensors: the
+    tensors it checks and the arguments it would launch with."""
+    seen = {"checked": {}, "launch": None}
+    monkeypatch.setattr(module, "kernel_device", lambda name, t: t.device)
+    monkeypatch.setattr(module, "check_cuda", lambda name, dtype, device, **
+                        ts: seen["checked"].update(ts))
+    monkeypatch.setattr(module, "c_fn", lambda *a: None)
+    monkeypatch.setattr(module, "launch",
+                        lambda name, fn, device, *a: seen.update(launch=a))
+    return seen
+
+
+@pytest.mark.parametrize("half", [1, 8, 12, 24, 128])
+def test_pq_scan_launch_pads_rows_to_the_kernels_loads(monkeypatch, half):
+    """The kernel reads code rows 8 bytes at a time: the wrapper hands it
+    rows padded with zeros to a multiple of 8 (the pitch), and the real
+    half for the LUT's subspaces."""
+    from clipx_torch.ops import pq_scan as tpq
+
+    seen = _capture_launch(monkeypatch, tpq)
+    n, q = 70, 9
+    out = tpq.pq_scan_scores(torch.empty((n, half), dtype=torch.int8,
+                                         device="meta"),
+                             torch.empty((half * 32, q), device="meta",
+                                         dtype=torch.bfloat16))
+    pitch = -(-half // 8) * 8
+    assert tuple(out.shape) == (q, n)
+    assert tuple(seen["checked"]["packed"].shape) == (n, pitch)
+    assert seen["checked"]["lut_t"].dtype == torch.int8
+    assert seen["launch"][3:] == (n, half, pitch, q)
+
+
+@pytest.mark.parametrize("given", [True, False])
+def test_fused_mlp_w8a8_launches_on_kmajor_weights(monkeypatch, given):
+    """The W8A8 kernel reads (N, K) weights: the wrapper passes the copies
+    it is given untouched, or makes them itself (counted in
+    W8A8_WEIGHT_COPIES); launch_mlp_w8a8 refuses copies of another shape."""
+    seen = _capture_launch(monkeypatch, tps)
+    w = 128
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, device="meta", dtype=dtype)
+
+    x = meta(2, 17, w, dtype=torch.bfloat16)
+    w1_q, w2_q = meta(w, 4 * w, dtype=torch.int8), meta(4 * w, w,
+                                                        dtype=torch.int8)
+    w1_qt, w2_qt = meta(4 * w, w, dtype=torch.int8), meta(w, 4 * w,
+                                                          dtype=torch.int8)
+    copies = dict(tps.W8A8_WEIGHT_COPIES)
+    kw = {"w1_qt": w1_qt, "w2_qt": w2_qt} if given else {}
+    out = tps.fused_mlp_w8a8(x, w1_q, meta(4 * w), meta(4 * w), w2_q,
+                             meta(w), meta(w), **kw)
+    assert tuple(out.shape) == tuple(x.shape)
+    assert tps.W8A8_WEIGHT_COPIES["calls"] == copies["calls"] + (not given)
+    got = seen["checked"]
+    assert tuple(got["w1_qt"].shape) == (4 * w, w)
+    assert tuple(got["w2_qt"].shape) == (w, 4 * w)
+    assert (got["w1_qt"] is w1_qt) == given
+    assert (got["w2_qt"] is w2_qt) == given
+    assert seen["launch"][13:] == (34, w, 4 * w, 1,
+                                   tps.gemm_tile_n_mn(34, 4 * w),
+                                   tps.gemm_tile_n_mn(34, w))
+    with pytest.raises(ValueError, match="w1_qt"):
+        tps.launch_mlp_w8a8(x.reshape(-1, w), w1_q, meta(4 * w), meta(4 * w),
+                            w2_q, meta(w), meta(w), quick=True)
+
+
 @pytest.mark.parametrize("heads", [1, 2, 3, 5, 12, 16, 20])
 def test_gemm_tile_n_covers_every_width(heads):
     """The out projection's tile width divides N = heads * 64 and is one of
@@ -461,7 +529,8 @@ def test_sdpa_launcher_refuses_what_tma_cannot_take(monkeypatch):
 def test_build_sources_are_the_cuda_files():
     """``_build.SOURCES`` names every csrc/*.cu and nothing else, and every
     quoted ``#include`` of a csrc file names a header that exists (the
-    retired short_sdpa.cuh and long_sdpa.cu are gone with their users)."""
+    retired short_sdpa.cuh, long_sdpa.cu, gemm.cuh and gemm_s8.cuh are gone
+    with their users)."""
     import os
     import re
 
@@ -469,7 +538,8 @@ def test_build_sources_are_the_cuda_files():
 
     files = os.listdir(_build.CSRC_DIR)
     assert set(_build.SOURCES) == {f[:-3] for f in files if f.endswith(".cu")}
-    assert not {"short_sdpa.cu", "short_sdpa.cuh", "long_sdpa.cu"} & set(files)
+    assert not {"short_sdpa.cu", "short_sdpa.cuh", "long_sdpa.cu", "gemm.cuh",
+                "gemm_s8.cuh"} & set(files)
     for f in files:
         with open(os.path.join(_build.CSRC_DIR, f)) as fh:
             for inc in re.findall(r'#include\s+"([^"]+)"', fh.read()):

@@ -60,7 +60,9 @@ def _same_results(ref, ours, queries, k):
 # -- (a) B11's plain version against the Pallas kernel -----------------------
 
 @pytest.mark.parametrize("lut_dtype", ["int8", "bf16"])
-@pytest.mark.parametrize("n,dim,q", [(256, 64, 4), (2048, 32, 16)])
+@pytest.mark.parametrize("n,dim,q", [(256, 64, 4), (2048, 32, 16),
+                                     (256, 96, 1), (512, 48, 8),
+                                     (256, 40, 9), (256, 96, 16)])
 def test_plain_scan_matches_pallas_bitwise(n, dim, q, lut_dtype):
     rng = np.random.default_rng(n + dim + q)
     half = dim // 2 // 2

@@ -130,9 +130,66 @@ def test_fused_mlp_w8a8_plain_matches_pallas(quick):
                                         jnp.asarray(b1), w2_q, s2,
                                         jnp.asarray(b2), quick=quick,
                                         interpret=True))
-    out = tps.fused_mlp_w8a8(*_t(x, w1_q, s1, b1, w2_q, s2, b2),
-                             quick=quick).numpy()
+    args = _t(x, w1_q, s1, b1, w2_q, s2, b2)
+    out = tps.fused_mlp_w8a8(*args, quick=quick).numpy()
     assert np.abs(out - ref).max() / np.abs(ref).max() < 1e-3
+    # the plain version ignores the kernel's K-major weight copies
+    kmajor = tps.fused_mlp_w8a8(*args, quick=quick,
+                                w1_qt=args[1].T.contiguous(),
+                                w2_qt=args[4].T.contiguous()).numpy()
+    np.testing.assert_array_equal(kmajor, out)
+
+
+@pytest.mark.parametrize("layers", [None, 3])
+def test_quantize_mlp_stack_makes_kmajor_copies(layers):
+    """quantize_mlp_stack's w1_qt / w2_qt, the fused W8A8 kernel's K-major
+    weights, are w1_q / w2_q transposed over their last two axes, bitwise
+    and contiguous, for one layer and for a layer stack; the rest of the
+    group is clipx's."""
+    rng = np.random.default_rng(7)
+    lead = () if layers is None else (layers,)
+    mlp = {"w1": rng.normal(size=lead + (W, H)).astype(np.float32),
+           "b1": rng.normal(size=lead + (H,)).astype(np.float32),
+           "w2": rng.normal(size=lead + (H, W)).astype(np.float32),
+           "b2": rng.normal(size=lead + (W,)).astype(np.float32)}
+    q = tquant.quantize_mlp_stack({k: torch.from_numpy(v)
+                                   for k, v in mlp.items()})
+    ref = jquant.quantize_mlp_stack(mlp)
+    assert set(q) == set(ref) | {"w1_qt", "w2_qt"}
+    for key in ref:
+        np.testing.assert_array_equal(q[key].numpy(), np.asarray(ref[key]))
+    for i, shape in ((1, (H, W)), (2, (W, H))):
+        qt = q[f"w{i}_qt"]
+        assert qt.dtype == torch.int8 and qt.is_contiguous()
+        assert tuple(qt.shape) == lead + shape
+        assert torch.equal(qt, q[f"w{i}_q"].transpose(-1, -2))
+
+
+def test_mlp_block_passes_the_kmajor_copies(monkeypatch):
+    """Under CLIPX_FUSED_MLP_INT8=on mlp_block hands fused_mlp_w8a8 the
+    copies quantize_mlp_stack made (no per-call transpose), and None for a
+    group without them."""
+    from clipx_torch.models import layers as tlayers
+
+    monkeypatch.setenv("CLIPX_FUSED_MLP_INT8", "on")
+    seen = []
+
+    def record(x, *args, **kw):
+        seen.append(kw)
+        return x
+
+    monkeypatch.setattr(tps, "fused_mlp_w8a8", record)
+    rng = np.random.default_rng(8)
+    p = tquant.quantize_mlp_stack({
+        "w1": torch.from_numpy(rng.normal(size=(W, H)).astype(np.float32)),
+        "b1": torch.zeros(H), "w2": torch.from_numpy(
+            rng.normal(size=(H, W)).astype(np.float32)), "b2": torch.zeros(W)})
+    x = torch.zeros((2, 3, W))
+    tlayers.mlp_block(x, p, True)
+    assert seen[-1]["w1_qt"] is p["w1_qt"] and seen[-1]["w2_qt"] is p["w2_qt"]
+    tlayers.mlp_block(x, {k: v for k, v in p.items()
+                          if not k.endswith("_qt")}, True)
+    assert seen[-1]["w1_qt"] is None and seen[-1]["w2_qt"] is None
 
 
 @pytest.mark.parametrize("b,s", [(2, 50), (4, 17)])
