@@ -42,6 +42,17 @@ these phases, printing one JSON line per phase:
 7. profile  — torch.profiler over two 128-image encodes: device time by
               kernel name, and the card's busy share of the host's wall
               per batch without the profiler (and with it).
+   ivf      — --search-mode ivf (clipx_torch/search/ivf.py) on phase 5's
+              corpus: k-means seconds on the card, twice (one layout
+              digest); install seconds and, at nprobe 1, 32 and 100, search
+              p50 at Q = 1 and 16, recall@50 and a Q = 1 profile for f32
+              (quantized, and unquantized, whose nprobe-100 ids must be
+              phase 5's exact ids), and int8, int4 and non-residual pq
+              installed from phase 6's codes files; residual pq (the
+              default) on the last 262,144 rows. B11 once per query and
+              probed chunk, its device ms per search, pq_scan_scores_plain
+              refused; B11 bitwise against plain on probed chunks, beside
+              the flat scan's device ms.
    int8     — --compute int8 at ViT-B/32: 1,024 images and a batch of 1
               with CLIPX_FUSED_MLP_INT8=on (fused_mlp_w8a8, on the K-major
               weight copies made at quantization: no per-call transpose)
@@ -64,12 +75,14 @@ these phases, printing one JSON line per phase:
               call with its launch counts checked.
 9. cli      — build_index and a scripted query_index REPL at ViT-B/32 on a
               few fixture images, then the same with --corpus-dtype pq,
+              with --corpus-dtype pq --search-mode ivf (and a restart that
+              loads its codes and .ivf),
               with --compute int8 (CLIPX_FUSED_MLP_INT8=on), then both at
               --model ViT-L/14@336px (only when PIL or cv2 imports).
 
 Phases 3-6 are the main path of ViT-B/32 (which must launch none of the
-opt-in kernels B5-B7), phases int8 and fused its opt-in routes, phase 8
-the long towers' path: every launch count is set to 0 just before each
+opt-in kernels B5-B7), phase ivf the IVF path (B11 only), phases int8 and
+fused its opt-in routes, phase 8 the long towers' path: every launch count is set to 0 just before each
 and read just after it, and every kernel must have been launched on one
 of them. Then one line gives each phase's seconds, one lists every kernel
 ({"kernels": [...]}) with the sum of those counts, and one the card's
@@ -146,7 +159,8 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 5) -> float:
     return statistics.median(times)
 
 
-# profiler sessions that saw no device kernel and were repeated
+# profiler sessions that saw no device kernel (or, in _per_launch, lost
+# some of a call's kernels) and were repeated
 EMPTY_PROFILES = []
 PROFILE_TRIES = 3
 # names of kernels whose sources are gone: the FMA short SDPA and the
@@ -494,11 +508,19 @@ def _per_launch(fn, flops: dict, roles: str = "attn_block",
     achieved TFLOP/s of the useful operations in ``flops`` (and of the
     padded ones where given), and each GEMM's tile width. Fails if the call
     launches any other kernel, misses a role in ``required``, or launches a
-    role's kernel more than once."""
+    role's kernel more than once. A session that recorded a role's kernel
+    in fewer than every call (the profiler lost events: seen on the H100)
+    is repeated like an empty one, up to PROFILE_TRIES sessions."""
     fn()
     torch.cuda.synchronize()
-    kernels, _ = _profiled(fn, iters)
     table = SM90_ROLES[roles]
+    for attempt in range(PROFILE_TRIES):
+        kernels, _ = _profiled(fn, iters)
+        found = [sum(n for name, _, n in kernels if re.search(pattern, name))
+                 for _, pattern in table]
+        if all(n == 0 or n > 1 - 1e-6 for n in found):
+            break
+        EMPTY_PROFILES.append(f"{roles}: partial session")
     out = {}
     for role, pattern in table:
         hits = [(name, t, n) for name, t, n in kernels
@@ -1386,7 +1408,7 @@ def corpus_search(stored: np.ndarray, device, dim: int) -> dict:
             "quant_rows_near_dup_exception": int((~same).sum()),
             "max_abs_score_diff": float(np.abs(Dq - De).max())}
     quant.quantized = False
-    return {"index": exact, "queries": queries, "ids": Ie,
+    return {"index": exact, "queries": queries, "ids": Ie, "scores": De,
             "picks": picks.cpu().numpy(), "info": info}
 
 
@@ -1444,7 +1466,7 @@ def phase_coded(search: dict, device) -> dict:
 
     exact, queries = search["index"], search["queries"]
     exact_ids, picks = search["ids"], search["picks"]
-    rows = exact.vectors()
+    rows = search["rows"] = exact.vectors()  # phase ivf's corpus too
     total = rows.shape[0]
     del exact, search["index"]
     torch.cuda.empty_cache()
@@ -1507,6 +1529,15 @@ def phase_coded(search: dict, device) -> dict:
                   and np.array_equal(D, results[tier][0]),
                   f"{tier}: codes-only boot searches differently")
             del idx
+        # phase ivf installs these codes into its IVF layout
+        search["payloads"] = {}
+        for tier in CODED_TIERS:
+            payload = codes_io.load_codes(path(tier), tier, rotated=True,
+                                          orphan=True)
+            for key in ("codes", "scales"):
+                if payload[key] is not None:
+                    payload[key] = np.array(payload[key])
+            search["payloads"][tier] = payload
     torch.cuda.empty_cache()
     info = {"phase": "coded", "rows": total, "dim": DIM, "k": K,
             "queries": NQ, "tiers": tiers,
@@ -1557,6 +1588,251 @@ def _capacity_scan(device) -> dict:
     del idx
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase: IVF search (--search-mode ivf)
+# ---------------------------------------------------------------------------
+
+IVF_NPROBES = (1, 32, 100)
+# the residual IVF-PQ leg's corpus: the last IVF_PQ_ROWS rows of phase
+# search's corpus (the encoded images among them). Its encode (trained OPQ
+# on the residuals, then every row, on the host) takes 2 minutes here and
+# about 3 at all 1,001,024 rows; PERF.md lists the cut. The other coded
+# legs install phase coded's codes files at full size
+IVF_PQ_ROWS = 262_144
+# timed searches a p50, by query count: a fixed number, so the B11 launch
+# totals repeat from run to run (the slowest search, int4 at nprobe 100
+# and Q = 16, took under 0.1 s)
+IVF_REPS = {1: 20, NQ: 10}
+# scores closer than this are ties up to f32 summation order (a few ulps)
+TIE = 2e-6
+
+
+def _same_ranking(D, I, De, Ie) -> bool:
+    """(D, I) equal to (De, Ie): scores within 1e-5, ids identical except
+    within a run of reference scores closer than TIE (the same set there;
+    a run that reaches rank k may end in other rows of the same score)."""
+    if D.shape != De.shape or not np.allclose(D, De, atol=1e-5, rtol=0):
+        return False
+    k = Ie.shape[1]
+    for d, ours, ref in zip(De, I, Ie):
+        start = 0
+        while start < k:
+            end = start + 1
+            while end < k and d[end - 1] - d[end] <= TIE:
+                end += 1
+            if end - start == 1:
+                if ours[start] != ref[start]:
+                    return False
+            elif end < k and set(ours[start:end]) != set(ref[start:end]):
+                return False
+            start = end
+    return True
+
+
+@contextlib.contextmanager
+def _no_plain_pq_scan():
+    """pq_scan_scores_plain raises inside the block: on the card every
+    chunk of the IVF-PQ probe must run B11's kernel."""
+    from clipx_torch.ops import pq_scan as pqs
+
+    plain = pqs.pq_scan_scores_plain
+
+    def refuse(*args, **kwargs):
+        raise Failed("the IVF path called pq_scan_scores_plain on the card")
+
+    pqs.pq_scan_scores_plain = refuse
+    try:
+        yield
+    finally:
+        pqs.pq_scan_scores_plain = plain
+
+
+def _ivf_leg(idx, queries, exact_ids) -> dict:
+    """For each nprobe: the probe bucket P, search p50 at Q = 1 and 16,
+    recall@50 of the 16 queries against exact_ids, and torch.profiler over
+    5 searches at Q = 1 (device ms, busy share of the p50, and for pq the
+    B11 launches and their device ms). For pq, B11 must launch once per
+    (query, probed chunk). Each nprobe's seconds go to stderr."""
+    from clipx_torch.ops import packed_sdpa as ps
+    from clipx_torch.search import ivf as tivf
+
+    out = {}
+    t_leg = time.perf_counter()
+    for nprobe in IVF_NPROBES:
+        idx.nprobe = nprobe
+        P = idx.probe_bucket(K)
+        r = {"P": P}
+        if idx.pq_storage:
+            r["chunks"] = -(-P // tivf._pq_chunk_segs(P, 64))
+        for nq in (1, NQ):
+            before = ps.LAUNCHES["pq_scan_scores"]
+            D, I = idx.search(queries[:nq], K)
+            b11 = ps.LAUNCHES["pq_scan_scores"] - before
+            if idx.pq_storage:
+                check(b11 == nq * r["chunks"],
+                      f"IVF-PQ nprobe {nprobe} Q={nq}: B11 launched {b11} "
+                      f"times, expected {nq * r['chunks']} (one per query "
+                      "and probed chunk)")
+                r[f"b11_launches_q{nq}"] = b11
+            else:
+                check(b11 == 0, f"IVF {idx.dtype} launched B11")
+            times = []
+            for _ in range(IVF_REPS[nq]):
+                t0 = time.perf_counter()
+                idx.search(queries[:nq], K)
+                times.append(time.perf_counter() - t0)
+            r[f"p50_ms_q{nq}"] = statistics.median(times) * 1e3
+        check(I.shape == (NQ, K) and bool((I >= 0).all())
+              and bool(np.isfinite(D).all())
+              and bool((np.diff(D, axis=1) <= 0).all()),
+              f"IVF {idx.dtype} nprobe {nprobe}: bad results")
+        r["recall_at_50"] = float(np.mean(
+            [len(set(a) & set(b)) / K for a, b in zip(I, exact_ids)]))
+        kernels, _ = _profiled(lambda: idx.search(queries[:1], K), 5)
+        r["device_ms_q1"] = sum(ms for _, ms, _ in kernels)
+        r["device_busy_share_q1"] = r["device_ms_q1"] / r["p50_ms_q1"]
+        if idx.pq_storage:
+            b11 = [(ms, n) for name, ms, n in kernels if "pq_scan" in name]
+            r["b11_device_ms_q1"] = sum(ms for ms, _ in b11)
+            r["b11_kernel_calls_q1"] = sum(n for _, n in b11)
+        r["top_kernels_q1"] = [{"name": name[:60], "ms": ms, "calls": n}
+                               for name, ms, n in kernels[:3]]
+        out[str(nprobe)] = r
+        print(f"[ivf] {idx.dtype} nprobe {nprobe}: "
+              f"{time.perf_counter() - t_leg:.1f} s", file=sys.stderr,
+              flush=True)
+    return out
+
+
+def _ivf_probe_chunks(idx, queries, device) -> dict:
+    """B11 against its plain version, bitwise, on every probed chunk of
+    query 0 at nprobe 100 (the probe's own (rows, M/2) gathers: dead
+    padding rows of ragged segments, and a ragged last chunk where the
+    segment count leaves one), the device ms of one full chunk, and of the
+    flat scan of all idx's rows at Q = 1."""
+    from clipx_torch.ops import pq_scan as pqs
+    from clipx_torch.search import ivf as tivf
+    from clipx_torch.search import pq as pq_lib
+    from clipx_torch.search.engine import rotate_rows
+
+    P = idx.probe_bucket(K, 100)
+    pc = tivf._pq_chunk_segs(P, 64)
+    with torch.inference_mode():
+        q1 = torch.from_numpy(rotate_rows(queries[:1], idx._rot)).to(device)
+        _, seg_idx = tivf._coarse(q1, idx._seg_cent, P)
+        _, luti, _ = pq_lib.quantized_luts(q1, idx._pq.device(device))
+        col = luti[0][:, None]
+        ragged = False
+        for s0 in range(0, P, pc):
+            cs = seg_idx[0, s0: s0 + pc]
+            chunk = idx._codes3[cs].reshape(len(cs) * 64, -1)
+            ragged |= not bool(idx._valid2[cs].all())
+            out = pqs.pq_scan_scores(chunk, col)
+            ref = pqs.pq_scan_scores_plain(chunk, col)
+            torch.cuda.synchronize()
+            check(torch.equal(out, ref), f"B11 differs from plain on IVF "
+                  f"chunk {s0 // pc}: max err "
+                  f"{float((out - ref).abs().max())}")
+        check(ragged, "no checked IVF chunk held a ragged segment")
+        first = idx._codes3[seg_idx[0, :pc]].reshape(pc * 64, -1)
+        flat = idx._codes3.reshape(-1, idx._codes3.shape[-1])
+        return {"P": P, "chunk_rows": pc * 64, "chunks": -(-P // pc),
+                "last_chunk_rows": (P - (P - 1) // pc * pc) * 64,
+                "bitwise": True, "ragged_segment_checked": ragged,
+                "chunk_b11_device_ms": device_ms(
+                    lambda: pqs.pq_scan_scores(first, col)),
+                "flat_rows": flat.shape[0],
+                "flat_b11_device_ms_q1": device_ms(
+                    lambda: pqs.pq_scan_scores(flat, col))}
+
+
+def phase_ivf(search: dict, device) -> dict:
+    """IVF search (clipx_torch/search/ivf.py) on phase search's corpus:
+    k-means on the card (twice: the same layout digest), the layout saved
+    as an .ivf cache, then through that cache f32 (IVFIndex.from_vectors,
+    quantized, as --search-mode ivf makes it from 100k rows; unquantized at
+    nprobe 100 it must return phase search's exact ids), and int8, int4
+    and non-residual pq from phase coded's codes files
+    (IVFIndex.from_codes, the codes-file start). Residual pq, the default,
+    on the last IVF_PQ_ROWS rows, against a flat exact search of those
+    rows. Each leg through _ivf_leg, with pq_scan_scores_plain refused.
+    Returns the info and the launch counts of these searches; the
+    B11-versus-plain checks of _ivf_probe_chunks run after the counts are
+    read."""
+    from clipx_torch.ops import packed_sdpa as ps
+    from clipx_torch.search import ivf as tivf
+    from clipx_torch.search.engine import VectorIndex
+
+    rows, queries = search["rows"], search["queries"]
+    exact_D, exact_ids = search["scores"], search["ids"]
+    info = {"phase": "ivf", "rows": rows.shape[0], "dim": rows.shape[1],
+            "k": K, "queries": NQ, "residual_pq_rows": IVF_PQ_ROWS}
+    tiers = {}
+    with tempfile.TemporaryDirectory() as tmp, _no_plain_pq_scan():
+        t0 = time.perf_counter()
+        assign, _ = tivf.train_clusters(rows, device=device)
+        info["kmeans_s"] = time.perf_counter() - t0
+        layout = tivf.cluster_layout(assign)
+        digest = tivf.layout_digest(layout)
+        again = tivf.train_clusters(rows, device=device)[0]
+        check(tivf.layout_digest(tivf.cluster_layout(again)) == digest,
+              "two k-means builds on the card gave two layouts")
+        info.update(clusters=int(assign.max()) + 1,
+                    segments=len(layout) // 64, layout_digest=digest.hex(),
+                    two_builds_one_layout=True)
+        cache = os.path.join(tmp, "images.index.ivf")
+        t0 = time.perf_counter()
+        tivf._save_cache(cache, rows, layout)
+        info["cache_save_s"] = time.perf_counter() - t0
+        for tier in ("f32", "int8", "int4", "pq"):
+            t0 = time.perf_counter()
+            if tier == "f32":
+                idx = tivf.IVFIndex.from_vectors(rows, quantized=True,
+                                                 cache_path=cache,
+                                                 device=device)
+            else:  # phase coded's flat (for pq: non-residual) codes
+                idx = tivf.IVFIndex.from_codes(search["payloads"][tier],
+                                               cache, quantized=True,
+                                               device=device)
+            torch.cuda.synchronize()
+            install_s = time.perf_counter() - t0
+            check(idx is not None and np.array_equal(idx._row_ext, layout),
+                  f"IVF {tier}: the .ivf cache did not load")
+            tiers[tier] = {"install_s": install_s,
+                           **_ivf_leg(idx, queries, exact_ids)}
+            if tier == "f32":
+                idx.quantized = False
+                D, I = idx.search(queries, K, nprobe=100)
+                check(_same_ranking(D, I, exact_D, exact_ids),
+                      "f32 IVF at nprobe 100 differs from the exact search")
+                tiers["f32_exact"] = {"full_probe_equals_exact": True,
+                                      **_ivf_leg(idx, queries, exact_ids)}
+            del idx
+            torch.cuda.empty_cache()
+
+        sub = rows[-IVF_PQ_ROWS:]
+        flat = VectorIndex(rows.shape[1], device=device)
+        flat.add(sub)
+        _, sub_ids = flat.search(queries, K)
+        del flat
+        with _env("CLIPX_PQ_RESIDUAL", "on"):
+            t0 = time.perf_counter()
+            idx = tivf.IVFIndex.from_vectors(sub, dtype="pq", device=device)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+        check(idx._residual, "IVF pq_residual: codes are not residual")
+        # k-means on these rows, the residual OPQ training and encode
+        tiers["pq_residual"] = {"build_s": build_s,
+                                **_ivf_leg(idx, queries, sub_ids)}
+        launches = dict(ps.LAUNCHES)
+    info["probe_chunks"] = _ivf_probe_chunks(idx, queries, device)
+    info["tiers"] = tiers
+    del idx
+    torch.cuda.empty_cache()
+    emit(info)
+    return {"info": info, "launches": launches}
 
 
 def _kernel_class(name: str) -> str:
@@ -2053,6 +2329,34 @@ def phase_cli(info_env: dict) -> dict:
         check(len(pq_rows) == 10 and shown(pq_rows) == shown(rows),
               f"pq result rows {pq_rows} differ from the f32 run's {rows}")
 
+        # --search-mode ivf with pq storage: the first REPL start builds the
+        # IVF index (k-means, residual codes) and writes images.index.ivf
+        # and the residual codes; a second start loads both ('i 1' only).
+        # Six rows make six one-row clusters, so the residuals are zero and
+        # each search shows the f32 run's rows
+        ivf_work = os.path.join(tmp, "work_ivf")
+        os.makedirs(ivf_work)
+        ivf_flags = ["--device", "cuda", "--corpus-dtype", "pq",
+                     "--search-mode", "ivf"]
+        ivf_build_s, ivf_query_s, ivf_rows = _cli_build_and_query(
+            ivf_flags, decode, photos, ivf_work, env, 512)
+        check(os.path.exists(os.path.join(ivf_work, "images.index.ivf")),
+              "query_index --search-mode ivf wrote no images.index.ivf")
+        check(shown(ivf_rows) == shown(rows),
+              f"ivf result rows {ivf_rows} differ from the f32 run's {rows}")
+        t0 = time.perf_counter()
+        again = subprocess.run(
+            [sys.executable, "-m", "clipx_torch.cli.query_index",
+             *ivf_flags], cwd=ivf_work, env=env, input="p 7\ni 1\nq\n",
+            capture_output=True, text=True, timeout=600)
+        ivf_reload_s = time.perf_counter() - t0
+        check(again.returncode == 0,
+              f"query_index ivf restart failed:\n{again.stderr}")
+        check("(loaded 6 pq rows from images.index.codes)" in again.stderr
+              and "Set to probe 7 subsets." in again.stdout
+              and "Similar to " + photos in again.stdout,
+              "query_index ivf restart did not load the codes and .ivf")
+
         # --compute int8 with the fused W8A8 MLP (B6)
         int8_work = os.path.join(tmp, "work_int8")
         os.makedirs(int8_work)
@@ -2069,7 +2373,10 @@ def phase_cli(info_env: dict) -> dict:
     info = {"phase": "cli", "fixtures": backend, "build_s": build_s,
             "query_s": query_s, "result_rows": len(rows),
             "pq_build_s": pq_build_s, "pq_query_s": pq_query_s,
-            "pq_result_rows": len(pq_rows), "int8_build_s": int8_build_s,
+            "pq_result_rows": len(pq_rows), "ivf_pq_build_s": ivf_build_s,
+            "ivf_pq_query_s": ivf_query_s, "ivf_pq_reload_query_s":
+            ivf_reload_s, "ivf_pq_result_rows": len(ivf_rows),
+            "int8_build_s": int8_build_s,
             "int8_query_s": int8_query_s, "int8_result_rows": len(int8_rows),
             "long_model": LONG_MODEL,
             "long_build_s": long_build_s, "long_query_s": long_query_s,
@@ -2162,9 +2469,19 @@ def main() -> int:
     check(not any(launches[n] for n in OPT_IN_KERNELS),
           "the default path launched an opt-in kernel")
     timed("profile", phase_profile, enc, images, encoded["info"])
-    del search
-    # the opt-in routes: counts from 0 just before each, read just after
     paths = [launches]
+    # the IVF path: counts from 0 just before it, read just after its
+    # searches (before its kernel-versus-plain checks)
+    ps.reset_launches()
+    ivf = timed("ivf", phase_ivf, search, device)
+    paths.append(ivf["launches"])
+    emit({"phase": "ivf_path_launches", "launches": paths[-1]})
+    check(paths[-1]["pq_scan_scores"] > 0
+          and not any(n for name, n in paths[-1].items()
+                      if name != "pq_scan_scores"),
+          "the IVF path launched a kernel other than B11, or not B11")
+    del search, ivf
+    # the opt-in routes: counts from 0 just before each, read just after
     ps.reset_launches()
     timed("int8", phase_int8, device, images, encoded["embs"])
     paths.append(dict(ps.LAUNCHES))

@@ -4,9 +4,10 @@ Counterpart of ``clipx/cli/common.py``. The flags, their environment
 variables and the on-disk names are clipx's, so a command line (and a
 ``vectors.lmdb`` + ``images.index`` + ``images.index.codes`` set) works with
 either package. The port adds ``--device {cuda,cpu}`` (default ``cuda``; no
-GPU and no ``--device cpu`` is an error). Flag values whose code paths are
-not ported yet (``--search-mode ivf``, ``--preprocess device``) exit with a
-message saying so.
+GPU and no ``--device cpu`` is an error). ``--search-mode ivf`` builds (or
+loads through ``<index>.ivf``) the IVF index of ``search/ivf.py``. A flag
+value whose code path is not ported yet (``--preprocess device``) exits with
+a message saying so.
 """
 
 from __future__ import annotations
@@ -34,7 +35,6 @@ QUANT_AUTO_THRESHOLD = 100_000
 # with the item of ROADMAP.md's queue A (modules still to port) that
 # brings each
 _NOT_PORTED = {
-    "search_mode": {"ivf": 'the port of IVF, ROADMAP.md queue A, "IVF"'},
     "preprocess": {"device": "the port of device preprocessing, ROADMAP.md "
                              'queue A, "Device preprocess"'}}
 
@@ -76,8 +76,10 @@ def add_model_flags(parser: argparse.ArgumentParser) -> None:
                         default=os.environ.get("CLIPX_SEARCH_MODE", "auto"),
                         help="exact: full scan; quant: int8 scan + exact "
                              "rescore; auto: quant from 100k vectors (coded "
-                             "tiers always scan quantized; ivf is not "
-                             "ported yet)")
+                             "tiers always scan quantized); ivf: clustered "
+                             "search where the REPL's 'p' knob (nprobe) "
+                             "trades recall for scan fraction "
+                             "(clipx_torch/search/ivf.py)")
     parser.add_argument("--device", choices=DEVICES, default="cuda",
                         help="where the model and the index run (default "
                              "cuda; cpu must be asked for)")
@@ -102,12 +104,6 @@ def _not_ported(flag: str, value: str, when: str) -> str:
             f"comes with {when}; use the clipx package for it)")
 
 
-def _refuse_ivf(args) -> None:
-    if getattr(args, "search_mode", "auto") == "ivf":
-        raise SystemExit(_not_ported("search_mode", "ivf",
-                                     _NOT_PORTED["search_mode"]["ivf"]))
-
-
 def corpus_dtype(args) -> str:
     """--corpus-dtype / $CLIPX_CORPUS_DTYPE: the storage tier's name."""
     name = getattr(args, "corpus_dtype",
@@ -123,9 +119,13 @@ def apply_search_mode(index, mode: str):
     storage keeps its quantized scan: the codes are the corpus."""
     if index.coded_storage:
         return index
-    index.quantized = (mode == "quant" or
-                       (mode == "auto"
-                        and index.ntotal >= QUANT_AUTO_THRESHOLD))
+    if mode == "ivf":
+        # IVF quantizes its probed scan past the same threshold
+        index.quantized = index.ntotal >= QUANT_AUTO_THRESHOLD
+    else:
+        index.quantized = (mode == "quant" or
+                           (mode == "auto"
+                            and index.ntotal >= QUANT_AUTO_THRESHOLD))
     return index
 
 
@@ -147,15 +147,16 @@ def load_coded_index(args):
     """The codes-file load path; None -> the caller uses the f32 path
     (uncoded tier, CLIPX_CODES=off, or an unreadable sidecar). A fresh
     codes file loads directly. With the f32 sidecar absent, the codes file
-    stands alone (codes-only boot, see ``_load_codes_only``). Otherwise the
-    codes are stream-encoded from the memmapped sidecar, written, and
-    loaded back."""
+    stands alone (codes-only boot, see ``_load_codes_only``). Otherwise,
+    flat tiers stream-encode the codes from the memmapped sidecar, write
+    them and load them back; IVF builds through ``IVFIndex.from_vectors``
+    and writes the install's own flat-order encode (residual pq codes depend
+    on the layout), so nothing is encoded twice."""
     from clipx_torch.search import codes_io
-    from clipx_torch.search.engine import (corpus_rotation,
+    from clipx_torch.search.engine import (content_hash, corpus_rotation,
                                            read_index_vectors,
                                            rotation_enabled)
 
-    _refuse_ivf(args)
     tier = codes_io.tier_of(corpus_dtype(args))
     mode = codes_io.codes_mode()
     if tier is None or mode == "off":
@@ -175,6 +176,26 @@ def load_coded_index(args):
                       f"{codes_io.codes_path(args.index)})",
                       file=sys.stderr, flush=True)
                 return idx
+    if getattr(args, "search_mode", "auto") == "ivf":
+        try:
+            vectors = read_index_vectors(args.index, mmap=True)
+        except (OSError, ValueError):
+            return None
+        # the sidecar's fingerprint at memmap-open: a sidecar replaced
+        # during the build must not get old-row codes stamped as fresh
+        fp_at_open = codes_io.sidecar_sample_fp(args.index)
+        idx = build_index_from_vectors(vectors, args, stash_codes=True)
+        pending = idx._pending_codes_payload
+        if pending is not None:
+            try:
+                codes_io.write_payload_file(
+                    args.index, pending, tier=tier,
+                    content_hash=content_hash(vectors),
+                    fp_sample=fp_at_open)
+            except (OSError, ValueError):
+                pass  # unwritable dir / replaced sidecar: no codes file
+            idx._pending_codes_payload = None
+        return idx
     try:
         vectors = read_index_vectors(args.index, mmap=True)
         fp_at_open = codes_io.sidecar_sample_fp(args.index)
@@ -222,14 +243,16 @@ def _load_codes_only(args, tier: str):
 
 
 def build_index_from_codes(payload, args, orphan: bool = False):
-    """Place a loaded codes payload as a flat index on ``args.device``
-    (``load_coded_index`` refuses --search-mode ivf first). None when the
-    payload holds residual pq codes (IVF-only), so the caller re-encodes
-    flat from f32; with ``orphan`` (no sidecar to re-encode from) that is a
-    hard error instead."""
-    from clipx_torch.search.engine import VectorIndex
-
-    if payload.get("residual"):
+    """Place a loaded codes payload as the flag-selected index (flat or IVF)
+    on ``args.device``. None when the caller's f32 path must rebuild: flat
+    mode with residual pq codes (IVF-only), IVF with non-residual pq codes
+    while residual encoding is on, or IVF without a matching v2 ``.ivf``
+    cache. With ``orphan`` (codes-only boot, no sidecar to rebuild from)
+    each of these is a hard error naming the fix, except the residual
+    upgrade, which keeps the file's encoding with a warning."""
+    search_mode = getattr(args, "search_mode", "auto")
+    device = getattr(args, "device", None)
+    if payload.get("residual") and search_mode != "ivf":
         # residual-pq codes only score inside the IVF probe (they need the
         # segment coarse term)
         if orphan:
@@ -240,16 +263,63 @@ def build_index_from_codes(payload, args, orphan: bool = False):
                 "--search-mode ivf (the file's .ivf cache must be "
                 "present too).")
         return None
-    return VectorIndex.from_codes(payload,
-                                  device=getattr(args, "device", None))
+    if (payload["tier"] == "pq" and not payload.get("residual")
+            and search_mode == "ivf"):
+        from clipx_torch.search.pq import pq_residual_enabled
 
+        if pq_residual_enabled():
+            # a flat-built codes file must not downgrade an IVF deployment
+            # to global-codebook encoding: rebuild once as residual (opt
+            # out with CLIPX_PQ_RESIDUAL=off)
+            if orphan:
+                print("WARNING: codes-only boot with a NON-residual pq "
+                      "file under --search-mode ivf — residual "
+                      "re-encoding needs the absent f32 sidecar, so "
+                      "this deployment keeps global-codebook encoding "
+                      "(measured -0.07..-0.17 recall@50 vs residual).",
+                      file=sys.stderr, flush=True)
+            else:
+                return None
+    if search_mode == "ivf":
+        from clipx_torch.search.ivf import IVFIndex
 
-def build_index_from_vectors(vectors, args):
-    """Place host vectors as a flat index of the flag-selected tier on
-    ``args.device``, with --search-mode applied."""
+        index = getattr(args, "index", DEFAULT_INDEX_PATH)
+        idx = IVFIndex.from_codes(
+            payload, index + ".ivf",
+            quantized=payload["ntotal"] >= QUANT_AUTO_THRESHOLD,
+            device=device)
+        if idx is None and orphan:
+            raise SystemExit(
+                "codes-only IVF boot needs the v2 .ivf layout cache "
+                f"({index}.ivf) "
+                "matching this codes file (same corpus content hash"
+                + (", same layout digest for residual codes"
+                   if payload.get("residual") else "")
+                + "); it is missing or stale, and rebuilding it needs "
+                "the absent f32 sidecar. Deploy the .ivf cache "
+                "alongside the codes file.")
+        return idx
     from clipx_torch.search.engine import VectorIndex
 
-    _refuse_ivf(args)
+    return VectorIndex.from_codes(payload, device=device)
+
+
+def build_index_from_vectors(vectors, args, stash_codes: bool = False):
+    """Place host vectors as the flag-selected index (flat, or IVF under
+    --search-mode ivf) of the flag-selected tier on ``args.device``, with
+    --search-mode applied. ``stash_codes``: see ``IVFIndex.from_vectors``."""
+    from clipx_torch.search.engine import VectorIndex
+
+    if getattr(args, "search_mode", "auto") == "ivf":
+        from clipx_torch.search.ivf import IVFIndex
+
+        return IVFIndex.from_vectors(
+            vectors,
+            quantized=vectors.shape[0] >= QUANT_AUTO_THRESHOLD,
+            dtype=corpus_dtype(args),
+            device=getattr(args, "device", None),
+            cache_path=getattr(args, "index", DEFAULT_INDEX_PATH) + ".ivf",
+            stash_codes=stash_codes)
     idx = VectorIndex(vectors.shape[1], device=getattr(args, "device", None),
                       dtype=corpus_dtype(args))
     if vectors.shape[0]:

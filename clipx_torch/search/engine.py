@@ -39,7 +39,8 @@ CUDA ``torch._int_mm`` (int8 x int8 -> int32); on the CPU an f32 matmul of
 the codes, exact because every partial sum is an integer below
 127 * 127 * D < 2**24 for D <= 1040.
 
-Not ported yet: IVF (ROADMAP.md queue A, "IVF") and sharding across devices.
+IVF (``--search-mode ivf``) is ``search/ivf.py``. Not ported yet: sharding
+across devices.
 """
 
 from __future__ import annotations
@@ -196,6 +197,11 @@ def _quantize_device(corpus: torch.Tensor):
     return codes, scales[:, 0]
 
 
+# widest code row whose f32 product of int8 codes stays exact: every partial
+# sum is an integer of magnitude below 127 * 127 * D < 2**24
+_F32_EXACT_DIM = 1040
+
+
 def _int8_scores(codes: torch.Tensor, q_codes: torch.Tensor) -> torch.Tensor:
     """Exact (N, Q) integer scores codes @ q_codes.T, as f32."""
     if codes.device.type == "cuda":
@@ -205,6 +211,9 @@ def _int8_scores(codes: torch.Tensor, q_codes: torch.Tensor) -> torch.Tensor:
                           device=codes.device)
         rhs[:, :q] = q_codes.T
         return torch._int_mm(codes, rhs)[:, :q].float()
+    if codes.shape[1] > _F32_EXACT_DIM:
+        raise ValueError(f"int8 rows of {codes.shape[1]} codes: the CPU's f32 "
+                         f"product is exact only up to {_F32_EXACT_DIM}")
     return codes.float() @ q_codes.float().T
 
 
@@ -843,6 +852,18 @@ def read_index_vectors(path: str, mmap: bool = False) -> np.ndarray:
             raise ValueError(f"{path!r} is truncated "
                              f"({len(raw)} of {ntotal * dim * 4} bytes)")
     return np.frombuffer(raw, dtype=np.float32).reshape(ntotal, dim)
+
+
+def content_hash(vectors: np.ndarray) -> bytes:
+    """blake2b-16 of the raw f32 row bytes (clipx's ``engine.content_hash``;
+    ``IndexWriter.content_hash`` of the same rows): the key of the ``.ivf``
+    cache and of a codes file's corpus."""
+    import hashlib
+
+    v = np.ascontiguousarray(vectors, dtype=np.float32)
+    h = hashlib.blake2b(digest_size=16)
+    h.update(memoryview(v).cast("B"))
+    return h.digest()
 
 
 def read_index(path: str, device=None, dtype: str = "f32") -> VectorIndex:

@@ -193,6 +193,15 @@ class PQCodebook:
         return rec.reshape(n, m * self.dsub).astype(np.float32)
 
 
+def pq_residual_enabled() -> bool:
+    """$CLIPX_PQ_RESIDUAL (IVF with pq storage only): 'on' (default) encodes
+    each row's RESIDUAL against its segment centroid, faiss IndexIVFPQ's
+    ``by_residual``; the coarse score q.cent is exact f32. 'off' encodes the
+    raw rows with one global codebook."""
+    return os.environ.get("CLIPX_PQ_RESIDUAL", "on").lower() not in (
+        "off", "0", "false")
+
+
 def opq_mode() -> str:
     """$CLIPX_PQ_OPQ: 'trained' (default, the alternating-minimization OPQ
     rotation) or 'fixed' (the seed-derived random rotation)."""

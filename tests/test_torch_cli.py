@@ -68,11 +68,12 @@ class Script:
 
 
 def _run(pkg, fixture_dir, monkeypatch, capsys, tier="f32",
-         session=SESSION, extra=(), tag=""):
+         session=SESSION, extra=(), tag="", before_query=None):
     """Build the fixture folder and run a scripted REPL with one package
     (``extra`` flags added to both commands) in a work directory of its
-    own (named by the package, the tier, the flags and ``tag``); returns
-    (build stdout, REPL stdout, REPL stderr)."""
+    own (named by the package, the tier, the flags and ``tag``), calling
+    ``before_query(work)`` between the two; returns (build stdout, REPL
+    stdout, REPL stderr)."""
     root, photos, ckpt = fixture_dir
     build, query = (jbuild, jquery) if pkg == "clipx" else (tbuild, tquery)
     flags = ["--model", "tiny-test", "--checkpoint", ckpt,
@@ -86,6 +87,8 @@ def _run(pkg, fixture_dir, monkeypatch, capsys, tier="f32",
     capsys.readouterr()
     assert build.main(flags + [photos]) == 0
     built = capsys.readouterr().out
+    if before_query is not None:
+        before_query(work)
     args = query.build_parser().parse_args(flags)
     assert query.QueryREPL(args, input_fn=Script(session)).run() == 0
     out = capsys.readouterr()
@@ -164,8 +167,40 @@ def test_compute_int8_cli_stdout_matches_clipx(fixture_dir, monkeypatch,
     assert query.count("Search time:") == 3
 
 
-@pytest.mark.parametrize("flag,value", [("--search-mode", "ivf"),
-                                        ("--preprocess", "device")])
+@pytest.mark.parametrize("tier", ["f32", "pq"])
+def test_search_mode_ivf_cli_stdout_matches_clipx(fixture_dir, monkeypatch,
+                                                  capsys, tier):
+    """--search-mode ivf: each package builds the fixture folder (the same
+    stdout), then each REPL queries clipx's images.index through one .ivf
+    cache: clipx's REPL trains and writes it (for pq with residual codes in
+    images.index.codes), and the port's REPL, handed those files, loads
+    them. The same stdout, with 'p N' setting the live nprobe."""
+    session = ["p 5", "a photo of a cat", "i 1", "p 100", "two dogs", "q"]
+    extra = ("--search-mode", "ivf")
+    ref_build, ref_query, _ = _run("clipx", fixture_dir, monkeypatch, capsys,
+                                   tier, session, extra)
+    ref_work = fixture_dir[0] / "-".join(["clipx", tier, *extra])
+    shared = ["images.index", "images.index.ivf"] + (
+        ["images.index.codes"] if tier == "pq" else [])
+
+    def use_clipx_index(work):
+        for name in shared:
+            (work / name).write_bytes((ref_work / name).read_bytes())
+
+    build, query, err = _run("port", fixture_dir, monkeypatch, capsys, tier,
+                             session, extra, before_query=use_clipx_index)
+    _compare(build, ref_build)
+    _compare(query, ref_query)
+    assert query.count("Search time:") == 3
+    assert query.count("Set to probe") == 2
+    work = fixture_dir[0] / "-".join(["port", tier, *extra])
+    for name in shared:  # loaded, not rebuilt
+        assert (work / name).read_bytes() == (ref_work / name).read_bytes()
+    if tier == "pq":
+        assert "(loaded 5 pq rows from images.index.codes)" in err
+
+
+@pytest.mark.parametrize("flag,value", [("--preprocess", "device")])
 def test_unported_flags_exit_with_a_message(flag, value, tmp_path,
                                             monkeypatch):
     monkeypatch.chdir(tmp_path)

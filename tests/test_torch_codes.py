@@ -8,6 +8,9 @@ on the CPU.
   settings, corrupt and truncated files, verify modes, the CLI load path
   writing then using the file, codes-only boot, the self-integrity footer,
   residual-pq refusal in flat mode and the TOCTOU discard.
+- ``--search-mode ivf`` with pq storage: the IVF build writes its codes
+  (residual or not) and ``.ivf``, which the next start loads in either
+  package.
 """
 
 import argparse
@@ -207,10 +210,39 @@ def test_refresh_rewrites(sidecar, monkeypatch):
     assert os.path.getmtime(cpath) > before - 100
 
 
-def test_search_mode_ivf_is_refused(sidecar):
-    path, _, _ = sidecar
-    with pytest.raises(SystemExit, match='the port of IVF, ROADMAP.md queue A, "IVF"'):
-        tcommon.load_index(_args(path, "pq", search_mode="ivf"))
+@pytest.mark.parametrize("residual", ["off", "on"])
+def test_search_mode_ivf_loads_an_ivf_index(sidecar, monkeypatch, capsys,
+                                            residual):
+    """--search-mode ivf with pq storage: the first start builds the IVF
+    index from the sidecar and writes its codes (residual by default) and
+    the .ivf cache; the next start loads both, in the port and in clipx,
+    to the same results."""
+    from clipx_torch.search.ivf import IVFIndex
+
+    monkeypatch.setenv("CLIPX_PQ_RESIDUAL", residual)
+    path, v, ch = sidecar
+    args = _args(path, "pq", search_mode="ivf")
+    built = tcommon.load_index(args)
+    assert isinstance(built, IVFIndex) and built.pq_storage
+    assert built._residual == (residual == "on")
+    assert os.path.exists(path + ".ivf")
+    payload = tcodes.load_codes(path, "pq", rotated=True)
+    assert payload["residual"] == (residual == "on")
+    capsys.readouterr()
+    loaded = tcommon.load_index(args)
+    assert f"(loaded {N} pq rows from" in capsys.readouterr().err
+    ref = jcommon.load_index(argparse.Namespace(
+        index=path, corpus_dtype="pq", search_mode="ivf", sharded="off"))
+    assert f"(loaded {N} pq rows from" in capsys.readouterr().err
+    q = _corpus(5, DIM, seed=4)
+    for nprobe in (1, 32, 100):
+        D1, I1 = built.search(q, 20, nprobe=nprobe)
+        D2, I2 = loaded.search(q, 20, nprobe=nprobe)
+        np.testing.assert_array_equal(I1, I2)
+        np.testing.assert_array_equal(D1, D2)
+        Dr, Ir = ref.search(q, 20, nprobe=nprobe)
+        np.testing.assert_array_equal(I2, Ir)
+        np.testing.assert_allclose(D2, Dr, atol=1e-5, rtol=0)
 
 
 # -- codes-only boot ------------------------------------------------------------

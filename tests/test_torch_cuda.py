@@ -742,3 +742,140 @@ def test_opt_in_routes_on_the_card_match_the_cpu(cuda_device, monkeypatch,
     floor = 0.99 if quant else 0.999
     assert (np.sum(out * cpu.encode_images(images), axis=1) >= floor).all()
     assert (np.sum(t_gpu * cpu.encode_texts(texts), axis=1) >= 0.999).all()
+
+
+# -- IVF search (clipx_torch/search/ivf.py) -------------------------------------
+
+IVF_TIERS = {"f32": ("f32", False, "off"), "f32_quant": ("f32", True, "off"),
+             "bf16": ("bf16", False, "off"), "int8": ("int8", False, "off"),
+             "int4": ("int4", False, "off"), "pq": ("pq", False, "off"),
+             "pq_residual": ("pq", False, "on")}
+# scores closer than this are ties up to f32 summation order (a few ulps)
+IVF_TIE = 2e-6
+
+
+def _ivf_corpus(n=20_000, dim=64, clusters=40, seed=5):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((clusters, dim), dtype=np.float32)
+    x = centers[rng.integers(0, clusters, n)] + 0.3 * rng.standard_normal(
+        (n, dim), dtype=np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = x[rng.choice(n, 5, replace=False)] + 0.05 * rng.standard_normal(
+        (5, dim), dtype=np.float32)
+    return x, (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(
+        np.float32)
+
+
+def _assert_same_ranking(D, I, Dr, Ir):
+    """Scores within 1e-5; ids identical except within a run of reference
+    scores closer than IVF_TIE (the same set there, unless the run reaches
+    rank k)."""
+    np.testing.assert_allclose(D, Dr, atol=1e-5, rtol=0)
+    k = Ir.shape[1]
+    for d, ours, ref in zip(Dr, I, Ir):
+        start = 0
+        while start < k:
+            end = start + 1
+            while (end < k and np.isfinite(d[end])
+                   and d[end - 1] - d[end] <= IVF_TIE):
+                end += 1
+            if end - start == 1:
+                assert ours[start] == ref[start]
+            elif end < k:
+                assert set(ours[start:end]) == set(ref[start:end])
+            start = end
+
+
+@pytest.mark.parametrize("nq", [1, 3])
+@pytest.mark.parametrize("nprobe", [1, 32, 100])
+def test_ivf_pq_probe_runs_b11_once_per_query_and_chunk(cuda_device,
+                                                        monkeypatch, nprobe,
+                                                        nq):
+    """The IVF-PQ probe on the card launches B11's kernel once per (query,
+    probed chunk), never its plain version nor a library int8 GEMM, and on
+    the probe's own chunk gathers (dead rows of ragged segments included;
+    at nprobe 100 a ragged last chunk, with 4 KiB-row chunks) the kernel
+    equals pq_scan_scores_plain bitwise."""
+    from clipx_torch.search import ivf as tivf
+    from clipx_torch.search import pq as tpq
+
+    corpus, queries = _ivf_corpus()
+    idx = tivf.IVFIndex.from_vectors(corpus, dtype="pq", device=cuda_device)
+    plain = tpq_scan.pq_scan_scores_plain
+    monkeypatch.setattr(tivf, "_PROBE_CHUNK_ROWS", 4096)
+
+    def refuse(*args):
+        raise AssertionError("the IVF path called pq_scan_scores_plain")
+
+    monkeypatch.setattr(tpq_scan, "pq_scan_scores_plain", refuse)
+    P = idx.probe_bucket(50, nprobe)
+    pc = tivf._pq_chunk_segs(P, 64)
+    tps.reset_launches()
+    idx.search(queries[:nq], 50, nprobe=nprobe)
+    assert {k: n for k, n in tps.LAUNCHES.items() if n} == {
+        "pq_scan_scores": nq * -(-P // pc)}
+    names = _kernel_names(lambda: idx.search(queries[:nq], 50,
+                                             nprobe=nprobe))
+    scans = [n for n in names if "pq_scan" in n]
+    assert len(scans) == 1 and "pq_scan_onehot_kernel<1>" in scans[0], names
+    # no int8 library GEMM (the plain version's one-hot product)
+    assert not any("gemm" in n.lower() and ("s8" in n or "i8" in n)
+                   for n in names), names
+    monkeypatch.setattr(tpq_scan, "pq_scan_scores_plain", plain)
+    with torch.inference_mode():
+        q1 = torch.from_numpy(teng.rotate_rows(queries[:1], idx._rot)).to(
+            cuda_device)
+        _, seg_idx = tivf._coarse(q1, idx._seg_cent, P)
+        _, luti, _ = tpq.quantized_luts(q1, idx._pq.device(cuda_device))
+        ragged = False
+        for s0 in range(0, P, pc):
+            cs = seg_idx[0, s0: s0 + pc]
+            chunk = idx._codes3[cs].reshape(len(cs) * 64, -1)
+            ragged |= not bool(idx._valid2[cs].all())
+            out = tpq_scan.pq_scan_scores(chunk, luti[0][:, None])
+            ref = plain(chunk, luti[0][:, None])
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref)
+    assert ragged
+
+
+@pytest.mark.parametrize("tier", list(IVF_TIERS))
+def test_ivf_tiers_on_the_card_match_the_cpu(cuda_device, tmp_path,
+                                            monkeypatch, tier):
+    """The same .ivf cache installed on the card and on the CPU: the same
+    ids (up to f32 summation order among tied scores), scores within
+    1e-5."""
+    from clipx_torch.search import ivf as tivf
+
+    dtype, quantized, residual = IVF_TIERS[tier]
+    monkeypatch.setenv("CLIPX_PQ_RESIDUAL", residual)
+    corpus, queries = _ivf_corpus()
+    cache = str(tmp_path / "images.index.ivf")
+    cpu = tivf.IVFIndex.from_vectors(corpus, quantized=quantized,
+                                     dtype=dtype, cache_path=cache,
+                                     device="cpu")
+    gpu = tivf.IVFIndex.from_vectors(corpus, quantized=quantized,
+                                     dtype=dtype, cache_path=cache,
+                                     device=cuda_device)
+    np.testing.assert_array_equal(gpu._row_ext, cpu._row_ext)
+    for nprobe in (1, 17, 100):
+        for k in (1, 50):
+            Dg, Ig = gpu.search(queries, k, nprobe=nprobe)
+            Dc, Ic = cpu.search(queries, k, nprobe=nprobe)
+            _assert_same_ranking(Dg, Ig, Dc, Ic)
+    np.testing.assert_allclose(gpu.vectors(), cpu.vectors(), atol=1e-6,
+                               rtol=0)
+
+
+def test_two_card_kmeans_builds_give_one_layout(cuda_device):
+    """k-means on the card sums its clusters with one-hot f32 products (no
+    float atomics): two builds give one layout digest, also on the training
+    sample path."""
+    from clipx_torch.search import ivf as tivf
+
+    corpus, _ = _ivf_corpus(n=150_000, dim=128, clusters=300)
+    digests = set()
+    for _ in range(2):
+        assign, _ = tivf.train_clusters(corpus, device=cuda_device)
+        digests.add(tivf.layout_digest(tivf.cluster_layout(assign)))
+    assert len(digests) == 1
