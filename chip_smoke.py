@@ -53,6 +53,19 @@ these phases, printing one JSON line per phase:
               probed chunk, its device ms per search, pq_scan_scores_plain
               refused; B11 bitwise against plain on probed chunks, beside
               the flat scan's device ms.
+   serve    — the port's HTTP service (clipx_torch/serve.py) at ViT-B/32
+              on phase 5's corpus, in this process (clients in a process of
+              their own), with phase 3's encoder and the attention and PQ
+              plain versions refused: default flags (quant at 1M rows;
+              warm-up seconds; /search_vector and /search?q= closed loop at
+              1 and 16 clients against direct searches; /similar;
+              /search_image and /encode_image of 1 (B2 only) and 8 (B1
+              only), embeddings bitwise; /reload incremental and rebuild,
+              the rebuild's allocator peak in corpora); --corpus-dtype pq
+              booted from phase 6's pq codes (B11 once a search batch);
+              CLIPX_SERVE_COALESCE=0 at 16 clients; a cold start without
+              warm-up in a process of its own (first request of each
+              family against the warm numbers, then SIGTERM).
    int8     — --compute int8 at ViT-B/32: 1,024 images and a batch of 1
               with CLIPX_FUSED_MLP_INT8=on (fused_mlp_w8a8, on the K-major
               weight copies made at quantization: no per-call transpose)
@@ -81,12 +94,14 @@ these phases, printing one JSON line per phase:
               --model ViT-L/14@336px (only when PIL or cv2 imports).
 
 Phases 3-6 are the main path of ViT-B/32 (which must launch none of the
-opt-in kernels B5-B7), phase ivf the IVF path (B11 only), phases int8 and
-fused its opt-in routes, phase 8 the long towers' path: every launch count is set to 0 just before each
-and read just after it, and every kernel must have been launched on one
-of them. Then one line gives each phase's seconds, one lists every kernel
-({"kernels": [...]}) with the sum of those counts, and one the card's
-name and power limit; the last line is
+opt-in kernels B5-B7), phase ivf the IVF path (B11 only), phase serve the
+HTTP service's path (B1, B2 and B11 only; each of its parts counted on its
+own), phases int8 and fused its opt-in routes, phase 8 the long towers'
+path: every launch count is set to 0 just before each and read just after
+it, and every kernel must have been launched on one of them. Then one line
+gives each phase's seconds, one lists every kernel ({"kernels": [...]})
+with the sum of those counts, and one the card's name and power limit;
+the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the run exits
 non-zero and prints no result line; so does a machine without a GPU, or a
 directory without the clipx_torch package beside this script.
@@ -99,6 +114,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -1609,18 +1625,19 @@ IVF_REPS = {1: 20, NQ: 10}
 TIE = 2e-6
 
 
-def _same_ranking(D, I, De, Ie) -> bool:
-    """(D, I) equal to (De, Ie): scores within 1e-5, ids identical except
-    within a run of reference scores closer than TIE (the same set there;
+def _same_ranking(D, I, De, Ie, atol: float = 1e-5,
+                  tie: float = TIE) -> bool:
+    """(D, I) equal to (De, Ie): scores within atol, ids identical except
+    within a run of reference scores closer than tie (the same set there;
     a run that reaches rank k may end in other rows of the same score)."""
-    if D.shape != De.shape or not np.allclose(D, De, atol=1e-5, rtol=0):
+    if D.shape != De.shape or not np.allclose(D, De, atol=atol, rtol=0):
         return False
     k = Ie.shape[1]
     for d, ours, ref in zip(De, I, Ie):
         start = 0
         while start < k:
             end = start + 1
-            while end < k and d[end - 1] - d[end] <= TIE:
+            while end < k and d[end - 1] - d[end] <= tie:
                 end += 1
             if end - start == 1:
                 if ours[start] != ref[start]:
@@ -1632,21 +1649,31 @@ def _same_ranking(D, I, De, Ie) -> bool:
 
 
 @contextlib.contextmanager
+def _refuse_plain(path: str, plains):
+    """Each (module, name) of plains raises inside the block: on the card
+    every call of path must run the kernels."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in plains]
+
+    def refuser(name):
+        def refuse(*args, **kwargs):
+            raise Failed(f"the {path} called {name} on the card")
+        return refuse
+
+    for mod, name, _ in saved:
+        setattr(mod, name, refuser(name))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def _no_plain_pq_scan():
     """pq_scan_scores_plain raises inside the block: on the card every
     chunk of the IVF-PQ probe must run B11's kernel."""
     from clipx_torch.ops import pq_scan as pqs
 
-    plain = pqs.pq_scan_scores_plain
-
-    def refuse(*args, **kwargs):
-        raise Failed("the IVF path called pq_scan_scores_plain on the card")
-
-    pqs.pq_scan_scores_plain = refuse
-    try:
-        yield
-    finally:
-        pqs.pq_scan_scores_plain = plain
+    return _refuse_plain("IVF path", [(pqs, "pq_scan_scores_plain")])
 
 
 def _ivf_leg(idx, queries, exact_ids) -> dict:
@@ -1833,6 +1860,640 @@ def phase_ivf(search: dict, device) -> dict:
     torch.cuda.empty_cache()
     emit(info)
     return {"info": info, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase: the HTTP service (python -m clipx_torch.serve)
+# ---------------------------------------------------------------------------
+
+SERVE_SECONDS = 5.0   # each closed-loop leg of /search_vector
+TEXT_SECONDS = 3.0    # each closed-loop leg of /search?q=
+INPROC_SECONDS = 3.0  # each leg of SearchService.search without HTTP
+SERVE_CLIENTS = (1, 16)
+SERVE_IMAGES = 8      # /encode_image's batch: the bucket-8 chunk
+SERVE_APPEND = 1024   # rows /reload's incremental leg appends
+SERVE_TEXTS = [f"a photo of {w}" for w in (
+    "a cat", "two dogs", "a red car", "the sea", "a mountain", "a city",
+    "a bird", "a bowl of fruit", "a forest", "snow", "a bicycle", "a boat",
+    "a child", "the moon", "a guitar", "a bridge")]
+# the attention kernels' plain versions and the PQ scan's: each raises in
+# phase serve, so every request on the card runs the kernels
+ATTN_PLAINS = ("fused_attn_block_plain", "sdpa_plain", "packed_sdpa_qkv_plain",
+               "fused_sdpa_long_plain", "fused_sdpa_long_qkv_plain",
+               "fused_attn_sublayer_plain")
+
+# the closed-loop load: a separate process (stdlib only), so the clients'
+# Python does not share the service's interpreter lock. Argument: a JSON
+# spec file {port, clients, seconds, requests: [[method, path, body]]};
+# client c sends requests c, c + clients, ... in turn, one connection a
+# request (the service speaks HTTP/1.0). Prints one JSON line: request
+# count, wall, latencies' p50 and p99, non-200 answers, and for each
+# request index the distinct result lists it got.
+_LOADGEN = r"""
+import json, sys, threading, time
+from http.client import HTTPConnection
+
+spec = json.load(open(sys.argv[1]))
+reqs, n_clients = spec["requests"], spec["clients"]
+lock = threading.Lock()
+lat, bad, seen = [], [], {}
+go = threading.Barrier(n_clients + 1)
+end = [0.0]
+
+def client(c):
+    i, mine = c, []
+    go.wait()
+    while time.perf_counter() < end[0]:
+        method, path, body = reqs[i % len(reqs)]
+        t0 = time.perf_counter()
+        conn = HTTPConnection("127.0.0.1", spec["port"], timeout=300)
+        conn.request(method, path, body=body,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        conn.close()
+        mine.append(time.perf_counter() - t0)
+        with lock:
+            if resp.status != 200:
+                bad.append([i % len(reqs), resp.status, data.decode()[:200]])
+            else:
+                rows = json.dumps(json.loads(data)["results"])
+                seen.setdefault(str(i % len(reqs)), set()).add(rows)
+        i += n_clients
+    with lock:
+        lat.extend(mine)
+
+threads = [threading.Thread(target=client, args=(c,))
+           for c in range(n_clients)]
+for t in threads:
+    t.start()
+t0 = time.perf_counter()
+end[0] = t0 + spec["seconds"]
+go.wait()
+for t in threads:
+    t.join()
+wall = time.perf_counter() - t0
+lat.sort()
+print(json.dumps({
+    "requests": len(lat), "wall_s": wall, "qps": len(lat) / wall,
+    "p50_ms": lat[len(lat) // 2] * 1e3,
+    "p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3,
+    "bad": bad[:5], "n_bad": len(bad),
+    "responses": {k: [json.loads(r) for r in v] for k, v in seen.items()}}))
+"""
+
+
+def _http(port, method, path, payload=None):
+    """(status, JSON, seconds) of one request."""
+    from http.client import HTTPConnection
+
+    body = None if payload is None else json.dumps(payload)
+    t0 = time.perf_counter()
+    conn = HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request(method, path, body=body,
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = json.loads(resp.read())
+    conn.close()
+    return resp.status, data, time.perf_counter() - t0
+
+
+def _load(port, requests, clients, seconds, tmp) -> dict:
+    """The closed-loop load of _LOADGEN; fails on any non-200 answer."""
+    spec = os.path.join(tmp, "load.json")
+    with open(spec, "w") as f:
+        json.dump({"port": port, "clients": clients, "seconds": seconds,
+                   "requests": requests}, f)
+    out = subprocess.run([sys.executable, "-c", _LOADGEN, spec],
+                         capture_output=True, text=True,
+                         timeout=seconds + 300)
+    check(out.returncode == 0, f"load client failed: {out.stderr[-2000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    check(res["n_bad"] == 0 and res["requests"] > 0,
+          f"load at {clients} clients: {res['n_bad']} non-200 answers, "
+          f"first {res['bad']}")
+    return res
+
+
+def _rows_of(results, k):
+    """A response's result rows as (D, I) arrays of one query."""
+    check(len(results) == k, f"a response held {len(results)} rows, not {k}")
+    return (np.array([[r["score"] for r in results]], np.float32),
+            np.array([[r["id"] for r in results]], np.int64))
+
+
+class _ServeRun:
+    """clipx_torch.serve.make_server over args on a thread of this
+    process, with its boot and warm-up seconds."""
+
+    def __init__(self, argv, enc):
+        import threading
+
+        from clipx_torch import serve as tserve
+
+        t0 = time.perf_counter()
+        self.server = tserve.make_server(tserve.build_parser().parse_args(
+            argv), encoder=enc)
+        self.boot_s = time.perf_counter() - t0
+        self.service = self.server.RequestHandlerClass.service
+        self.port = self.server.server_address[1]
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+        t0 = time.perf_counter()
+        while not self.get("/healthz")[1].get("warm"):
+            check(time.perf_counter() - t0 < 600, "serve never got warm")
+            time.sleep(0.05)
+        self.warm_s = time.perf_counter() - t0
+
+    def get(self, path):
+        return _http(self.port, "GET", path)
+
+    def post(self, path, payload):
+        return _http(self.port, "POST", path, payload)
+
+    def metrics(self) -> dict:
+        return self.get("/metrics")[1]
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.server._warmup_stop.set()
+        self.server._warmup_thread.join(timeout=600)
+        self.service.close()
+        self.service.env.close()
+        del self.service, self.server
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _in_process_legs(run, queries, threads=SERVE_CLIENTS) -> dict:
+    """Where a /search_vector's time goes, without HTTP: p50 of a direct
+    index.search (Q = 1) and of the k store lookups of one answer, then
+    SearchService.search (coalescer, search, lookups) closed loop from
+    threads of this process for INPROC_SECONDS at each thread count."""
+    import threading
+
+    service = run.service
+    index = service.current_index()
+    out = {"index_search_p50_ms": _search_p50(index, queries[:1], K)[2]}
+    times = []
+    for i in range(30):
+        t0 = time.perf_counter()
+        for j in range(K):
+            service.lookup_path(i * K + j)
+        times.append(time.perf_counter() - t0)
+    out["k_lookups_p50_ms"] = statistics.median(times) * 1e3
+    for n in threads:
+        lat, end = [[] for _ in range(n)], time.perf_counter() + INPROC_SECONDS
+
+        def loop(c):
+            i = c
+            while time.perf_counter() < end:
+                t0 = time.perf_counter()
+                service.search(queries[i % len(queries)][None], K)
+                lat[c].append(time.perf_counter() - t0)
+                i += n
+
+        workers = [threading.Thread(target=loop, args=(c,))
+                   for c in range(n)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join()
+        done = sorted(t for per in lat for t in per)
+        out[f"threads_{n}"] = {"calls": len(done),
+                               "per_s": len(done) / INPROC_SECONDS,
+                               "p50_ms": done[len(done) // 2] * 1e3}
+    return out
+
+
+def _vector_legs(run, queries, tmp, clients=SERVE_CLIENTS) -> dict:
+    """/search_vector of the 16 queries, closed loop at each client count:
+    every answer equal to a direct Q = 1 search of the served index (ids;
+    scores within 1e-5, TIE-close runs as sets)."""
+    index = run.service.current_index()
+    direct = [index.search(q[None], K) for q in queries]
+    requests = [["POST", "/search_vector",
+                 json.dumps({"vector": q.tolist(), "k": K})]
+                for q in queries]
+    out = {}
+    for n in clients:
+        before = run.metrics()["coalesce"]
+        res = _load(run.port, requests, n, SERVE_SECONDS, tmp)
+        after = run.metrics()["coalesce"]
+        for i, answers in res.pop("responses").items():
+            De, Ie = direct[int(i)]
+            for rows in answers:
+                D, I = _rows_of(rows, K)
+                check(_same_ranking(D, I, De, Ie),
+                      f"/search_vector at {n} clients: query {i} differs "
+                      "from a direct search")
+        out[f"clients_{n}"] = {**res, "coalesce_batches":
+                               after["batches"] - before["batches"],
+                               "coalesce_queries":
+                               after["queries"] - before["queries"]}
+    return out
+
+
+def _text_legs(run, enc, tmp) -> dict:
+    """/search?q= of 16 texts at 1 and 16 clients: every answer equal (the
+    1e-4 rule of tests/test_torch_cli.py) to a direct search of the text's
+    embedding at the bucket its coalesced batch took (1, 4 or 16)."""
+    index = run.service.current_index()
+    direct = {}
+    for i, t in enumerate(SERVE_TEXTS):
+        direct[i] = [index.search(enc.encode_texts([t] * b)[:1], K)
+                     for b in (1, 4, 16)]
+    requests = [["GET", "/search?q=" + t.replace(" ", "+") + f"&k={K}", None]
+                for t in SERVE_TEXTS]
+    out = {}
+    for n in SERVE_CLIENTS:
+        before = run.metrics()["text_coalesce"]
+        res = _load(run.port, requests, n, TEXT_SECONDS, tmp)
+        after = run.metrics()["text_coalesce"]
+        for i, answers in res.pop("responses").items():
+            for rows in answers:
+                D, I = _rows_of(rows, K)
+                check(any(_same_ranking(D, I, De, Ie, atol=1e-4, tie=1e-4)
+                          for De, Ie in direct[int(i)]),
+                      f"/search?q= at {n} clients: text {i} differs from a "
+                      "direct search at every text bucket")
+        out[f"clients_{n}"] = {**res, "text_coalesce_batches":
+                               after["batches"] - before["batches"],
+                               "text_coalesce_queries":
+                               after["queries"] - before["queries"]}
+    return out
+
+
+def _image_requests(run, enc, pngs) -> dict:
+    """/search_image of one image (B2 at bucket 1, nothing else) and
+    /encode_image of it and of 8 (B1 at bucket 8, nothing else), each
+    embedding bitwise enc.encode_images of the same decoded pixels."""
+    import base64
+
+    from clipx_torch.data.pipeline import decode_bytes_rgb
+    from clipx_torch.ops import packed_sdpa as ps
+
+    layers = enc.cfg.vision.layers
+    b64 = [base64.b64encode(p).decode() for p in pngs]
+    pixels = np.stack([decode_bytes_rgb(np.frombuffer(p, np.uint8),
+                                        enc.image_size) for p in pngs])
+    out = {}
+    for name, path, payload, want, n in (
+            ("search_image", "/search_image", {"image_b64": b64[0],
+                                               "k": K}, "packed_sdpa", 1),
+            ("encode_image_1", "/encode_image", {"images_b64": b64[:1]},
+             "packed_sdpa", 1),
+            ("encode_image_8", "/encode_image", {"images_b64": b64},
+             "fused_attn_block", SERVE_IMAGES)):
+        before = ps.launch_counts()
+        status, data, secs = run.post(path, payload)
+        counts = {k: c - before[k] for k, c in ps.launch_counts().items()
+                  if c != before[k]}
+        check(status == 200, f"{path}: {status} {data}")
+        check(counts == {want: layers}, f"{path} of {n} image(s) launched "
+              f"{counts}, expected {want} once a layer ({layers})")
+        direct = enc.encode_images(pixels[:n])
+        if name == "search_image":
+            De, Ie = run.service.current_index().search(direct, K)
+            D, I = _rows_of(data["results"], K)
+            check(_same_ranking(D, I, De, Ie), "/search_image differs from "
+                  "a direct search of the encoded pixels")
+        else:
+            check(np.array_equal(np.asarray(data["embeddings"], np.float32),
+                                 direct), f"{path} of {n}: embeddings are "
+                  "not bitwise enc.encode_images of the decoded pixels")
+        out[name] = {"ms": secs * 1e3, "launches": counts}
+    return out
+
+
+def _write_sidecar(path, rows) -> bytes:
+    from clipx_torch.search.engine import IndexWriter
+
+    writer = IndexWriter(path, *rows.shape)
+    for i in range(0, rows.shape[0], 1 << 18):
+        writer.write(rows[i: i + (1 << 18)])
+    writer.close()
+    return writer.content_hash
+
+
+def _put_paths(db_path, paths: dict, vectors: dict = None) -> None:
+    """idx_db id -> path, and fn_db path -> vector, written through an
+    environment of their own (the service sees them after a refresh)."""
+    from clipx_torch.store.kv import open_env
+
+    env = open_env(db_path)
+    idx_db, fn_db = env.open_db(b"idx_db"), env.open_db(b"fn_db")
+    with env.begin(db=idx_db, write=True) as txn:
+        for i, p in paths.items():
+            txn.put(f"{i}".encode(), p.encode())
+    with env.begin(db=fn_db, write=True) as txn:
+        for p, v in (vectors or {}).items():
+            txn.put(p.encode(), np.ascontiguousarray(v, np.float32
+                                                     ).tobytes())
+    env.close()
+
+
+def _row_path(i: int) -> str:
+    n = CORPUS_ROWS
+    return (f"rows/r{i:07d}.jpg" if i < n else
+            f"img/img{i - n:05d}.png" if i < n + N_IMAGES else
+            f"new/n{i:07d}.jpg")
+
+
+def _index_bytes(idx) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in (idx._corpus, idx._codes, idx._scales)
+               if t is not None)
+
+
+def _serve_reload(run, rows, db, sidecar) -> dict:
+    """/reload twice on the running service: SERVE_APPEND rows appended to
+    the sidecar (incremental; a new id answers /similar through the
+    refreshed store), then the first SERVE_APPEND rows rewritten
+    (rebuild), with the allocator's peak over the rebuild in corpora."""
+    n = rows.shape[0]
+    rng = np.random.default_rng(SEED + 1)
+    new = rng.standard_normal((SERVE_APPEND, DIM), dtype=np.float32)
+    new /= np.linalg.norm(new, axis=1, keepdims=True)
+    grown = np.concatenate([rows, new])
+    _write_sidecar(sidecar, grown)
+    probe = n + 5
+    _put_paths(db, {i: _row_path(i) for i in range(n, n + SERVE_APPEND)},
+               {_row_path(probe): new[5]})
+    t0 = time.perf_counter()
+    status, r, _ = run.post("/reload", {})
+    inc_s = time.perf_counter() - t0
+    check(status == 200 and r == {"ntotal": n + SERVE_APPEND,
+                                  "previous_ntotal": n,
+                                  "mode": "incremental"},
+          f"/reload after an append: {status} {r}")
+    status, sim, _ = run.get(f"/similar?id={probe}&k={K}")
+    check(status == 200 and sim["results"][0]["id"] == probe,
+          "an appended row did not find itself first after /reload")
+
+    grown[:SERVE_APPEND] = rng.standard_normal((SERVE_APPEND, DIM),
+                                               dtype=np.float32)
+    grown[:SERVE_APPEND] /= np.linalg.norm(grown[:SERVE_APPEND], axis=1,
+                                           keepdims=True)
+    _write_sidecar(sidecar, grown)
+    torch.cuda.synchronize()
+    old_bytes = _index_bytes(run.service.index)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    status, r, _ = run.post("/reload", {})
+    rebuild_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(status == 200 and r == {"ntotal": n + SERVE_APPEND,
+                                  "previous_ntotal": n + SERVE_APPEND,
+                                  "mode": "rebuild"},
+          f"/reload after a rewrite: {status} {r}")
+    corpus = run.service.index._corpus
+    corpus_bytes = corpus.numel() * corpus.element_size()
+    after = torch.cuda.memory_allocated()
+    status, res, _ = run.post("/search_vector", {"vector":
+                                                 grown[7].tolist(), "k": K})
+    check(status == 200 and res["results"][0]["id"] == 7,
+          "a rewritten row did not find itself first after the rebuild")
+    gib = 2 ** 30
+    return {"incremental_s": inc_s, "rebuild_s": rebuild_s,
+            "ntotal": n + SERVE_APPEND, "corpus_gib": corpus_bytes / gib,
+            "allocated_before_gib": before / gib,
+            "old_index_gib": old_bytes / gib,
+            "rebuild_peak_gib": peak / gib,
+            "allocated_after_gib": after / gib,
+            "rebuild_peak_in_corpora": peak / corpus_bytes,
+            "rebuild_peak_over_the_rest_in_corpora":
+            (peak - (before - old_bytes)) / corpus_bytes}
+
+
+def _cold_start(argv, tmp, texts_p50, vector_p50, image_ms) -> dict:
+    """python -m clipx_torch.serve --no-warmup in a process of its own on
+    the same files: seconds to the first /healthz 200, then the first
+    request of each family against phase serve's warm numbers, then
+    SIGTERM (exit 0, 'bye')."""
+    import base64
+    import select
+
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    log = open(os.path.join(tmp, "cold.err"), "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "clipx_torch.serve", "--no-warmup",
+         *argv], cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=log,
+        text=True)
+    try:
+        port, out = None, ""
+        while port is None:
+            check(time.perf_counter() - t0 < 600 and proc.poll() is None,
+                  f"cold serve did not start: {out}")
+            if select.select([proc.stdout], [], [], 1.0)[0]:
+                out += proc.stdout.readline()
+                m = re.search(r"clipx-serve on http://[^:]+:(\d+)", out)
+                port = int(m.group(1)) if m else None
+        while True:
+            try:
+                if _http(port, "GET", "/healthz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            check(time.perf_counter() - t0 < 600, "cold serve never healthy")
+            time.sleep(0.02)
+        healthy_s = time.perf_counter() - t0
+        first = {}
+        q = np.random.default_rng(SEED).standard_normal(DIM).astype(
+            np.float32)
+        png = _png(np.full((224, 224, 3), 127, np.uint8))
+        for family, method, path, payload in (
+                ("search", "POST", "/search_vector",
+                 {"vector": (q / np.linalg.norm(q)).tolist(), "k": K}),
+                ("text", "GET", "/search?q=a+photo+of+a+dog&k=50", None),
+                ("image", "POST", "/search_image",
+                 {"image_b64": base64.b64encode(png).decode(), "k": K})):
+            ms = []
+            for _ in range(2):
+                status, data, secs = _http(port, method, path, payload)
+                check(status == 200, f"cold {family}: {status} {data}")
+                ms.append(secs * 1e3)
+            first[family] = {"first_ms": ms[0], "second_ms": ms[1]}
+        first["search"]["warm_p50_ms"] = vector_p50
+        first["text"]["warm_p50_ms"] = texts_p50
+        first["image"]["warm_ms"] = image_ms
+        proc.send_signal(signal.SIGTERM)
+        rest, _ = proc.communicate(timeout=300)
+        check(proc.returncode == 0 and "bye" in rest,
+              f"cold serve's SIGTERM exit: {proc.returncode} {rest}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        log.close()
+    return {"healthz_200_s": healthy_s, "families": first}
+
+
+def _png(rgb: np.ndarray) -> bytes:
+    import cv2
+
+    ok, buf = cv2.imencode(".png", cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))
+    check(ok, "cv2 could not encode a PNG")
+    return buf.tobytes()
+
+
+def phase_serve(enc, search: dict, images: np.ndarray, card: str) -> dict:
+    """The port's HTTP service at ViT-B/32 on phase search's corpus, on the
+    card, in this process on 127.0.0.1 (port 0), with phase encode's
+    encoder and the clients in a process of their own. Every part runs with
+    the attention kernels' and the PQ scan's plain versions refused; launch
+    counts are set to 0 before each part and read after it. One line a
+    part:
+
+    1. default flags (--search-mode auto: quant at 1M rows): warm-up
+       seconds; /search_vector and /search?q= closed loop at 1 and 16
+       clients, every answer against a direct search; the same searches
+       through SearchService.search without HTTP; /similar of encoded ids;
+       /search_image (B2 only) and /encode_image of 1 and 8 (B1 only),
+       embeddings bitwise; no request launches B3-B10; then /reload
+       incremental (an append) and rebuild (a rewrite), with the
+       rebuild's allocator peak in corpora;
+    2. --corpus-dtype pq booted from phase coded's pq codes: B11 once a
+       search batch, answers against a direct search;
+    3. CLIPX_SERVE_COALESCE=0 at 16 clients, over HTTP and without;
+    4. a cold start without warm-up in a process of its own."""
+    from clipx_torch.ops import flash_attention as tfa
+    from clipx_torch.ops import packed_sdpa as ps
+    from clipx_torch.ops import pq_scan as pqs
+    from clipx_torch.search import codes_io
+    from clipx_torch.search.engine import corpus_rotation
+    from clipx_torch.search.pq import PQCodebook
+
+    rows, queries = search["rows"], search["queries"]
+    n = rows.shape[0]
+    plains = ([(ps, name) for name in ATTN_PLAINS]
+              + [(tfa, "flash_attention_plain"),
+                 (pqs, "pq_scan_scores_plain")])
+    parts, launches = {}, []
+
+    def part(name, fn, *args):
+        ps.reset_launches()
+        with _refuse_plain("HTTP service", plains):
+            info = fn(*args)
+        counts = ps.launch_counts()
+        launches.append(counts)
+        info = {"phase": "serve", "part": name, "card": card, **info,
+                "launches": {k: c for k, c in counts.items() if c}}
+        emit(info)
+        parts[name] = info
+        return counts
+
+    with tempfile.TemporaryDirectory() as tmp:
+        db = os.path.join(tmp, "vectors.lmdb")
+        os.makedirs(db)
+        sidecar = os.path.join(tmp, "images.index")
+        orig = os.path.join(tmp, "orig.index")
+        t0 = time.perf_counter()
+        content_hash = _write_sidecar(sidecar, rows)
+        os.link(sidecar, orig)
+        _put_paths(db, {i: _row_path(i) for i in range(n)},
+                   {_row_path(CORPUS_ROWS + j): rows[CORPUS_ROWS + j]
+                    for j in range(N_IMAGES)})
+        setup_s = time.perf_counter() - t0
+        argv = ["--model", "ViT-B/32", "--db", db, "--port", "0"]
+        pngs = [_png(im) for im in images[:SERVE_IMAGES]]
+
+        def default():
+            run = _ServeRun(argv + ["--index", sidecar], enc)
+            try:
+                check(run.service.index.quantized,
+                      "--search-mode auto did not pick quant at 1M rows")
+                out = {"setup_s": setup_s, "boot_s": run.boot_s,
+                       "warmup_s": run.warm_s,
+                       "search_vector": _vector_legs(run, queries, tmp),
+                       "search_text": _text_legs(run, enc, tmp),
+                       "in_process": _in_process_legs(run, queries)}
+                for j in range(4):
+                    i = CORPUS_ROWS + j
+                    status, sim, _ = run.get(f"/similar?id={i}&k={K}")
+                    check(status == 200 and sim["results"][0]["id"] == i,
+                          f"/similar?id={i}: rank 0 is not the id itself")
+                out.update(_image_requests(run, enc, pngs))
+                part_counts = ps.launch_counts()
+                check(not any(c for name, c in part_counts.items()
+                              if name not in ("fused_attn_block",
+                                              "packed_sdpa")),
+                      f"phase serve's default requests launched a kernel "
+                      f"other than B1 and B2: {part_counts}")
+                out["reload"] = _serve_reload(run, rows, db, sidecar)
+                return out
+            finally:
+                run.close()
+
+        part("default", default)
+
+        def coded():
+            payload = dict(search["payloads"]["pq"])
+            payload["codebook"] = PQCodebook(payload["centroids"])
+            if payload["rot_matrix"] is None and payload["rotated"]:
+                # a file without a trained rotation used the fixed one
+                payload["rot_matrix"] = corpus_rotation(DIM)
+            t1 = time.perf_counter()
+            codes_io.write_payload_file(orig, payload, tier="pq",
+                                        content_hash=content_hash)
+            write_s = time.perf_counter() - t1
+            written = os.stat(codes_io.codes_path(orig)).st_mtime_ns
+            run = _ServeRun(argv + ["--index", orig, "--corpus-dtype", "pq"],
+                            enc)
+            try:
+                check(run.service.index.pq_storage
+                      and run.metrics()["index"]["booted_from_codes"]
+                      and os.stat(codes_io.codes_path(orig)).st_mtime_ns
+                      == written, "pq serve did not boot from the codes file")
+                before = ps.launch_counts()["pq_scan_scores"]
+                legs = _vector_legs(run, queries, tmp)
+                b11 = ps.launch_counts()["pq_scan_scores"] - before
+                batches = sum(leg["coalesce_batches"]
+                              for leg in legs.values())
+                # the direct searches of the check: one launch each
+                check(b11 == batches + len(queries),
+                      f"pq serve launched B11 {b11} times for {batches} "
+                      f"search batches and {len(queries)} direct searches")
+                return {"codes_write_s": write_s, "boot_s": run.boot_s,
+                        "warmup_s": run.warm_s, "search_vector": legs,
+                        "b11_launches_in_legs": b11}
+            finally:
+                run.close()
+
+        part("pq", coded)
+
+        def coalesce_off():
+            with _env("CLIPX_SERVE_COALESCE", "0"):
+                run = _ServeRun(argv + ["--index", orig], enc)
+            try:
+                check(run.service._search_co is None, "coalescer not off")
+                return {"boot_s": run.boot_s, "warmup_s": run.warm_s,
+                        "search_vector": _vector_legs(run, queries, tmp,
+                                                      clients=(16,)),
+                        "in_process": _in_process_legs(run, queries,
+                                                       threads=(16,))}
+            finally:
+                run.close()
+
+        part("coalesce_off", coalesce_off)
+        default_info = parts["default"]
+        parts["cold"] = {"phase": "serve", "part": "cold", "card": card,
+                         **_cold_start(
+                             argv + ["--index", orig], tmp,
+                             default_info["search_text"]["clients_1"][
+                                 "p50_ms"],
+                             default_info["search_vector"]["clients_1"][
+                                 "p50_ms"],
+                             default_info["search_image"]["ms"])}
+        emit(parts["cold"])
+    total = {name: sum(c[name] for c in launches) for name in launches[0]}
+    return {"parts": parts, "launches": total}
 
 
 def _kernel_class(name: str) -> str:
@@ -2480,7 +3141,16 @@ def main() -> int:
           and not any(n for name, n in paths[-1].items()
                       if name != "pq_scan_scores"),
           "the IVF path launched a kernel other than B11, or not B11")
-    del search, ivf
+    # the HTTP service's path: counts from 0 before each of its parts,
+    # read after each
+    serve = timed("serve", phase_serve, enc, search, images, info["card"])
+    paths.append(serve["launches"])
+    emit({"phase": "serve_path_launches", "launches": paths[-1]})
+    served = {name for name, n in paths[-1].items() if n}
+    check(served == {"fused_attn_block", "packed_sdpa", "pq_scan_scores"},
+          f"the service's path launched {sorted(served)}, not B1, B2 and "
+          "B11 alone")
+    del search, ivf, serve
     # the opt-in routes: counts from 0 just before each, read just after
     ps.reset_launches()
     timed("int8", phase_int8, device, images, encoded["embs"])

@@ -6,8 +6,8 @@ variables and the on-disk names are clipx's, so a command line (and a
 either package. The port adds ``--device {cuda,cpu}`` (default ``cuda``; no
 GPU and no ``--device cpu`` is an error). ``--search-mode ivf`` builds (or
 loads through ``<index>.ivf``) the IVF index of ``search/ivf.py``. A flag
-value whose code path is not ported yet (``--preprocess device``) exits with
-a message saying so.
+value whose code path is not ported yet (``--preprocess device``,
+``--sharded on``) exits with a message saying so.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+import torch
 
 from clipx_torch.runtime.device import DEVICES, resolve_device
 from clipx_torch.search.engine import DTYPES
@@ -36,7 +38,9 @@ QUANT_AUTO_THRESHOLD = 100_000
 # brings each
 _NOT_PORTED = {
     "preprocess": {"device": "the port of device preprocessing, ROADMAP.md "
-                             'queue A, "Device preprocess"'}}
+                             'queue A, "Device preprocess"'},
+    "sharded": {"on": "the port of multi-device search, ROADMAP.md queue A, "
+                      '"Multi-device"'}}
 
 
 def add_model_flags(parser: argparse.ArgumentParser) -> None:
@@ -85,17 +89,33 @@ def add_model_flags(parser: argparse.ArgumentParser) -> None:
                              "cuda; cpu must be asked for)")
 
 
+def add_sharded_flag(parser: argparse.ArgumentParser, what: str) -> None:
+    """clipx's --sharded flag. Only one device is ported: ``on`` exits
+    (``check_ported``), ``auto`` and ``off`` serve from one device."""
+    parser.add_argument("--sharded", choices=("auto", "on", "off"),
+                        default=os.environ.get("CLIPX_SHARDED", "auto"),
+                        help=f"{what} over all visible devices (auto: only "
+                             "when >1 device is visible; not ported yet, "
+                             "so auto and off use one device and on exits)")
+
+
 def check_ported(args) -> None:
     """Exit with a clear message for flag values not ported yet, and when
-    CUDA is asked for with no GPU visible."""
+    CUDA is asked for with no GPU visible. ``--sharded auto`` with more
+    than one GPU visible says on stderr that it uses one."""
     for flag, values in _NOT_PORTED.items():
         value = getattr(args, flag, None)
         if value in values:
             raise SystemExit(_not_ported(flag, value, values[value]))
     try:
-        resolve_device(args.device)
+        device = resolve_device(args.device)
     except RuntimeError as exc:
         raise SystemExit(f"error: {exc}") from None
+    if (getattr(args, "sharded", None) == "auto" and device.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        print(f"(--sharded auto: {torch.cuda.device_count()} GPUs are "
+              "visible, but sharding is not ported to clipx_torch yet; "
+              "using one GPU)", file=sys.stderr, flush=True)
 
 
 def _not_ported(flag: str, value: str, when: str) -> str:
@@ -249,7 +269,9 @@ def build_index_from_codes(payload, args, orphan: bool = False):
     while residual encoding is on, or IVF without a matching v2 ``.ivf``
     cache. With ``orphan`` (codes-only boot, no sidecar to rebuild from)
     each of these is a hard error naming the fix, except the residual
-    upgrade, which keeps the file's encoding with a warning."""
+    upgrade, which keeps the file's encoding with a warning. The index
+    keeps the payload's corpus content hash as ``_boot_content_hash``:
+    the HTTP service's incremental-reload fingerprint on a codes boot."""
     search_mode = getattr(args, "search_mode", "auto")
     device = getattr(args, "device", None)
     if payload.get("residual") and search_mode != "ivf":
@@ -298,10 +320,13 @@ def build_index_from_codes(payload, args, orphan: bool = False):
                 + "); it is missing or stale, and rebuilding it needs "
                 "the absent f32 sidecar. Deploy the .ivf cache "
                 "alongside the codes file.")
-        return idx
-    from clipx_torch.search.engine import VectorIndex
+    else:
+        from clipx_torch.search.engine import VectorIndex
 
-    return VectorIndex.from_codes(payload, device=device)
+        idx = VectorIndex.from_codes(payload, device=device)
+    if idx is not None:
+        idx._boot_content_hash = payload.get("content_hash")
+    return idx
 
 
 def build_index_from_vectors(vectors, args, stash_codes: bool = False):

@@ -10,7 +10,9 @@ headers, so a build takes seconds):
 A library is rebuilt when it is missing or older than any source in
 ``csrc/``. Builds go to a temporary name and are renamed into place, under
 an ``flock``, so concurrent first uses in several processes are safe.
-``build_all`` starts one ``nvcc`` per source at once. The compiler's
+``build_all`` starts one ``nvcc`` per source at once; ``load_all`` does
+that and loads every library (the HTTP service's warm-up, so no request
+waits on ``nvcc``). The compiler's
 output (``-Xptxas -v``: registers, shared memory, spills per kernel) is kept
 in ``build/lib<name>.log``.
 
@@ -119,3 +121,11 @@ def load(name: str) -> ctypes.CDLL:
                 build_all([name])
             _libs[name] = ctypes.CDLL(lib_path(name))
         return _libs[name]
+
+
+def load_all(names: Iterable[str] = SOURCES) -> None:
+    """Build every stale library of ``names`` at once, then load each."""
+    names = list(names)
+    build_all(names)
+    for name in names:
+        load(name)

@@ -3,11 +3,16 @@ ctypes plumbing to its CUDA library.
 
 ``LAUNCHES`` holds one count per wrapper (one per call that launched its
 kernel), so a run can show that its main path went through the kernels.
+Kernels launch from many threads at once (the HTTP service's handlers and
+coalescer workers), so the counts change only under ``_counts_lock``:
+``launch`` increments, ``reset_launches`` zeroes and ``launch_counts``
+copies.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict
 
 import torch
@@ -24,11 +29,19 @@ I = ctypes.c_int  # noqa: E741 (ctypes' own name)
 L = ctypes.c_longlong
 F = ctypes.c_float
 _fns: Dict[str, object] = {}
+_counts_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _counts_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """A consistent copy of every count."""
+    with _counts_lock:
+        return dict(LAUNCHES)
 
 
 def c_fn(lib_name: str, sym: str, argtypes):
@@ -78,4 +91,5 @@ def launch(name: str, fn, device: torch.device, *args) -> None:
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
-    LAUNCHES[name] += 1
+    with _counts_lock:
+        LAUNCHES[name] += 1

@@ -50,12 +50,13 @@ import torch
 
 from clipx_torch.models import quant
 from clipx_torch.ops._launch import (LAUNCHES, F, I, L, P, c_fn, check_cuda,
-                                     kernel_device, launch, reset_launches)
+                                     kernel_device, launch, launch_counts,
+                                     reset_launches)
 
-__all__ = ["LAUNCHES", "reset_launches", "fused_attn_block", "packed_sdpa",
-           "packed_sdpa_rows", "packed_sdpa_qkv", "fused_sdpa_long",
-           "fused_sdpa_long_qkv", "fused_attn_sublayer", "fused_mlp",
-           "fused_mlp_w8a8", "mlp_fusible", "mlp_w8a8_fusible",
+__all__ = ["LAUNCHES", "launch_counts", "reset_launches", "fused_attn_block",
+           "packed_sdpa", "packed_sdpa_rows", "packed_sdpa_qkv",
+           "fused_sdpa_long", "fused_sdpa_long_qkv", "fused_attn_sublayer",
+           "fused_mlp", "fused_mlp_w8a8", "mlp_fusible", "mlp_w8a8_fusible",
            "fused_attn_block_plain", "sdpa_plain", "attend_plain",
            "packed_sdpa_qkv_plain", "fused_sdpa_long_plain",
            "fused_sdpa_long_qkv_plain", "fused_attn_sublayer_plain",

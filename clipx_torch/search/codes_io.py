@@ -70,6 +70,12 @@ def tier_of(dtype: str) -> Optional[str]:
     return dtype if dtype in _TIERS else None
 
 
+def tier_of_name(name: str) -> Optional[str]:
+    """A --corpus-dtype name's codes-file tier tag, for the entry points'
+    pre-checks before any device work (``tier_of`` under clipx's name)."""
+    return tier_of(name)
+
+
 def codes_mode() -> str:
     """$CLIPX_CODES: 'on' (default — load fresh codes, write them after
     a fallback f32 build), 'off' (never read or write), 'refresh'

@@ -32,8 +32,8 @@ numpy copies of clipx's, so codes match clipx's bit for bit.
 
 Arithmetic: queries and float rows meet in full f32. A search on CUDA
 turns ``torch.backends.cuda.matmul.allow_tf32`` off while it runs (and
-restores it), so a caller that enabled TF32 still gets f32 scores, LUTs and
-rescores. The int8 and int4 scans are exact
+restores it once no search is running), so a caller that enabled TF32 still
+gets f32 scores, LUTs and rescores. The int8 and int4 scans are exact
 integer arithmetic, as clipx's int32-accumulated ``dot_general`` is: on
 CUDA ``torch._int_mm`` (int8 x int8 -> int32); on the CPU an f32 matmul of
 the codes, exact because every partial sum is an integer below
@@ -49,6 +49,7 @@ import contextlib
 import functools
 import os
 import struct
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -116,18 +117,37 @@ def _pad_len(n_new: int) -> int:
     return pad
 
 
-@contextlib.contextmanager
-def _full_f32(device: torch.device):
-    """f32 matmuls in full f32 on CUDA (TF32 off) for the duration."""
-    if device.type != "cuda":
-        yield
-        return
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+class _FullF32:
+    """TF32 off on CUDA while any search runs. The flag is global to the
+    process and concurrent searches overlap (the HTTP service's workers),
+    so one depth count decides: the first search in saves the flag and
+    turns TF32 off, the last one out restores it."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._depth = 0
+        self._saved = False
+
+    @contextlib.contextmanager
+    def __call__(self, device: torch.device):
+        if device.type != "cuda":
+            yield
+            return
+        with self._lock:
+            if self._depth == 0:
+                self._saved = torch.backends.cuda.matmul.allow_tf32
+                torch.backends.cuda.matmul.allow_tf32 = False
+            self._depth += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._depth -= 1
+                if self._depth == 0:
+                    torch.backends.cuda.matmul.allow_tf32 = self._saved
+
+
+_full_f32 = _FullF32()
 
 
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -550,6 +570,8 @@ class VectorIndex:
         # int8/int4: the rotated-space corpus mean, set on the first add or
         # the codes-file load; scores add q·center back
         self._center: Optional[np.ndarray] = None
+        # concurrent first searches quantize the scan copy once
+        self._codes_lock = threading.Lock()
 
     @property
     def coded_storage(self) -> bool:
@@ -671,11 +693,20 @@ class VectorIndex:
         self._scales = None
 
     def _ensure_codes(self) -> None:
-        if self._codes is None:
-            codes, self._scales = _quantize_device(self._corpus)
-            # set last: a concurrent search (the REPL's warm-up thread)
-            # that sees the codes also sees their scales
-            self._codes = codes
+        if self._codes is not None:
+            return
+        with self._codes_lock:
+            if self._codes is None:
+                codes, self._scales = _quantize_device(self._corpus)
+                # set last: a search that sees the codes without the lock
+                # also sees their scales
+                self._codes = codes
+
+    def shape_key(self, k: int, nprobe=None) -> tuple:
+        """The request-dependent shape of a k-row search, for the HTTP
+        service's cold-shape gate: a flat scan varies only in the k
+        bucket (``nprobe`` is the faiss-compatibility no-op here)."""
+        return (_bucket_k(clamp_k(k)),)
 
     # -- search ---------------------------------------------------------------
     def search(self, queries: np.ndarray,

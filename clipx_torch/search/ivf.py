@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import threading
 import zipfile
 from typing import Optional, Tuple
 
@@ -490,6 +491,8 @@ class IVFIndex:
         # the flat-order encode payload of the last install, kept only
         # when the caller asked for it (stash_codes) to write the codes file
         self._pending_codes_payload: Optional[dict] = None
+        # concurrent first searches quantize the probe copy once
+        self._codes_lock = threading.Lock()
 
     @property
     def coded_storage(self) -> bool:
@@ -678,13 +681,16 @@ class IVFIndex:
     def _ensure_codes(self) -> None:
         if self._codes3 is not None:
             return
-        codes, scales = engine._quantize_device(
-            self._corpus3.reshape(-1, self.dim))
-        segs = self._corpus3.shape[0]
-        # scales first: a concurrent search (the REPL's warm-up thread)
-        # that sees the codes also sees their scales
-        self._scales2 = scales.reshape(segs, _SEG_W)
-        self._codes3 = codes.reshape(segs, _SEG_W, self.dim)
+        with self._codes_lock:
+            if self._codes3 is not None:
+                return
+            codes, scales = engine._quantize_device(
+                self._corpus3.reshape(-1, self.dim))
+            segs = self._corpus3.shape[0]
+            # scales first: a search that sees the codes without the lock
+            # also sees their scales
+            self._scales2 = scales.reshape(segs, _SEG_W)
+            self._codes3 = codes.reshape(segs, _SEG_W, self.dim)
 
     def _segs(self) -> int:
         """Segment count of the clustered base (0 when empty)."""

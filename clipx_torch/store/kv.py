@@ -113,6 +113,8 @@ def _load() -> ctypes.CDLL:
         lib.cxkv_cursor_close.argtypes = [ctypes.c_void_p]
         lib.cxkv_error.restype = ctypes.c_char_p
         lib.cxkv_error.argtypes = [ctypes.c_void_p]
+        lib.cxkv_refresh.restype = ctypes.c_int
+        lib.cxkv_refresh.argtypes = [ctypes.c_void_p]
         _lib = lib
         return lib
 
@@ -290,6 +292,14 @@ class Environment:
 
     def begin(self, db: Optional[int] = None, write: bool = False) -> Transaction:
         return Transaction(self, db, write)
+
+    def refresh(self) -> None:
+        """Fold in transactions committed by other processes (or other
+        environments on the same path) since this one was opened or last
+        refreshed: reads are otherwise a snapshot as of open."""
+        rc = self._lib.cxkv_refresh(self._h)
+        if rc != 0:
+            raise Error(f"refresh failed (rc={rc})")
 
     def _txn_enter(self) -> None:
         with self._txn_cv:

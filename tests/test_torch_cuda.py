@@ -9,6 +9,13 @@ PyTorch and a card:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import base64
+import json
+import sys
+import threading
+import time
+from http.client import HTTPConnection
+
 import numpy as np
 import pytest
 import torch
@@ -879,3 +886,240 @@ def test_two_card_kmeans_builds_give_one_layout(cuda_device):
         assign, _ = tivf.train_clusters(corpus, device=cuda_device)
         digests.add(tivf.layout_digest(tivf.cluster_layout(assign)))
     assert len(digests) == 1
+
+
+# -- the HTTP service on the card ---------------------------------------------------
+# tiny-test's head width is 32, which takes none of the packed kernels; the
+# service runs here on _d64() (the same two layers, heads of 64), handed to
+# make_server as its encoder, over a store and sidecar written from its own
+# embeddings of a few seeded photos
+
+SERVE_IMAGES = 8
+
+
+def _serve_fixture(tmp_path, device, rows: int = 0):
+    """(encoder, folder of the photos, argv prefix): the photos' embeddings
+    in fn_db and images.index (ids 0..7), plus ``rows`` seeded unit rows
+    after them (ids 8.., paths in idx_db only)."""
+    from PIL import Image
+
+    from clipx_torch.data.pipeline import decode_bytes_rgb
+    from clipx_torch.search.engine import IndexWriter
+    from clipx_torch.store.kv import open_env
+
+    enc = Encoder(_d64(), tconvert.init_params(_d64(), seed=0),
+                  device=device)
+    photos = tmp_path / "photos"
+    photos.mkdir()
+    rng = np.random.default_rng(4)
+    paths = []
+    for i in range(SERVE_IMAGES):
+        path = photos / f"p{i}.png"
+        Image.fromarray(rng.integers(0, 256, (80, 96, 3), dtype=np.uint8)
+                        ).save(path)
+        paths.append(str(path))
+    pixels = np.stack([decode_bytes_rgb(np.fromfile(p, np.uint8),
+                                        enc.image_size) for p in paths])
+    embs = enc.encode_images(pixels)
+    extra = rng.standard_normal((rows, embs.shape[1]), dtype=np.float32)
+    extra /= np.linalg.norm(extra, axis=1, keepdims=True)
+    vectors = np.concatenate([embs, extra])
+    env = open_env(str(tmp_path / "vectors.lmdb"))
+    fn_db, idx_db = env.open_db(b"fn_db"), env.open_db(b"idx_db")
+    with env.begin(db=fn_db, write=True) as txn:
+        for path, e in zip(paths, embs):
+            txn.put(path.encode(), e.tobytes())
+    with env.begin(db=idx_db, write=True) as txn:
+        for i in range(vectors.shape[0]):
+            txn.put(f"{i}".encode(), (paths[i] if i < len(paths)
+                                      else f"row{i}.jpg").encode())
+    env.close()
+    writer = IndexWriter(str(tmp_path / "images.index"), *vectors.shape)
+    writer.write(vectors)
+    writer.close()
+    argv = ["--model", "tiny-test", "--port", "0",
+            "--db", str(tmp_path / "vectors.lmdb"),
+            "--index", str(tmp_path / "images.index")]
+    return enc, photos, argv
+
+
+class _Served:
+    """make_server on the card with warm-up, serving on a thread."""
+
+    def __init__(self, argv, enc, monkeypatch):
+        from clipx_torch import serve as tserve
+        from clipx_torch.ops import _build, _launch
+
+        # a fresh process's view of the kernel libraries: nothing loaded,
+        # so warm-up itself must load every one
+        monkeypatch.setattr(_build, "_libs", {})
+        monkeypatch.setattr(_launch, "_fns", {})
+        monkeypatch.setenv("CLIPX_SERVE_WARMUP_K", "10")
+        self.server = tserve.make_server(
+            tserve.build_parser().parse_args(argv), encoder=enc)
+        self.port = self.server.server_address[1]
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+        deadline = time.time() + 300
+        while self.get("/healthz")[1].get("warm") is not True:
+            assert time.time() < deadline, "the service never got warm"
+            time.sleep(0.05)
+
+    def request(self, method, path, payload=None):
+        conn = HTTPConnection("127.0.0.1", self.port, timeout=120)
+        conn.request(method, path,
+                     body=None if payload is None else json.dumps(payload),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        out = resp.status, json.loads(resp.read())
+        conn.close()
+        return out
+
+    def get(self, path):
+        return self.request("GET", path)
+
+    def post(self, path, payload):
+        return self.request("POST", path, payload)
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.server._warmup_stop.set()
+        self.server._warmup_thread.join(timeout=120)
+        service = self.server.RequestHandlerClass.service
+        service.close()
+        service.env.close()
+
+
+def _b64_file(path):
+    return base64.b64encode(path.read_bytes()).decode()
+
+
+def _no_builds(monkeypatch):
+    """Record every library a request would build or load for the first
+    time (warm-up should have left none)."""
+    from clipx_torch.ops import _build
+
+    late = []
+    real_load, real_build_all = _build.load, _build.build_all
+
+    def load(name):
+        if name not in _build._libs:
+            late.append(name)
+        return real_load(name)
+
+    def build_all(names=_build.SOURCES):
+        late.append(("nvcc", tuple(names)))
+        return real_build_all(names)
+
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(_build, "build_all", build_all)
+    return late
+
+
+def test_served_images_launch_b2_at_bucket_1_and_b1_at_bucket_8(
+        cuda_device, tmp_path, monkeypatch):
+    """/search_image launches packed_sdpa once a layer and nothing else,
+    and its embedding is enc.encode_images of the same decoded pixels,
+    bitwise; /encode_image of 8 launches fused_attn_block once a layer
+    and nothing else. Warm-up left every kernel library loaded: no request
+    builds or loads one."""
+    from clipx_torch.data.pipeline import decode_bytes_rgb
+    from clipx_torch.ops import _build
+
+    enc, photos, argv = _serve_fixture(tmp_path, cuda_device)
+    layers = enc.cfg.vision.layers
+    served = _Served(argv, enc, monkeypatch)
+    try:
+        assert set(_build._libs) == set(_build.SOURCES)
+        late = _no_builds(monkeypatch)
+        b64 = _b64_file(photos / "p3.png")
+        tps.reset_launches()
+        status, data = served.post("/search_image", {"image_b64": b64,
+                                                     "k": 3})
+        assert status == 200 and data["results"][0]["id"] == 3
+        assert {n: c for n, c in tps.launch_counts().items() if c} == {
+            "packed_sdpa": layers}
+        tps.reset_launches()
+        status, data = served.post("/encode_image", {"images_b64": [b64]})
+        assert status == 200
+        pixels = decode_bytes_rgb(np.fromfile(photos / "p3.png", np.uint8),
+                                  enc.image_size)
+        np.testing.assert_array_equal(
+            np.asarray(data["embeddings"], np.float32),
+            enc.encode_images(pixels[None]))
+        tps.reset_launches()
+        status, data = served.post("/encode_image", {"images_b64": [
+            _b64_file(photos / f"p{i}.png") for i in range(SERVE_IMAGES)]})
+        assert status == 200 and len(data["embeddings"]) == SERVE_IMAGES
+        assert {n: c for n, c in tps.launch_counts().items() if c} == {
+            "fused_attn_block": layers}
+        status, _ = served.get("/search?q=a+photo+of+a+cat&k=3")
+        assert status == 200
+        assert late == []
+    finally:
+        served.close()
+
+
+def test_concurrent_requests_count_every_launch(cuda_device, tmp_path,
+                                                monkeypatch):
+    """16 clients, 4 /search_image each, all at once: packed_sdpa's count
+    is exactly 64 requests x one launch a layer (the counter's lock loses
+    no increment)."""
+    enc, photos, argv = _serve_fixture(tmp_path, cuda_device)
+    served = _Served(argv, enc, monkeypatch)
+    b64 = [_b64_file(photos / f"p{i}.png") for i in range(SERVE_IMAGES)]
+    errors = []
+
+    def client(c):
+        try:
+            for r in range(4):
+                i = (c + r) % SERVE_IMAGES
+                status, data = served.post("/search_image",
+                                           {"image_b64": b64[i], "k": 1})
+                assert status == 200 and data["results"][0]["id"] == i
+        except Exception as exc:  # noqa: BLE001
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        tps.reset_launches()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads) and not errors, errors
+        counts = {n: c for n, c in tps.launch_counts().items() if c}
+        assert counts == {"packed_sdpa": 64 * enc.cfg.vision.layers}
+    finally:
+        sys.setswitchinterval(interval)
+        served.close()
+
+
+def test_pq_service_launches_b11_once_a_search(cuda_device, tmp_path,
+                                               monkeypatch):
+    """--corpus-dtype pq: warm-up loads the PQ scan's library, and each
+    /search_vector launches pq_scan_scores once (one scan of the whole
+    corpus), with the ids of a direct search of the served index."""
+    enc, _, argv = _serve_fixture(tmp_path, cuda_device, rows=6000)
+    served = _Served(argv + ["--corpus-dtype", "pq"], enc, monkeypatch)
+    try:
+        late = _no_builds(monkeypatch)
+        index = served.server.RequestHandlerClass.service.index
+        assert index.pq_storage
+        queries = np.asarray(index.vectors()[[2, 100, 5000]])
+        for q in queries:
+            tps.reset_launches()
+            status, data = served.post("/search_vector",
+                                       {"vector": q.tolist(), "k": 5})
+            assert status == 200
+            assert {n: c for n, c in tps.launch_counts().items() if c} == {
+                "pq_scan_scores": 1}
+            _, I = index.search(q[None], 5)
+            assert [r["id"] for r in data["results"]] == I[0].tolist()
+        assert late == []
+    finally:
+        served.close()
