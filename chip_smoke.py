@@ -42,6 +42,12 @@ these phases, printing one JSON line per phase:
 7. profile  — torch.profiler over two 128-image encodes: device time by
               kernel name, and the card's busy share of the host's wall
               per batch without the profiler (and with it).
+   preprocess — --preprocess device at ViT-B/32 with phase 3's weights:
+              1,024 seeded 256 x 256 canvases in batches of 128 and one
+              batch of 1 (B1, B2 counted), img/s beside phase 3's; a few
+              against the CPU's f32 canvas path; the resize alone, card f32
+              vs CPU f32, with its time and bound; a non-square batch
+              raises.
    ivf      — --search-mode ivf (clipx_torch/search/ivf.py) on phase 5's
               corpus: k-means seconds on the card, twice (one layout
               digest); install seconds and, at nprobe 1, 32 and 100, search
@@ -49,7 +55,7 @@ these phases, printing one JSON line per phase:
               (quantized, and unquantized, whose nprobe-100 ids must be
               phase 5's exact ids), and int8, int4 and non-residual pq
               installed from phase 6's codes files; residual pq (the
-              default) on the last 262,144 rows. B11 once per query and
+              default) on the last 131,072 rows. B11 once per query and
               probed chunk, its device ms per search, pq_scan_scores_plain
               refused; B11 bitwise against plain on probed chunks, beside
               the flat scan's device ms.
@@ -86,19 +92,35 @@ these phases, printing one JSON line per phase:
               too), torch.profiler over one 128-image encode, then
               ViT-B/16 (S = 197) and ViT-B/32 under =qkv and =rows, each
               call with its launch counts checked.
+   resnet   — the ResNet towers at full width (seeded random weights):
+              RN50 on 1,024 seeded 224 x 224 images in batches of 128 and
+              one of 1 (img/s, no kernel of the port launched), against the
+              CPU's f32 encode; a profile of one batch (device ms by kernel
+              class, busy share); RN50's text p50; RN101, RN50x4, RN50x16
+              and RN50x64 on 8 images each (batch ms), against the CPU on 2.
+   quality  — the port's quality tool (clipx_torch/tools/eval_quality.py)
+              on tests/test_quality_gate.py's corpus (10,000 x 512, k = 50)
+              held to that test's floors, and its drift leg over 12 PNGs
+              that build_index indexed at ViT-B/32 on the card (cv2 >=
+              0.9999, int8 compute >= 0.99, PIL reported).
 9. cli      — build_index and a scripted query_index REPL at ViT-B/32 on a
               few fixture images, then the same with --corpus-dtype pq,
               with --corpus-dtype pq --search-mode ivf (and a restart that
               loads its codes and .ivf),
               with --compute int8 (CLIPX_FUSED_MLP_INT8=on), then both at
-              --model ViT-L/14@336px (only when PIL or cv2 imports).
+              --model ViT-L/14@336px, with --preprocess device, and at
+              --model RN50, each build's [stats] rates read from stderr;
+              three legs at a time, each in a work dir of its own (only
+              when PIL or cv2 imports).
 
 Phases 3-6 are the main path of ViT-B/32 (which must launch none of the
-opt-in kernels B5-B7), phase ivf the IVF path (B11 only), phase serve the
-HTTP service's path (B1, B2 and B11 only; each of its parts counted on its
-own), phases int8 and fused its opt-in routes, phase 8 the long towers'
-path: every launch count is set to 0 just before each and read just after
-it, and every kernel must have been launched on one of them. Then one line
+opt-in kernels B5-B7), phase preprocess the canvas path (B1 and B2 only),
+phase ivf the IVF path (B11 only), phase serve the HTTP service's path
+(B1, B2 and B11 only; each of its parts counted on its own), phases int8
+and fused its opt-in routes, phase 8 the long towers' path, phase resnet
+the ResNet towers' (no kernel), phase quality the gate's (B1, B2 and B11):
+every launch count is set to 0 just before each and read just after it,
+and every kernel must have been launched on one of them. Then one line
 gives each phase's seconds, one lists every kernel ({"kernels": [...]})
 with the sum of those counts, and one the card's name and power limit;
 the last line is
@@ -1309,7 +1331,7 @@ def phase_encode(enc, images: np.ndarray) -> dict:
             "cos_vs_cpu_f32_min": float(cos.min()), "cos_tolerance": COS_MIN,
             "cos_batch1_vs_batch128": cos_one}
     emit(info)
-    return {"embs": embs, "info": info, "cpu_ref": ref}
+    return {"embs": embs, "info": info, "cpu_ref": ref, "cpu": cpu}
 
 
 def text_latency(enc) -> dict:
@@ -1613,10 +1635,11 @@ def _capacity_scan(device) -> dict:
 IVF_NPROBES = (1, 32, 100)
 # the residual IVF-PQ leg's corpus: the last IVF_PQ_ROWS rows of phase
 # search's corpus (the encoded images among them). Its encode (trained OPQ
-# on the residuals, then every row, on the host) takes 2 minutes here and
-# about 3 at all 1,001,024 rows; PERF.md lists the cut. The other coded
-# legs install phase coded's codes files at full size
-IVF_PQ_ROWS = 262_144
+# on the residuals, then every row, on the host) took 2 to 2.5 minutes at
+# 262,144 rows, and the whole run came near its time limit, so it is cut
+# to 131,072; PERF.md lists the cut. The other coded legs install phase
+# coded's codes files at full size
+IVF_PQ_ROWS = 131_072
 # timed searches a p50, by query count: a fixed number, so the B11 launch
 # totals repeat from run to run (the slowest search, int4 at nprobe 100
 # and Q = 16, took under 0.1 s)
@@ -2499,6 +2522,9 @@ def phase_serve(enc, search: dict, images: np.ndarray, card: str) -> dict:
 def _kernel_class(name: str) -> str:
     """A coarse class of a CUDA kernel name, for the time by class."""
     low = name.lower()
+    if any(t in low for t in ("fprop", "conv", "implicit_gemm", "cudnn",
+                              "nhwc", "nchw")):
+        return "cuDNN convolution"
     if "sdpa_sm90" in low:
         return "sdpa_sm90 (B2-B4, B8, B10, B9's attention)"
     if "gemm_s8" in low or "quant_rows" in low:
@@ -2916,10 +2942,301 @@ def phase_long(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases preprocess, resnet and quality
+# ---------------------------------------------------------------------------
+
+CANVAS = 256           # ViT-B/32's --preprocess device canvas, (224*8+6)//7
+RESIZE_ATOL = 1e-4     # card f32 resize vs CPU f32 (summation order only)
+
+
+def phase_preprocess(enc, encoded: dict) -> dict:
+    """--preprocess device at ViT-B/32 with phase encode's weights: 1,024
+    seeded 256 x 256 canvases in batches of 128 (B1 once a layer), then one
+    batch of 1 (B2 once a layer), img/s beside phase encode's 224 px
+    img/s; a few canvases against the port's CPU f32 canvas path (cosine
+    >= COS_MIN); the resize alone, card f32 against CPU f32 within
+    RESIZE_ATOL, and its CUDA-event time; a non-square batch raises."""
+    from clipx_torch.ops.preprocess import (device_resize_normalize,
+                                            resize_weights)
+
+    layers, size = enc.cfg.vision.layers, enc.image_size
+    canvases = np.random.default_rng(SEED + 5).integers(
+        0, 256, (N_IMAGES, CANVAS, CANVAS, 3), dtype=np.uint8)
+    enc.encode_images(canvases[:BATCH])            # first use of the shape
+    embs, img_per_s = _encode_all(enc, canvases,
+                                  {"fused_attn_block": layers}, "canvases")
+    t0 = time.perf_counter()
+    one, n_one = _launched(lambda: enc.encode_images(canvases[:1]))
+    one_ms = (time.perf_counter() - t0) * 1e3
+    check(n_one == {"packed_sdpa": layers},
+          f"a canvas batch of 1 launched {n_one}, expected {layers} of "
+          "packed_sdpa")
+    cos_one = float(one[0] @ embs[0])
+    check(cos_one >= COS_MIN, f"canvas batch-1 vs batch-128 cosine {cos_one}")
+    ref = encoded["cpu"].encode_images(canvases[:CPU_CHECK])
+    cos_cpu = _cos_min(ref, embs[:CPU_CHECK])
+    check(cos_cpu >= COS_MIN, f"canvas path card vs CPU f32 cosine {cos_cpu}")
+
+    # the resize alone at the indexing batch, f32 on both devices
+    host = torch.from_numpy(canvases[:BATCH])
+    dev = host.to(enc.device)
+    with torch.inference_mode():
+        card = device_resize_normalize(dev, size)
+        cpu = device_resize_normalize(host[:8], size)
+        err = float((card[:8].cpu() - cpu).abs().max())
+        check(err <= RESIZE_ATOL,
+              f"resize card vs CPU f32 max abs error {err} > {RESIZE_ATOL}")
+        resize_ms = cuda_ms(lambda: device_resize_normalize(
+            dev, size, dtype=torch.bfloat16), iters=20)
+        resize_device_ms = device_ms(lambda: device_resize_normalize(
+            dev, size, dtype=torch.bfloat16), iters=10)
+    try:
+        enc.encode_images(np.zeros((2, CANVAS, CANVAS + 64, 3), np.uint8))
+        raised = False
+    except ValueError as exc:
+        raised = "square canvas" in str(exc)
+    check(raised, "a non-square batch did not raise the square-canvas error")
+    base = encoded["info"]["img_per_s"]
+    # bytes and operations of the resize of one 128-canvas batch: uint8 in,
+    # bf16 out. The function needs only the weight matrix's nonzero taps
+    # (about 5 an output sample); the dense contractions that run multiply
+    # every input row and column, so their bound is reported beside it.
+    nbytes = BATCH * 3 * (CANVAS * CANVAS + 2 * size * size)
+    taps = int(np.count_nonzero(resize_weights(CANVAS, size)))
+    flops = 2 * BATCH * 3 * taps * (CANVAS + size)
+    dense_flops = 2 * BATCH * 3 * size * CANVAS * (CANVAS + size)
+    bms, by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    dense_bms, dense_by = bound(dense_flops, nbytes, PEAK_F32_FLOPS)
+    info = {"phase": "preprocess", "model": "ViT-B/32", "canvas": CANVAS,
+            "images": N_IMAGES, "batch": BATCH, "img_per_s": img_per_s,
+            "img_per_s_224_encode_phase": base,
+            "canvas_vs_224_ratio": img_per_s / base, "batch1_ms": one_ms,
+            "launches_batch1": n_one, "cos_vs_cpu_f32_min": cos_cpu,
+            "cos_batch1_vs_batch128": cos_one,
+            "resize_max_abs_err_vs_cpu": err, "resize_atol": RESIZE_ATOL,
+            "resize_ms_batch128": resize_ms,
+            "resize_device_ms_batch128": resize_device_ms,
+            "resize_taps_per_sample": taps / size,
+            "resize_bound_ms": bms, "resize_bound_by": by,
+            "resize_dense_bound_ms": dense_bms,
+            "resize_dense_bound_by": dense_by,
+            "non_square_raises": raised}
+    emit(info)
+    return info
+
+
+RN_MODEL, RN_OTHERS, RN_FEW, RN_CPU_FEW = (
+    "RN50", ("RN101", "RN50x4", "RN50x16", "RN50x64"), 8, 2)
+
+
+def _rn_encoders(name: str, device, buckets):
+    """(card Encoder, CPU f32 Encoder, setup seconds) of one RN preset,
+    both from one seeded numpy init."""
+    from clipx_torch import config as config_lib
+    from clipx_torch.models import convert
+    from clipx_torch.runtime.encoder import Encoder
+
+    cfg = config_lib.get_config(name)
+    t0 = time.perf_counter()
+    params = convert.init_params(cfg, SEED)
+    enc = Encoder(cfg, params, device=device, batch_buckets=buckets)
+    enc.warmup(buckets=buckets)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cpu = Encoder(cfg, params, device="cpu", batch_buckets=(RN_CPU_FEW,))
+    return enc, cpu, setup_s
+
+
+def phase_resnet(device) -> dict:
+    """The ResNet towers at full width with seeded random weights: RN50 on
+    1,024 seeded 224 x 224 images in batches of 128 and one of 1 (img/s,
+    unit rows, no kernel of the port launched), against the CPU's f32
+    encode on CPU_CHECK images; a torch.profiler breakdown of one batch;
+    RN50's text p50; then RN101, RN50x4, RN50x16 and RN50x64 on RN_FEW
+    images each (batch ms), against the CPU on RN_CPU_FEW."""
+    enc, cpu, setup_s = _rn_encoders(RN_MODEL, device, (1, 8, BATCH))
+    images = np.random.default_rng(SEED + 6).integers(
+        0, 256, (N_IMAGES, 224, 224, 3), dtype=np.uint8)
+    embs, img_per_s = _encode_all(enc, images, {}, RN_MODEL)
+    t0 = time.perf_counter()
+    one, n_one = _launched(lambda: enc.encode_images(images[:1]))
+    one_ms = (time.perf_counter() - t0) * 1e3
+    check(n_one == {}, f"{RN_MODEL} batch of 1 launched {n_one}")
+    cos_one = float(one[0] @ embs[0])
+    check(cos_one >= COS_MIN, f"{RN_MODEL} batch-1 vs 128 cosine {cos_one}")
+    ref = cpu.encode_images(images[:CPU_CHECK])
+    del cpu
+    cos_cpu = _cos_min(ref, embs[:CPU_CHECK])
+    check(cos_cpu >= COS_MIN, f"{RN_MODEL} card vs CPU f32 cosine {cos_cpu}")
+    profile = encode_profile(enc, images[:BATCH], reps=2, plain_reps=8)
+    text = text_latency(enc)
+    del enc
+    torch.cuda.empty_cache()
+
+    others = {}
+    for name in RN_OTHERS:
+        enc, cpu, setup = _rn_encoders(name, device, (RN_FEW,))
+        size = enc.image_size
+        few = np.random.default_rng(SEED + 7).integers(
+            0, 256, (RN_FEW, size, size, 3), dtype=np.uint8)
+        times, launched = [], {}
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, n = _launched(lambda: enc.encode_images(few))
+            times.append((time.perf_counter() - t0) * 1e3)
+            launched.update(n)
+        check(launched == {}, f"{name} launched {launched}")
+        _unit_rows(out, enc.embed_dim, name)
+        cos = _cos_min(cpu.encode_images(few[:RN_CPU_FEW]),
+                       out[:RN_CPU_FEW])
+        check(cos >= COS_MIN, f"{name} card vs CPU f32 cosine {cos}")
+        others[name] = {"image_size": size, "setup_s": setup,
+                        "batch": RN_FEW,
+                        "batch_ms_median": statistics.median(times),
+                        "batch_ms": times, "cos_vs_cpu_f32_min": cos}
+        del enc, cpu
+        torch.cuda.empty_cache()
+    info = {"phase": "resnet", "model": RN_MODEL, "setup_s": setup_s,
+            "images": N_IMAGES, "batch": BATCH, "img_per_s": img_per_s,
+            "batch1_ms": one_ms, "launches_per_batch": {},
+            "cos_vs_cpu_f32_min": cos_cpu, "cos_batch1_vs_batch128": cos_one,
+            "cos_tolerance": COS_MIN, "profile": profile, "text": text,
+            "others": others}
+    emit(info)
+    return info
+
+
+# tests/test_quality_gate.py's floors: (stdout pattern, floor per group)
+QUALITY_FLOORS = (
+    (r"self-retrieval: (\d+)/(\d+) rank-0 hits", None),
+    (r"int8\+rescore vs exact: recall@50 ([0-9.]+), top-1 agreement "
+     r"([0-9.]+)", (1.0, 1.0)),
+    (r"bf16-corpus int8\+rescore vs exact f32: recall@50 ([0-9.]+), "
+     r"top-1 agreement ([0-9.]+)", (0.99, 1.0)),
+    (r"int8-storage vs exact f32: recall@50 ([0-9.]+), top-1 agreement "
+     r"([0-9.]+)", (0.97, 1.0)),
+    (r"int4-storage vs exact f32: recall@50 ([0-9.]+), top-1 agreement "
+     r"([0-9.]+)", (0.85, 1.0)),
+    (r"pq-storage \(dsub=2, opq=trained\) vs exact f32: recall@50 "
+     r"([0-9.]+), top-1 agreement ([0-9.]+)", (0.45, 1.0)),
+    (r"ivf vs exact \(IVFIndex\): recall@50 ([0-9.]+) at nprobe=100, "
+     r"([0-9.]+) at nprobe=32", (1.0, 0.0)),
+    (r"ivf-int8 vs exact: recall@50 ([0-9.]+) at nprobe=100", (0.95,)),
+    (r"ivf-int8-storage vs exact f32: recall@50 ([0-9.]+) at nprobe=100",
+     (0.95,)),
+    (r"ivf-int4-storage vs exact f32: recall@50 ([0-9.]+) at nprobe=100",
+     (0.80,)),
+    (r"ivf-pq-storage \(residual=on\) vs exact f32: recall@50 ([0-9.]+) "
+     r"at nprobe=100, ([0-9.]+) at nprobe=32", (0.45, 0.0)))
+DRIFT_CV2_MIN, DRIFT_INT8_MIN = 0.9999, 0.99
+
+
+def _quiet(fn, *args):
+    """(fn(*args), its stdout)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def phase_quality() -> dict:
+    """The port's quality tool on the card: tests/test_quality_gate.py's
+    corpus (10,000 x 512 from RandomState(0), k = 50), every line held to
+    that test's floors; then the drift leg over 12 PNGs that the port's
+    build_index indexed at ViT-B/32 on the card (cv2 >= 0.9999, int8
+    compute >= 0.99; PIL reported: its 0.90 floor is tiny-test's)."""
+    from PIL import Image
+
+    from clipx_torch.cli import build_index
+    from clipx_torch.search.engine import IndexWriter
+    from clipx_torch.tools import eval_quality
+
+    rng = np.random.RandomState(0)
+    corpus = rng.randn(10_000, 512).astype(np.float32)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    info = {"phase": "quality", "lines": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        index = os.path.join(tmp, "gate.index")
+        writer = IndexWriter(index, *corpus.shape)
+        writer.write(corpus)
+        writer.close()
+        t0 = time.perf_counter()
+        rc, out = _quiet(eval_quality.main, ["--index", index, "--k", "50"])
+        info["gate_seconds"] = time.perf_counter() - t0
+        check(rc == 0, f"eval_quality returned {rc}:\n{out}")
+        for pattern, floors in QUALITY_FLOORS:
+            m = re.search(pattern, out)
+            check(m is not None, f"eval_quality printed no {pattern!r}")
+            values = [float(v) for v in m.groups()]
+            info["lines"][pattern.split(" ")[0].replace("\\", "")] = values
+            if floors is None:
+                check(values[0] == values[1], f"self-retrieval {values}")
+                continue
+            check(all(v >= f for v, f in zip(values, floors)),
+                  f"{m.group(0)} is below its floors {floors}")
+
+        photos = os.path.join(tmp, "photos") + os.sep
+        os.makedirs(photos)
+        rng = np.random.RandomState(1)
+        for i in range(12):
+            base = rng.randint(0, 255, (8, 8, 3), dtype=np.uint8)
+            Image.fromarray(base).resize((64, 48), Image.BILINEAR).save(
+                f"{photos}p{i:02d}.png")
+        db, idx = os.path.join(tmp, "vectors.lmdb"), os.path.join(
+            tmp, "images.index")
+        t0 = time.perf_counter()
+        rc, out = _quiet(build_index.main, ["--db", db, "--index", idx,
+                                            photos])
+        info["build_seconds"] = time.perf_counter() - t0
+        check(rc == 0 and "Done!" in out, f"build_index failed:\n{out}")
+        t0 = time.perf_counter()
+        rc, out = _quiet(eval_quality.main, [
+            "--index", idx, "--db", db, "--photos", photos, "--model",
+            "ViT-B/32", "--samples", "12", "--k", "10"])
+        info["drift_seconds"] = time.perf_counter() - t0
+        check(rc == 0, f"eval_quality --photos returned {rc}:\n{out}")
+        m = re.search(r"pil min ([0-9.-]+) mean ([0-9.-]+); cv2 min "
+                      r"([0-9.-]+) mean ([0-9.-]+)", out)
+        m8 = re.search(r"int8-compute drift vs bf16 \(cosine, n=(\d+)\): "
+                       r"min ([0-9.-]+) mean ([0-9.-]+)", out)
+        check(m is not None and m8 is not None,
+              f"eval_quality printed no drift lines:\n{out}")
+        pil_min, pil_mean, cv2_min, cv2_mean = map(float, m.groups())
+        info.update({"drift_pil_min": pil_min, "drift_pil_mean": pil_mean,
+                     "drift_cv2_min": cv2_min, "drift_cv2_mean": cv2_mean,
+                     "drift_int8_n": int(m8.group(1)),
+                     "drift_int8_min": float(m8.group(2)),
+                     "drift_int8_mean": float(m8.group(3)),
+                     "floors": {"cv2": DRIFT_CV2_MIN,
+                                "int8": DRIFT_INT8_MIN}})
+        check(cv2_min >= DRIFT_CV2_MIN,
+              f"cv2 drift {cv2_min} < {DRIFT_CV2_MIN}")
+        check(info["drift_int8_n"] == 12
+              and info["drift_int8_min"] >= DRIFT_INT8_MIN,
+              f"int8 compute drift {m8.group(0)}")
+    emit(info)
+    return info
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the CLIs
 # ---------------------------------------------------------------------------
 
+CLI_WORKERS = 3  # CLI legs run at once: each is processes of its own
+
+
 def phase_cli(info_env: dict) -> dict:
+    """The CLIs as a user runs them, each leg in a work dir of its own:
+    ViT-B/32 (then the same library as a pq index), --corpus-dtype pq
+    --search-mode ivf (and a restart), --compute int8, ViT-L/14@336px,
+    --preprocess device and RN50. The legs share nothing but the fixture
+    photos, so CLI_WORKERS of them run at once; the seconds each reports
+    are under that sharing."""
+    from concurrent.futures import ThreadPoolExecutor
+
     pkgs = info_env["host_packages"]
     if not (pkgs["PIL"] or pkgs["cv2"]):
         info = {"phase": "cli", "skipped": "neither PIL nor cv2 imports"}
@@ -2928,9 +3245,7 @@ def phase_cli(info_env: dict) -> dict:
     env = dict(os.environ, PYTHONPATH=ROOT, CLIPX_NO_VIEWER="1")
     with tempfile.TemporaryDirectory() as tmp:
         photos = os.path.join(tmp, "photos") + os.sep
-        work = os.path.join(tmp, "work")
         os.makedirs(photos)
-        os.makedirs(work)
         rng = np.random.default_rng(SEED)
         names = ["a.jpg", "b.jpeg", "c.PNG", "d.png", "e.jpg", "f.png"]
         if pkgs["PIL"]:
@@ -2950,98 +3265,139 @@ def phase_cli(info_env: dict) -> dict:
         with open(photos + "broken.jpg", "wb") as f:
             f.write(b"not an image")
         decode = ["--decode-backend", "cv2" if pkgs["cv2"] else "pil"]
-        build_s, query_s, rows = _cli_build_and_query(
-            ["--device", "cuda"], decode, photos, work, env, 512)
 
-        # the same library as a pq index: the rebuild encodes no image again
-        # and writes images.index.codes; the REPL loads it. Six rows train
-        # six centroids per subspace, so the codes reproduce the rows and
-        # each search shows the f32 run's rows (ids and paths; the order of
-        # scores closer than f32 rounding may differ)
-        pq = ["--device", "cuda", "--corpus-dtype", "pq"]
-        t0 = time.perf_counter()
-        build = subprocess.run(
-            [sys.executable, "-m", "clipx_torch.cli.build_index", *pq,
-             *decode, photos], cwd=work, env=env, capture_output=True,
-            text=True, timeout=600)
-        pq_build_s = time.perf_counter() - t0
-        check(build.returncode == 0, f"build_index pq failed:\n{build.stderr}")
-        check("Encoding pq codes..." in build.stdout.splitlines(),
-              "build_index --corpus-dtype pq did not encode codes")
-        check(os.path.exists(os.path.join(work, "images.index.codes")),
-              "build_index --corpus-dtype pq wrote no codes file")
-        t0 = time.perf_counter()
-        query = subprocess.run(
-            [sys.executable, "-m", "clipx_torch.cli.query_index", *pq],
-            cwd=work, env=env, input="a photo of a cat\ni 1\nq\n",
-            capture_output=True, text=True, timeout=600)
-        pq_query_s = time.perf_counter() - t0
-        check(query.returncode == 0,
-              f"query_index pq failed:\n{query.stderr}")
-        check("(loaded 6 pq rows from images.index.codes)" in query.stderr,
-              "query_index --corpus-dtype pq did not load the codes file")
-        pq_rows = [ln for ln in query.stdout.splitlines()
-                   if len(ln.split()) == 3 and ln.split()[1].isdigit()
-                   and ln.split()[2].startswith(photos)]
-        def shown(rs):  # (id, path) per search: the text query, then 'i 1'
-            return [sorted(r.split()[1] + " " + r.split()[2]
-                           for r in rs[i: i + 5]) for i in (0, 5)]
+        def workdir(name):
+            path = os.path.join(tmp, name)
+            os.makedirs(path)
+            return path
 
-        check(len(pq_rows) == 10 and shown(pq_rows) == shown(rows),
-              f"pq result rows {pq_rows} differ from the f32 run's {rows}")
+        def default_and_pq():
+            work = workdir("work")
+            build_s, query_s, rows, stats = _cli_build_and_query(
+                ["--device", "cuda"], decode, photos, work, env, 512)
+            # the same library as a pq index: the rebuild encodes no image
+            # again and writes images.index.codes; the REPL loads it. Six
+            # rows train six centroids per subspace, so the codes reproduce
+            # the rows and each search shows the f32 run's rows (ids and
+            # paths; the order of scores closer than f32 rounding may
+            # differ)
+            pq = ["--device", "cuda", "--corpus-dtype", "pq"]
+            t0 = time.perf_counter()
+            build = subprocess.run(
+                [sys.executable, "-m", "clipx_torch.cli.build_index", *pq,
+                 *decode, photos], cwd=work, env=env, capture_output=True,
+                text=True, timeout=600)
+            pq_build_s = time.perf_counter() - t0
+            check(build.returncode == 0,
+                  f"build_index pq failed:\n{build.stderr}")
+            check("Encoding pq codes..." in build.stdout.splitlines(),
+                  "build_index --corpus-dtype pq did not encode codes")
+            check(os.path.exists(os.path.join(work, "images.index.codes")),
+                  "build_index --corpus-dtype pq wrote no codes file")
+            t0 = time.perf_counter()
+            query = subprocess.run(
+                [sys.executable, "-m", "clipx_torch.cli.query_index", *pq],
+                cwd=work, env=env, input="a photo of a cat\ni 1\nq\n",
+                capture_output=True, text=True, timeout=600)
+            pq_query_s = time.perf_counter() - t0
+            check(query.returncode == 0,
+                  f"query_index pq failed:\n{query.stderr}")
+            check("(loaded 6 pq rows from images.index.codes)"
+                  in query.stderr,
+                  "query_index --corpus-dtype pq did not load the codes file")
+            pq_rows = [ln for ln in query.stdout.splitlines()
+                       if len(ln.split()) == 3 and ln.split()[1].isdigit()
+                       and ln.split()[2].startswith(photos)]
+            return {"build_s": build_s, "query_s": query_s, "rows": rows,
+                    "stats": stats, "pq_build_s": pq_build_s,
+                    "pq_query_s": pq_query_s, "pq_rows": pq_rows}
 
-        # --search-mode ivf with pq storage: the first REPL start builds the
-        # IVF index (k-means, residual codes) and writes images.index.ivf
-        # and the residual codes; a second start loads both ('i 1' only).
-        # Six rows make six one-row clusters, so the residuals are zero and
-        # each search shows the f32 run's rows
-        ivf_work = os.path.join(tmp, "work_ivf")
-        os.makedirs(ivf_work)
-        ivf_flags = ["--device", "cuda", "--corpus-dtype", "pq",
+        def ivf():
+            # --search-mode ivf with pq storage: the first REPL start
+            # builds the IVF index (k-means, residual codes) and writes
+            # images.index.ivf and the residual codes; a second start loads
+            # both ('i 1' only). Six rows make six one-row clusters, so the
+            # residuals are zero and each search shows the f32 run's rows
+            work = workdir("work_ivf")
+            flags = ["--device", "cuda", "--corpus-dtype", "pq",
                      "--search-mode", "ivf"]
-        ivf_build_s, ivf_query_s, ivf_rows = _cli_build_and_query(
-            ivf_flags, decode, photos, ivf_work, env, 512)
-        check(os.path.exists(os.path.join(ivf_work, "images.index.ivf")),
-              "query_index --search-mode ivf wrote no images.index.ivf")
-        check(shown(ivf_rows) == shown(rows),
-              f"ivf result rows {ivf_rows} differ from the f32 run's {rows}")
-        t0 = time.perf_counter()
-        again = subprocess.run(
-            [sys.executable, "-m", "clipx_torch.cli.query_index",
-             *ivf_flags], cwd=ivf_work, env=env, input="p 7\ni 1\nq\n",
-            capture_output=True, text=True, timeout=600)
-        ivf_reload_s = time.perf_counter() - t0
-        check(again.returncode == 0,
-              f"query_index ivf restart failed:\n{again.stderr}")
-        check("(loaded 6 pq rows from images.index.codes)" in again.stderr
-              and "Set to probe 7 subsets." in again.stdout
-              and "Similar to " + photos in again.stdout,
-              "query_index ivf restart did not load the codes and .ivf")
+            build_s, query_s, rows, _ = _cli_build_and_query(
+                flags, decode, photos, work, env, 512)
+            check(os.path.exists(os.path.join(work, "images.index.ivf")),
+                  "query_index --search-mode ivf wrote no images.index.ivf")
+            t0 = time.perf_counter()
+            again = subprocess.run(
+                [sys.executable, "-m", "clipx_torch.cli.query_index",
+                 *flags], cwd=work, env=env, input="p 7\ni 1\nq\n",
+                capture_output=True, text=True, timeout=600)
+            reload_s = time.perf_counter() - t0
+            check(again.returncode == 0,
+                  f"query_index ivf restart failed:\n{again.stderr}")
+            check("(loaded 6 pq rows from images.index.codes)" in again.stderr
+                  and "Set to probe 7 subsets." in again.stdout
+                  and "Similar to " + photos in again.stdout,
+                  "query_index ivf restart did not load the codes and .ivf")
+            return {"build_s": build_s, "query_s": query_s, "rows": rows,
+                    "reload_query_s": reload_s}
 
-        # --compute int8 with the fused W8A8 MLP (B6)
-        int8_work = os.path.join(tmp, "work_int8")
-        os.makedirs(int8_work)
-        int8_build_s, int8_query_s, int8_rows = _cli_build_and_query(
-            ["--device", "cuda", "--compute", "int8"], decode, photos,
-            int8_work, dict(env, CLIPX_FUSED_MLP_INT8="on"), 512)
+        def leg(name, flags, build_only, dim, leg_env=env):
+            build_s, query_s, rows, stats = _cli_build_and_query(
+                flags, decode + build_only, photos, workdir(name), leg_env,
+                dim)
+            return {"build_s": build_s, "query_s": query_s, "rows": rows,
+                    "stats": stats}
 
-        # the same photos at ViT-L/14@336px: the long-sequence kernels
-        long_work = os.path.join(tmp, "work_long")
-        os.makedirs(long_work)
-        long_build_s, long_query_s, long_rows = _cli_build_and_query(
-            ["--device", "cuda", "--model", LONG_MODEL], decode, photos,
-            long_work, env, 768)
-    info = {"phase": "cli", "fixtures": backend, "build_s": build_s,
-            "query_s": query_s, "result_rows": len(rows),
-            "pq_build_s": pq_build_s, "pq_query_s": pq_query_s,
-            "pq_result_rows": len(pq_rows), "ivf_pq_build_s": ivf_build_s,
-            "ivf_pq_query_s": ivf_query_s, "ivf_pq_reload_query_s":
-            ivf_reload_s, "ivf_pq_result_rows": len(ivf_rows),
-            "int8_build_s": int8_build_s,
-            "int8_query_s": int8_query_s, "int8_result_rows": len(int8_rows),
-            "long_model": LONG_MODEL,
-            "long_build_s": long_build_s, "long_query_s": long_query_s,
-            "long_result_rows": len(long_rows)}
+        with ThreadPoolExecutor(CLI_WORKERS) as pool:
+            futures = {
+                "main": pool.submit(default_and_pq),
+                # the same photos at ViT-L/14@336px: the long kernels
+                "long": pool.submit(leg, "work_long", [
+                    "--device", "cuda", "--model", LONG_MODEL], [], 768),
+                "ivf": pool.submit(ivf),
+                # --compute int8 with the fused W8A8 MLP (B6)
+                "int8": pool.submit(
+                    leg, "work_int8", ["--device", "cuda", "--compute",
+                                       "int8"], [], 512,
+                    dict(env, CLIPX_FUSED_MLP_INT8="on")),
+                # --preprocess device: the host decodes 256 px canvases,
+                # the card resamples them (the stdout contract is the same)
+                "device": pool.submit(leg, "work_device", [
+                    "--device", "cuda"], ["--preprocess", "device"], 512),
+                # the ResNet tower at RN50 (1024-wide embeddings)
+                "rn50": pool.submit(leg, "work_rn50", [
+                    "--device", "cuda", "--model", "RN50"], [], 1024)}
+            legs = {name: f.result() for name, f in futures.items()}
+    main, ivf_leg = legs["main"], legs["ivf"]
+    rows = main["rows"]
+
+    def shown(rs):  # (id, path) per search: the text query, then 'i 1'
+        return [sorted(r.split()[1] + " " + r.split()[2]
+                       for r in rs[i: i + 5]) for i in (0, 5)]
+
+    check(len(main["pq_rows"]) == 10
+          and shown(main["pq_rows"]) == shown(rows),
+          f"pq result rows {main['pq_rows']} differ from the f32 run's {rows}")
+    check(shown(ivf_leg["rows"]) == shown(rows),
+          f"ivf result rows {ivf_leg['rows']} differ from the f32 run's "
+          f"{rows}")
+    info = {"phase": "cli", "fixtures": backend, "workers": CLI_WORKERS,
+            "build_s": main["build_s"], "query_s": main["query_s"],
+            "result_rows": len(rows), "stats": main["stats"],
+            "pq_build_s": main["pq_build_s"],
+            "pq_query_s": main["pq_query_s"],
+            "pq_result_rows": len(main["pq_rows"]),
+            "ivf_pq_build_s": ivf_leg["build_s"],
+            "ivf_pq_query_s": ivf_leg["query_s"],
+            "ivf_pq_reload_query_s": ivf_leg["reload_query_s"],
+            "ivf_pq_result_rows": len(ivf_leg["rows"]),
+            "long_model": LONG_MODEL}
+    for name, key in (("int8", "int8"), ("long", "long"),
+                      ("device", "preprocess_device"), ("rn50", "rn50")):
+        info.update({f"{key}_build_s": legs[name]["build_s"],
+                     f"{key}_query_s": legs[name]["query_s"],
+                     f"{key}_result_rows": len(legs[name]["rows"])})
+        if name in ("device", "rn50"):
+            info[f"{key}_stats"] = legs[name]["stats"]
     emit(info)
     return info
 
@@ -3049,9 +3405,11 @@ def phase_cli(info_env: dict) -> dict:
 def _cli_build_and_query(flags, decode, photos: str, work: str, env,
                          dim: int):
     """build_index over the fixture photos (6 images and one broken file)
-    in work, then the scripted REPL (a text query, 'i 1', 'q'), with the
+    in work (``flags`` and the build-only ``decode`` flags), then the
+    scripted REPL (``flags``: a text query, 'i 1', 'q'), with the
     stdout checks of the reference contract. Returns (build seconds,
-    query seconds, result rows)."""
+    query seconds, result rows, the build's [stats] line on stderr as
+    {stage: items per second})."""
     t0 = time.perf_counter()
     build = subprocess.run(
         [sys.executable, "-m", "clipx_torch.cli.build_index", *flags,
@@ -3084,7 +3442,15 @@ def _cli_build_and_query(flags, decode, photos: str, work: str, env,
           f"query_index {flags}: 'i 1' did not answer")
     # 6 images, rank 0 skipped: 5 rows for the text query, 5 for 'i 1'
     check(len(rows) == 10, f"query_index {flags} printed {len(rows)} rows")
-    return build_s, query_s, rows
+    stats = [ln for ln in build.stderr.splitlines()
+             if ln.startswith("[stats] ")]
+    check(len(stats) == 1, f"build_index {flags} printed no [stats] line")
+    rates = {m.group(1): float(m.group(2).replace(",", ""))
+             for m in re.finditer(r"(\w+): [0-9.]+s n=\d+ \(([0-9,.]+)/s\)",
+                                  stats[0])}
+    check(rates.get("encode_dispatch", 0) > 0,
+          f"build_index {flags}: no encode rate in {stats[0]!r}")
+    return build_s, query_s, rows, rates
 
 
 def main() -> int:
@@ -3131,6 +3497,16 @@ def main() -> int:
           "the default path launched an opt-in kernel")
     timed("profile", phase_profile, enc, images, encoded["info"])
     paths = [launches]
+    # the canvas path (--preprocess device): counts from 0 just before it,
+    # read just after
+    ps.reset_launches()
+    timed("preprocess", phase_preprocess, enc, encoded)
+    paths.append(dict(ps.LAUNCHES))
+    emit({"phase": "preprocess_path_launches", "launches": paths[-1]})
+    check({name for name, n in paths[-1].items() if n}
+          == {"fused_attn_block", "packed_sdpa"},
+          f"the canvas path launched {paths[-1]}, not B1 and B2 alone")
+    del encoded["cpu"]
     # the IVF path: counts from 0 just before it, read just after its
     # searches (before its kernel-versus-plain checks)
     ps.reset_launches()
@@ -3167,6 +3543,22 @@ def main() -> int:
     timed("long", phase_long, device)
     paths.append(dict(ps.LAUNCHES))
     emit({"phase": "long_path_launches", "launches": paths[-1]})
+    # the ResNet towers' path: no kernel of the port's
+    ps.reset_launches()
+    timed("resnet", phase_resnet, device)
+    paths.append(dict(ps.LAUNCHES))
+    emit({"phase": "resnet_path_launches", "launches": paths[-1]})
+    check(not any(paths[-1].values()),
+          f"the ResNet towers launched {paths[-1]}")
+    # the quality gate's path: B11 (flat and IVF pq), B1 and B2 (the drift
+    # leg's build and one-image encodes)
+    ps.reset_launches()
+    timed("quality", phase_quality)
+    paths.append(dict(ps.LAUNCHES))
+    emit({"phase": "quality_path_launches", "launches": paths[-1]})
+    check({name for name, n in paths[-1].items() if n}
+          == {"fused_attn_block", "packed_sdpa", "pq_scan_scores"},
+          f"the quality gate launched {paths[-1]}, not B1, B2 and B11")
     total = {name: sum(p[name] for p in paths) for name in launches}
     for name, _, _ in KERNEL_TABLE:
         check(total[name] > 0,

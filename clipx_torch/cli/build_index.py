@@ -49,8 +49,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "--no-fast-decode overrides $CLIPX_FAST_DECODE")
     p.add_argument("--preprocess", choices=("host", "device"),
                    default=os.environ.get("CLIPX_PREPROCESS", "host"),
-                   help="host: resize+crop on the CPU (device is not "
-                        "ported yet)")
+                   help="host: resize+crop on the CPU (PIL-parity "
+                        "option); device: decode to a larger square canvas "
+                        "and do the antialiased bicubic resample on the GPU")
     p.add_argument("--trace-dir", default=None,
                    help="write a torch.profiler trace of the encode phase")
     p.add_argument("dirs", nargs="*")
@@ -129,6 +130,10 @@ PIPELINE_DEPTH = 2
 def _encode_phase(args, encoder, env, fn_db, skip_db,
                   timers: StageTimers) -> None:
     size = encoder.image_size
+    if args.preprocess == "device":
+        # the host decodes to a larger square canvas (256 for 224 px); the
+        # Encoder resamples canvas-sized batches on the device
+        size = (size * 8 + 6) // 7
     for base_path in args.dirs:
         print(f"CLIPing {base_path}...")
         with timers.stage("scan"):

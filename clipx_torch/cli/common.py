@@ -5,9 +5,10 @@ variables and the on-disk names are clipx's, so a command line (and a
 ``vectors.lmdb`` + ``images.index`` + ``images.index.codes`` set) works with
 either package. The port adds ``--device {cuda,cpu}`` (default ``cuda``; no
 GPU and no ``--device cpu`` is an error). ``--search-mode ivf`` builds (or
-loads through ``<index>.ivf``) the IVF index of ``search/ivf.py``. A flag
-value whose code path is not ported yet (``--preprocess device``,
-``--sharded on``) exits with a message saying so.
+loads through ``<index>.ivf``) the IVF index of ``search/ivf.py``; the
+indexer's ``--preprocess device`` decodes to a square canvas that the
+Encoder resamples on the device. A flag value whose code path is not ported
+yet (``--sharded on``) exits with a message saying so.
 """
 
 from __future__ import annotations
@@ -37,8 +38,6 @@ QUANT_AUTO_THRESHOLD = 100_000
 # with the item of ROADMAP.md's queue A (modules still to port) that
 # brings each
 _NOT_PORTED = {
-    "preprocess": {"device": "the port of device preprocessing, ROADMAP.md "
-                             'queue A, "Device preprocess"'},
     "sharded": {"on": "the port of multi-device search, ROADMAP.md queue A, "
                       '"Multi-device"'}}
 
@@ -47,7 +46,8 @@ def add_model_flags(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--model",
                         default=os.environ.get("CLIPX_MODEL", "ViT-B/32"),
                         help="model preset (ViT-B/32, ViT-B/16, ViT-L/14, "
-                             "ViT-L/14@336px, tiny-test)")
+                             "ViT-L/14@336px, RN50, RN101, RN50x4, "
+                             "RN50x16, RN50x64, tiny-test, tiny-rn-test)")
     parser.add_argument("--checkpoint",
                         default=os.environ.get("CLIPX_CHECKPOINT"),
                         help="converted .npz params or torch .pt state "
@@ -55,7 +55,8 @@ def add_model_flags(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--compute", choices=("bf16", "int8"),
                         default=os.environ.get("CLIPX_COMPUTE") or None,
                         help="encode arithmetic: bf16 (default) or int8 "
-                             "W8A8 MLP GEMMs on the ViT image tower "
+                             "W8A8 MLP GEMMs on the ViT image tower (the "
+                             "ResNet towers refuse it) "
                              "(clipx_torch/models/quant.py; the fused "
                              "kernel under CLIPX_FUSED_MLP_INT8=on). Text "
                              "encode stays bf16 either way")

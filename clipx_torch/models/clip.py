@@ -1,7 +1,8 @@
-"""CLIP ViT image tower and causal text tower in PyTorch.
+"""CLIP image towers and causal text tower in PyTorch.
 
-Counterpart of ``clipx/models/clip.py`` for the ViT presets (the ResNet
-towers wait for a later port). Same layouts as clipx at the public
+Counterpart of ``clipx/models/clip.py``: the ViT image tower here, the
+ModifiedResNet one (RN50 family) in ``models/resnet.py``, picked by the
+vision config's tower as clipx does. Same layouts as clipx at the public
 functions: pixels (B, H, W, 3) NHWC, already normalized; token ids
 (B, context_length); params the nested dict of ``from_jax_params``.
 Embeddings come back float32 whatever the compute dtype.
@@ -45,9 +46,12 @@ def encode_image(params: Params, cfg: CLIPConfig, pixels: torch.Tensor, *,
                  attn_impl: str = "xla") -> torch.Tensor:
     """Image embeddings (B, embed_dim) float32. ``normalize=True``
     additionally L2-normalizes, as the indexer stores them. ``attn_impl``
-    as in ``layers.mha_block``."""
-    if getattr(cfg.vision, "tower", "vit") != "vit":
-        raise NotImplementedError("ResNet towers are not ported yet")
+    as in ``layers.mha_block`` (the ResNet towers ignore it)."""
+    if getattr(cfg.vision, "tower", "vit") == "resnet":
+        from clipx_torch.models import resnet
+
+        return resnet.encode_image(params, cfg, pixels, normalize=normalize,
+                                   dtype=dtype)
     v = cfg.vision
     p = params["visual"]
     x = patchify(pixels.to(dtype), v.patch_size)

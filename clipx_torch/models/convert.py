@@ -1,11 +1,12 @@
 """Checkpoints and parameters for the port: numpy trees <-> torch tensors.
 
-Counterpart of ``clipx/models/convert.py`` (ViT part). Parameters travel
-as the nested dict of numpy arrays that ``clipx.models.convert`` produces:
-stacked per-tower blocks, ``x @ W`` (in, out) weight layout. This module
+Counterpart of ``clipx/models/convert.py``. Parameters travel as the
+nested dict of numpy arrays that ``clipx.models.convert`` produces: stacked
+per-tower blocks, ``x @ W`` (in, out) weight layout; for the ResNet towers
+HWIO conv kernels with folded BatchNorm. This module
 
-- reads torch CLIP state dicts in the OpenAI and HuggingFace layouts into
-  that tree (``from_state_dict``; the ResNet towers wait for a later port);
+- reads torch CLIP state dicts in the OpenAI (ViT and ModifiedResNet) and
+  HuggingFace layouts into that tree (``from_state_dict``);
 - reads and writes the flat-key ``.npz`` of ``clipx.models.convert.
   save_params`` (``load_params`` / ``save_params``), so a checkpoint saved
   by either package loads in the other;
@@ -24,7 +25,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from clipx_torch.config import CLIPConfig, TextConfig, VisionConfig
+from clipx_torch.config import (CLIPConfig, ResNetVisionConfig, TextConfig,
+                                VisionConfig)
 
 Params = Dict[str, Any]
 Arrays = Mapping[str, np.ndarray]
@@ -61,11 +63,95 @@ def _layers(sd: Arrays, pattern: str) -> int:
     return 1 + max(int(m.group(1)) for k in sd if (m := re.match(pattern, k)))
 
 
+def _conv_hwio(w: np.ndarray) -> np.ndarray:
+    """torch conv (out, in, kh, kw) -> HWIO (kh, kw, in, out)."""
+    return w.transpose(2, 3, 1, 0)
+
+
+def _fold_bn(sd: Arrays, prefix: str) -> Params:
+    from clipx_torch.models.resnet import fold_bn
+
+    return fold_bn(_np(sd, f"{prefix}.weight"), _np(sd, f"{prefix}.bias"),
+                   _np(sd, f"{prefix}.running_mean"),
+                   _np(sd, f"{prefix}.running_var"))
+
+
+def _rn_block(sd: Arrays, prefix: str) -> Params:
+    p = {
+        "conv1": _conv_hwio(_np(sd, f"{prefix}.conv1.weight")),
+        "bn1": _fold_bn(sd, f"{prefix}.bn1"),
+        "conv2": _conv_hwio(_np(sd, f"{prefix}.conv2.weight")),
+        "bn2": _fold_bn(sd, f"{prefix}.bn2"),
+        "conv3": _conv_hwio(_np(sd, f"{prefix}.conv3.weight")),
+        "bn3": _fold_bn(sd, f"{prefix}.bn3"),
+    }
+    if f"{prefix}.downsample.0.weight" in sd:
+        # torch layout: Sequential(avgpool, conv1x1, bn)
+        p["down_conv"] = _conv_hwio(_np(sd, f"{prefix}.downsample.0.weight"))
+        p["down_bn"] = _fold_bn(sd, f"{prefix}.downsample.1")
+    return p
+
+
+def _rn_visual(sd: Arrays, v) -> Params:
+    from clipx_torch.models.resnet import _stack_blocks
+
+    out: Params = {"stem": {
+        "conv1": _conv_hwio(_np(sd, "visual.conv1.weight")),
+        "bn1": _fold_bn(sd, "visual.bn1"),
+        "conv2": _conv_hwio(_np(sd, "visual.conv2.weight")),
+        "bn2": _fold_bn(sd, "visual.bn2"),
+        "conv3": _conv_hwio(_np(sd, "visual.conv3.weight")),
+        "bn3": _fold_bn(sd, "visual.bn3"),
+    }}
+    for i, n_blocks in enumerate(v.layers):
+        stage: Params = {"first": _rn_block(sd, f"visual.layer{i + 1}.0")}
+        if n_blocks > 1:
+            stage["rest"] = _stack_blocks(
+                [_rn_block(sd, f"visual.layer{i + 1}.{j}")
+                 for j in range(1, n_blocks)])
+        out[f"stage{i + 1}"] = stage
+    ap = "visual.attnpool"
+    out["attnpool"] = {
+        "pos_embedding": _np(sd, f"{ap}.positional_embedding"),
+        "wq": _np(sd, f"{ap}.q_proj.weight").T,
+        "bq": _np(sd, f"{ap}.q_proj.bias"),
+        "wk": _np(sd, f"{ap}.k_proj.weight").T,
+        "bk": _np(sd, f"{ap}.k_proj.bias"),
+        "wv": _np(sd, f"{ap}.v_proj.weight").T,
+        "bv": _np(sd, f"{ap}.v_proj.bias"),
+        "wc": _np(sd, f"{ap}.c_proj.weight").T,
+        "bc": _np(sd, f"{ap}.c_proj.bias"),
+    }
+    return out
+
+
+def _config_from_openai_resnet(sd: Arrays) -> CLIPConfig:
+    width = int(np.asarray(sd["visual.conv1.weight"]).shape[0]) * 2
+    layers = tuple(_layers(sd, rf"visual\.layer{s}\.(\d+)\.")
+                   for s in range(1, 5))
+    pos = int(np.asarray(
+        sd["visual.attnpool.positional_embedding"]).shape[0])
+    image_size = 32 * int(round((pos - 1) ** 0.5))
+    embed_dim = int(np.asarray(sd["visual.attnpool.c_proj.weight"]).shape[0])
+    t_layers = _layers(sd, r"transformer\.resblocks\.(\d+)\.")
+    t_width = int(np.asarray(sd["ln_final.weight"]).shape[0])
+    vocab = int(np.asarray(sd["token_embedding.weight"]).shape[0])
+    ctx = int(np.asarray(sd["positional_embedding"]).shape[0])
+    return CLIPConfig(
+        name=f"openai-rn-w{width}",
+        vision=ResNetVisionConfig(image_size=image_size, layers=layers,
+                                  width=width, embed_dim=embed_dim),
+        text=TextConfig(context_length=ctx, vocab_size=vocab, width=t_width,
+                        layers=t_layers, heads=t_width // 64,
+                        embed_dim=embed_dim),
+    )
+
+
 def config_from_openai_state_dict(sd: Arrays) -> CLIPConfig:
-    """Infer the architecture from an OpenAI CLIP ViT state dict."""
+    """Infer the architecture from an OpenAI CLIP state dict (ViT or
+    ModifiedResNet)."""
     if _is_resnet_sd(sd):
-        raise NotImplementedError("ResNet checkpoints are not ported yet "
-                                  "(clipx_torch runs the ViT towers)")
+        return _config_from_openai_resnet(sd)
     conv = sd["visual.conv1.weight"]
     width = int(conv.shape[0])
     patch = int(conv.shape[-1])
@@ -121,10 +207,10 @@ def _openai_blocks(sd: Arrays, prefix: str, layers: int) -> Params:
 
 def from_openai_state_dict(sd: Arrays, cfg: CLIPConfig) -> Params:
     v, t = cfg.vision, cfg.text
-    if getattr(v, "tower", "vit") != "vit":
-        raise NotImplementedError("ResNet towers are not ported yet")
-    return {
-        "visual": {
+    if getattr(v, "tower", "vit") == "resnet":
+        visual = _rn_visual(sd, v)
+    else:
+        visual = {
             "patch_embed": {"kernel": _conv_to_patch_kernel(
                 _np(sd, "visual.conv1.weight"))},
             "class_embedding": _np(sd, "visual.class_embedding"),
@@ -135,7 +221,9 @@ def from_openai_state_dict(sd: Arrays, cfg: CLIPConfig) -> Params:
             "ln_post": {"scale": _np(sd, "visual.ln_post.weight"),
                         "bias": _np(sd, "visual.ln_post.bias")},
             "proj": _np(sd, "visual.proj"),
-        },
+        }
+    return {
+        "visual": visual,
         "text": {
             "token_embedding": _np(sd, "token_embedding.weight"),
             "pos_embedding": _np(sd, "positional_embedding"),
@@ -309,8 +397,6 @@ def init_params(cfg: CLIPConfig, seed: int = 0) -> Params:
     generator, not ``jax.random``, so they differ from clipx's for the same
     seed: to compare the two packages, convert one tree and hand it to
     both."""
-    if getattr(cfg.vision, "tower", "vit") != "vit":
-        raise NotImplementedError("ResNet towers are not ported yet")
     rng = np.random.default_rng(seed)
     v, t = cfg.vision, cfg.text
 
@@ -318,16 +404,22 @@ def init_params(cfg: CLIPConfig, seed: int = 0) -> Params:
         return (rng.standard_normal(shape, dtype=np.float32)
                 * np.float32(std))
 
-    patch_dim = v.patch_size * v.patch_size * 3
-    visual = {
-        "patch_embed": {"kernel": nrm((patch_dim, v.width), v.width ** -0.5)},
-        "class_embedding": nrm((v.width,), v.width ** -0.5),
-        "pos_embedding": nrm((v.seq_len, v.width), v.width ** -0.5),
-        "ln_pre": _ln_init(v.width),
-        "blocks": _init_block_stack(rng, v.layers, v.width),
-        "ln_post": _ln_init(v.width),
-        "proj": nrm((v.width, v.embed_dim), v.width ** -0.5),
-    }
+    if getattr(v, "tower", "vit") == "resnet":
+        from clipx_torch.models.resnet import init_visual
+
+        visual = init_visual(cfg, rng)
+    else:
+        patch_dim = v.patch_size * v.patch_size * 3
+        visual = {
+            "patch_embed": {"kernel": nrm((patch_dim, v.width),
+                                          v.width ** -0.5)},
+            "class_embedding": nrm((v.width,), v.width ** -0.5),
+            "pos_embedding": nrm((v.seq_len, v.width), v.width ** -0.5),
+            "ln_pre": _ln_init(v.width),
+            "blocks": _init_block_stack(rng, v.layers, v.width),
+            "ln_post": _ln_init(v.width),
+            "proj": nrm((v.width, v.embed_dim), v.width ** -0.5),
+        }
     return {
         "visual": visual,
         "text": {
@@ -352,7 +444,9 @@ def from_jax_params(tree: Params, cfg: CLIPConfig | None = None,
     int8 leaves (the W8A8 weights of ``models.quant``) stay int8, and so
     that the rest of a quantized group (a dict holding a ``*_q`` key: its
     scales and biases) stays f32, as clipx's Encoder reattaches those groups
-    after its bf16 cast. ``cfg`` is accepted for symmetry with the
+    after its bf16 cast. The ResNet towers' HWIO conv kernels keep their
+    shape and values, with their memory laid out for cuDNN
+    (``_conv_storage``). ``cfg`` is accepted for symmetry with the
     converters; the tree carries its own shapes."""
     del cfg
     quantized = any(key.endswith("_q") for key in tree)
@@ -371,6 +465,25 @@ def from_jax_params(tree: Params, cfg: CLIPConfig | None = None,
             out[key] = t.to(device=device)
             continue
         keep_f32 = quantized or t.dim() < 2
-        out[key] = t.to(device=device,
-                        dtype=torch.float32 if keep_f32 else dtype)
+        t = t.to(device=device, dtype=torch.float32 if keep_f32 else dtype)
+        if key in _CONV_KEYS and t.dim() >= 4:
+            t = _conv_storage(t)
+        out[key] = t
     return out
+
+
+# the conv kernels of models/resnet.py's tree
+_CONV_KEYS = ("conv1", "conv2", "conv3", "down_conv")
+
+
+def _conv_storage(w: torch.Tensor) -> torch.Tensor:
+    """An HWIO kernel, (kh, kw, I, O) or stacked (L, kh, kw, I, O), with the
+    same shape and values but its memory in (O, kh, kw, I) order, so that
+    ``resnet.conv2d``'s ``permute(3, 2, 0, 1)`` of it (of each layer of a
+    stack) is an OIHW kernel in channels_last memory: cuDNN's NHWC
+    convolutions read it as it is, with no copy a call."""
+    lead = tuple(range(w.dim() - 4))
+    kh, kw, i, o = (len(lead) + n for n in range(4))
+    # physical axes: (*lead, O, kh, kw, I); back to (*lead, kh, kw, I, O)
+    physical = w.permute(*lead, o, kh, kw, i).contiguous()
+    return physical.permute(*lead, kh + 1, kw + 1, i + 1, kh)

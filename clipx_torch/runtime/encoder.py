@@ -26,9 +26,14 @@ memory, then a CUDA event) and returns at once; ``finalize`` waits on the
 event. That takes the place of JAX's asynchronous dispatch in the
 indexer's pipeline: the host decodes the next batch while the GPU encodes.
 
-Not ported yet: the dp mesh and its tp option, the fused device-side
-resample (``--preprocess device``) and the ResNet towers. The XLA compile
-cache has no counterpart.
+A batch whose side is not the model's input size is a square decode
+canvas (``build_index --preprocess device``): ``device_resize_normalize``
+resamples it on the device into the same tower. The ResNet towers (RN50
+... RN50x64, ``models/resnet.py``) take the same buckets and canvas path;
+``--compute int8`` is refused for them, as clipx refuses it.
+
+Not ported yet: the dp mesh and its tp option. The XLA compile cache has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -44,7 +49,8 @@ from clipx_torch.config import CLIPConfig
 from clipx_torch.models import clip as model_lib
 from clipx_torch.models import convert
 from clipx_torch.models.layers import ATTN_IMPLS
-from clipx_torch.ops.preprocess import normalize_batch
+from clipx_torch.ops.preprocess import (device_resize_normalize,
+                                        normalize_batch, require_square)
 from clipx_torch.runtime.device import resolve_device
 from clipx_torch.text.tokenizer import ClipTokenizer
 
@@ -74,15 +80,17 @@ class Encoder:
                  batch_buckets: Sequence[int] = _DEFAULT_BUCKETS,
                  tokenizer: Optional[ClipTokenizer] = None,
                  compute_quant: Optional[str] = None):
-        if getattr(cfg.vision, "tower", "vit") != "vit":
-            raise NotImplementedError("the ResNet towers are not ported to "
-                                      "clipx_torch yet")
         quant = (compute_quant if compute_quant is not None
                  else os.environ.get("CLIPX_COMPUTE", ""))
         if quant not in ("", "bf16", "int8"):
             raise ValueError(f"unknown compute mode {quant!r} "
                              "(CLIPX_COMPUTE: bf16 or int8)")
         self.compute_quant = quant if quant == "int8" else None
+        vit = getattr(cfg.vision, "tower", "vit") == "vit"
+        if self.compute_quant and not vit:
+            raise ValueError("CLIPX_COMPUTE=int8 is implemented for "
+                             "the ViT towers (the RN family fits its "
+                             "budget in bf16)")
         if attn_impl == "auto":
             # "xla" lets mha_block pick the fused kernels per shape;
             # "pallas" forces the (B, H, S, D) flash_attention kernel
@@ -104,9 +112,9 @@ class Encoder:
         # the layout fused_attn_block, packed_sdpa_qkv and
         # fused_sdpa_long_qkv consume, built once: [wq | wk | wv] per layer;
         # wq/wk/wv become views into it (no second copy). W8A8 attention
-        # has no wq/wk/wv and does not use it.
-        attn = self.params["visual"]["blocks"]["attn"]
-        if "wq_q" not in attn:
+        # has no wq/wk/wv and does not use it, nor do the ResNet towers.
+        attn = self.params["visual"]["blocks"]["attn"] if vit else {}
+        if vit and "wq_q" not in attn:
             w = attn["wq"].shape[-1]
             attn["wqkv"] = torch.cat([attn["wq"], attn["wk"], attn["wv"]], -1)
             attn["bqkv"] = torch.cat([attn["bq"], attn["bk"], attn["bv"]], -1)
@@ -164,14 +172,21 @@ class Encoder:
         return self.cfg.embed_dim
 
     def _images(self, batch: torch.Tensor) -> torch.Tensor:
-        pixels = normalize_batch(batch, dtype=self.dtype)
+        # batches at the model input size go straight to encode; other
+        # square canvases are resampled on the device first
+        if batch.shape[1] == self.image_size:
+            pixels = normalize_batch(batch, dtype=self.dtype)
+        else:
+            pixels = device_resize_normalize(batch, self.image_size,
+                                             dtype=self.dtype)
         return model_lib.encode_image(self.params, self.cfg, pixels,
                                       normalize=True, dtype=self.dtype,
                                       attn_impl=self.attn_impl)
 
     def encode_images(self, batch_uint8: np.ndarray) -> np.ndarray:
         """(B, S, S, 3) uint8 -> (B, embed_dim) float32, L2-normalized.
-        Pads to the nearest batch bucket; oversized batches are chunked."""
+        S is the model's input size or any square canvas side. Pads to the
+        nearest batch bucket; oversized batches are chunked."""
         batch_uint8 = np.ascontiguousarray(batch_uint8, dtype=np.uint8)
         cap = self.buckets[-1]
         if batch_uint8.shape[0] > cap:
@@ -189,10 +204,7 @@ class Encoder:
         if n > self.buckets[-1]:
             raise ValueError(f"async batch exceeds bucket cap "
                              f"{self.buckets[-1]}")
-        if batch_uint8.shape[1:3] != (self.image_size, self.image_size):
-            raise NotImplementedError(
-                f"batches must be {self.image_size}x{self.image_size} (the "
-                "on-device resample of larger canvases is not ported yet)")
+        require_square(*batch_uint8.shape[1:3])
         host = torch.from_numpy(_pad_rows(batch_uint8,
                                           _pick_bucket(n, self.buckets)))
         cuda = self.device.type == "cuda"

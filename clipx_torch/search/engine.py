@@ -45,7 +45,6 @@ across devices.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import os
 import struct
@@ -55,7 +54,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from clipx_torch.runtime.device import resolve_device
+from clipx_torch.runtime.device import full_f32, resolve_device
 
 _MAGIC = b"CLIPXIDX1\n"
 _MIN_BUCKET = 4096
@@ -115,39 +114,6 @@ def _pad_len(n_new: int) -> int:
     while pad < n_new:
         pad *= 2
     return pad
-
-
-class _FullF32:
-    """TF32 off on CUDA while any search runs. The flag is global to the
-    process and concurrent searches overlap (the HTTP service's workers),
-    so one depth count decides: the first search in saves the flag and
-    turns TF32 off, the last one out restores it."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._depth = 0
-        self._saved = False
-
-    @contextlib.contextmanager
-    def __call__(self, device: torch.device):
-        if device.type != "cuda":
-            yield
-            return
-        with self._lock:
-            if self._depth == 0:
-                self._saved = torch.backends.cuda.matmul.allow_tf32
-                torch.backends.cuda.matmul.allow_tf32 = False
-            self._depth += 1
-        try:
-            yield
-        finally:
-            with self._lock:
-                self._depth -= 1
-                if self._depth == 0:
-                    torch.backends.cuda.matmul.allow_tf32 = self._saved
-
-
-_full_f32 = _FullF32()
 
 
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -271,6 +237,18 @@ def _int8_segscan(codes: torch.Tensor, scales: torch.Tensor, valid: int,
     segmax = approx.reshape(-1, _SEG_W, nq).amax(dim=1)          # (segs, Q)
     return _seg_rescore(segmax, valid, queries, k,
                         min(k, segmax.shape[0]), rows_of)
+
+
+def refuse_int8_element() -> None:
+    """clipx's ``CLIPX_INT8_SCAN=element`` picks its older per-element int8
+    scan, which ranks differently inside near-duplicate clusters. The port
+    has only the segment scan, so it refuses that value instead of ignoring
+    it; any other value means the segment scan, as in clipx."""
+    if os.environ.get("CLIPX_INT8_SCAN") == "element":
+        raise ValueError(
+            "CLIPX_INT8_SCAN=element (clipx's per-element int8 scan) is not "
+            "ported: clipx_torch has only the segment scan; unset "
+            "CLIPX_INT8_SCAN or set it to seg")
 
 
 def _float_rows_of(corpus: torch.Tensor):
@@ -734,7 +712,7 @@ class VectorIndex:
         cap_rows = (self._codes if self.coded_storage
                     else self._corpus).shape[0]
         kk = min(_bucket_k(k), cap_rows)
-        with torch.inference_mode(), _full_f32(self.device):
+        with torch.inference_mode(), full_f32(self.device):
             qt = torch.from_numpy(queries).to(self.device)
             if self.pq_storage:
                 from clipx_torch.search.pq import _pq_topk
@@ -750,6 +728,7 @@ class VectorIndex:
                     self._codes, self._scales, self.ntotal, qt, kk,
                     _dequant_rows_of(self._codes, self._scales))
             elif self.quantized:
+                refuse_int8_element()
                 self._ensure_codes()
                 scores, ids = _int8_segscan(
                     self._codes, self._scales, self.ntotal, qt, kk,

@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from clipx_torch.ops.pq_scan import pq_scan_scores, unpack_codes4
-from clipx_torch.runtime.device import resolve_device
+from clipx_torch.runtime.device import full_f32, resolve_device
 from clipx_torch.search import engine
 from clipx_torch.search import pq as pq_lib
 from clipx_torch.search.engine import _SEG_W, clamp_k, top_k
@@ -174,7 +174,7 @@ def train_clusters(vectors: np.ndarray, *, iters: int = 8, seed: int = 0,
     def rows(x):  # a writable host copy (vectors may be a read-only memmap)
         return torch.from_numpy(np.array(x, np.float32)).to(device)
 
-    with torch.inference_mode(), engine._full_f32(device):
+    with torch.inference_mode(), full_f32(device):
         cent = _kmeans(rows(train), C, iters, rng)
         parts = [_assign_chunk(rows(vectors[i: i + _ASSIGN_CHUNK]),
                                cent).to(torch.int32).cpu().numpy()
@@ -772,7 +772,7 @@ class IVFIndex:
         # the probe sees ROTATED queries (codes and centroids are rotated);
         # the exact tail rotates its own
         qrot = engine.rotate_rows(queries, self._rot)
-        with torch.inference_mode(), engine._full_f32(self.device):
+        with torch.inference_mode(), full_f32(self.device):
             d, ids = self._probe(torch.from_numpy(qrot).to(self.device), P,
                                  kk)
             d = d.cpu().numpy()

@@ -200,12 +200,14 @@ def test_search_mode_ivf_cli_stdout_matches_clipx(fixture_dir, monkeypatch,
         assert "(loaded 5 pq rows from images.index.codes)" in err
 
 
-@pytest.mark.parametrize("flag,value", [("--preprocess", "device")])
+@pytest.mark.parametrize("flag,value", [("--sharded", "on")])
 def test_unported_flags_exit_with_a_message(flag, value, tmp_path,
                                             monkeypatch):
     monkeypatch.chdir(tmp_path)
+    from clipx_torch import serve as tserve
+
     with pytest.raises(SystemExit, match="not yet ported"):
-        tbuild.main(["--device", "cpu", flag, value, str(tmp_path) + "/"])
+        tserve.main(["--device", "cpu", "--model", "tiny-test", flag, value])
 
 
 def test_cuda_without_a_gpu_exits_with_a_message(tmp_path, monkeypatch):
@@ -229,10 +231,17 @@ def _imports(path: pathlib.Path):
 
 
 def test_port_imports_neither_jax_nor_clipx():
+    """No module of the port, nor chip_smoke.py, imports JAX, clipx or a
+    script of the root tools/ folder (by package or by module name)."""
     files = sorted((ROOT / "clipx_torch").rglob("*.py")) + [
         ROOT / "chip_smoke.py"]
+    names = {str(f.relative_to(ROOT)) for f in files}
     assert len(files) > 20
+    assert {"clipx_torch/models/resnet.py",
+            "clipx_torch/tools/eval_quality.py"} <= names
+    root_tools = {p.stem for p in (ROOT / "tools").glob("*.py")}
+    assert "eval_quality" in root_tools
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imports(f) if m and m.split(".")[0] in (
-               "jax", "jaxlib", "flax", "clipx")]
+               "jax", "jaxlib", "flax", "clipx", "tools", *root_tools)]
     assert bad == []

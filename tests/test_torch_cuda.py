@@ -1123,3 +1123,107 @@ def test_pq_service_launches_b11_once_a_search(cuda_device, tmp_path,
         assert late == []
     finally:
         served.close()
+
+
+# -- device preprocessing, the ResNet towers, the two search knobs ----------
+
+@pytest.mark.parametrize("tf32", [False, True])
+@pytest.mark.parametrize("canvas,size", [(256, 224), (37, 32), (512, 448),
+                                         (24, 32)])
+def test_canvas_resize_on_the_card_matches_the_cpu(cuda_device, canvas,
+                                                   size, tf32):
+    """device_resize_normalize in f32 on the card against the CPU within
+    1e-4, also when the caller has turned TF32 on: the two contractions
+    run with it off, and the caller's setting is back afterwards."""
+    from clipx_torch.ops.preprocess import device_resize_normalize
+
+    batch = torch.from_numpy(np.random.default_rng(canvas).integers(
+        0, 256, (3, canvas, canvas, 3), dtype=np.uint8))
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        out = device_resize_normalize(batch.to(cuda_device), size)
+        assert torch.backends.cuda.matmul.allow_tf32 == tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ref = device_resize_normalize(batch, size)
+    assert out.shape == ref.shape == (3, size, size, 3)
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=0)
+
+
+def test_canvas_path_on_the_card_matches_the_cpu(cuda_device):
+    """The Encoder's canvas path (37 px canvases of tiny-test's 32 px
+    input) on the card against the CPU, B1 at bucket 4 and B2 at 1."""
+    params = tconvert.init_params(_d64(), seed=1)
+    gpu = Encoder(_d64(), params, device=cuda_device, batch_buckets=(1, 4))
+    cpu = Encoder(_d64(), params, device="cpu", batch_buckets=(1, 4))
+    canvases = np.random.default_rng(2).integers(0, 256, (4, 73, 73, 3),
+                                                 dtype=np.uint8)
+    tps.reset_launches()
+    out = gpu.encode_images(canvases)
+    one = gpu.encode_images(canvases[:1])
+    assert tps.launch_counts() == {**{n: 0 for n in tps.LAUNCHES},
+                                   "fused_attn_block": 2, "packed_sdpa": 2}
+    ref = cpu.encode_images(canvases)
+    assert (np.sum(out * ref, axis=1) >= 0.999).all()
+    assert float(one[0] @ ref[0]) >= 0.999
+    with pytest.raises(ValueError, match="square canvas"):
+        gpu.encode_images(np.zeros((2, 64, 73, 3), np.uint8))
+
+
+@pytest.mark.parametrize("side", [32, 45])
+def test_tiny_rn_encoder_on_the_card_matches_the_cpu(cuda_device, side):
+    """tiny-rn-test in bf16 on the card (cuDNN convolutions on
+    channels_last kernels) against f32 on the CPU, at the input size and
+    on a canvas; the tower launches no kernel of the port's."""
+    cfg = tcfg.get_config("tiny-rn-test")
+    params = tconvert.init_params(cfg, seed=0)
+    gpu = Encoder(cfg, params, device=cuda_device, batch_buckets=(1, 4))
+    cpu = Encoder(cfg, params, device="cpu", batch_buckets=(1, 4))
+    conv = gpu.params["visual"]["stage1"]["first"]["conv2"]
+    assert conv.dtype == torch.bfloat16 and conv.permute(
+        3, 2, 0, 1).is_contiguous(memory_format=torch.channels_last)
+    images = np.random.default_rng(side).integers(0, 256, (3, side, side, 3),
+                                                  dtype=np.uint8)
+    tps.reset_launches()
+    out = gpu.encode_images(images)
+    one = gpu.encode_images(images[:1])
+    assert not any(tps.LAUNCHES.values())
+    ref = cpu.encode_images(images)
+    assert (np.sum(out * ref, axis=1) >= 0.999).all()
+    assert float(one[0] @ ref[0]) >= 0.999
+    t = ["a photo of a cat", "two dogs"]
+    assert (np.sum(gpu.encode_texts(t) * cpu.encode_texts(t), axis=1)
+            >= 0.999).all()
+
+
+def test_int8_scan_element_is_refused_on_the_card(cuda_device, monkeypatch):
+    """CLIPX_INT8_SCAN=element raises on the card as on the CPU, before
+    any scan; with it unset the same index searches."""
+    corpus = np.random.default_rng(4).standard_normal(
+        (20_500, 64)).astype(np.float32)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    idx = teng.VectorIndex.from_vectors(corpus, True, cuda_device)
+    monkeypatch.setenv("CLIPX_INT8_SCAN", "element")
+    with pytest.raises(ValueError, match="CLIPX_INT8_SCAN=element"):
+        idx.search(corpus[:3], 50)
+    monkeypatch.delenv("CLIPX_INT8_SCAN")
+    assert (idx.search(corpus[:3], 50)[1][:, 0] == [0, 1, 2]).all()
+
+
+def test_pq_lut_bf16_on_the_card_gives_the_same_results(cuda_device,
+                                                        monkeypatch):
+    """CLIPX_PQ_LUT=bf16 is ignored on the card: the same scores and ids
+    as without it, one B11 launch a search."""
+    corpus = np.random.default_rng(5).standard_normal(
+        (50_000, 64)).astype(np.float32)
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    idx = teng.VectorIndex.from_vectors(corpus, device=cuda_device,
+                                        dtype="pq")
+    queries = corpus[:5]
+    want = idx.search(queries, 20)
+    monkeypatch.setenv("CLIPX_PQ_LUT", "bf16")
+    before = tps.LAUNCHES["pq_scan_scores"]
+    got = idx.search(queries, 20)
+    assert tps.LAUNCHES["pq_scan_scores"] == before + 1
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0], want[0])

@@ -44,6 +44,7 @@ from clipx.models import clip as jclip
 from clipx.models import convert as jconvert
 from clipx_torch import serve as tserve
 from clipx_torch.cli import build_index as tbuild
+from clipx_torch.runtime import device as tdev
 from clipx_torch.search import engine as teng
 
 # small shapes: one intra-op thread keeps the parallel test workers from
@@ -1088,7 +1089,7 @@ def test_full_f32_guard_holds_under_overlapping_threads():
                          threading.Event())
 
     def a():
-        with teng._full_f32(cuda):
+        with tdev.full_f32(cuda):
             a_in.set()
             assert b_in.wait(30)
             seen.append(torch.backends.cuda.matmul.allow_tf32)
@@ -1096,7 +1097,7 @@ def test_full_f32_guard_holds_under_overlapping_threads():
 
     def b():
         assert a_in.wait(30)
-        with teng._full_f32(cuda):
+        with tdev.full_f32(cuda):
             b_in.set()
             assert a_out.wait(30)
             seen.append(torch.backends.cuda.matmul.allow_tf32)
