@@ -103,6 +103,30 @@ these phases, printing one JSON line per phase:
               held to that test's floors, and its drift leg over 12 PNGs
               that build_index indexed at ViT-B/32 on the card (cv2 >=
               0.9999, int8 compute >= 0.99, PIL reported).
+   train    — contrastive training (clipx_torch/train.py) at ViT-B/32 full
+              width, seeded init, f32 with TF32 off: 3 steps of one batch of
+              8 seeded pairs on the card against the CPU (loss, accuracy,
+              grad norm, every parameter's update; stated tolerances);
+              CUDA-event step ms, the allocator's peak and a profile of one
+              step (device ms by kernel class, busy share) at batch 64;
+              --remat on the same 10 batches (loss within 1e-6, peak
+              lower); python -m clipx_torch.cli.train on 256 seeded JPEG +
+              caption pairs at its defaults, SIGTERM after its step-40 line
+              (exit 0, checkpoint), then its main() with --resume for 10
+              more steps (the optimizer's count follows), the params.npz
+              loaded into the Encoder; RN50: 10 timed steps at batch 64 and
+              one card-vs-CPU step at batch 4.
+   tools    — the capacity and maintenance tools (clipx_torch/tools/):
+              make_synth_index at 1,000,000 x 512 and build_codes_direct at
+              120,000 x 64 in processes of their own while find_dupes
+              searches 200,000 rows with 500 planted groups (found =
+              planted) and kv_tool stats, verifies and compacts phase
+              search's store; kv_tool drop-f32 refused (no codes file);
+              load_timing int8 cold, then warm with --query; load_timing pq
+              --query on phase coded's pq deployment (B11), then drop-f32 on
+              it; the direct build booted codes-only (self-match at rank 0
+              and recall@50 over 1,024 queries in
+              tests/test_direct_build.py's bands).
 9. cli      — build_index and a scripted query_index REPL at ViT-B/32 on a
               few fixture images, then the same with --corpus-dtype pq,
               with --corpus-dtype pq --search-mode ivf (and a restart that
@@ -110,7 +134,7 @@ these phases, printing one JSON line per phase:
               with --compute int8 (CLIPX_FUSED_MLP_INT8=on), then both at
               --model ViT-L/14@336px, with --preprocess device, and at
               --model RN50, each build's [stats] rates read from stderr;
-              three legs at a time, each in a work dir of its own (only
+              four legs at a time, each in a work dir of its own (only
               when PIL or cv2 imports).
 
 Phases 3-6 are the main path of ViT-B/32 (which must launch none of the
@@ -118,7 +142,9 @@ opt-in kernels B5-B7), phase preprocess the canvas path (B1 and B2 only),
 phase ivf the IVF path (B11 only), phase serve the HTTP service's path
 (B1, B2 and B11 only; each of its parts counted on its own), phases int8
 and fused its opt-in routes, phase 8 the long towers' path, phase resnet
-the ResNet towers' (no kernel), phase quality the gate's (B1, B2 and B11):
+the ResNet towers' (no kernel), phase quality the gate's (B1, B2 and B11),
+phase train training's (no kernel: clipx's train step reaches none) and
+phase tools the tools' (B11 only):
 every launch count is set to 0 just before each and read just after it,
 and every kernel must have been launched on one of them. Then one line
 gives each phase's seconds, one lists every kernel ({"kernels": [...]})
@@ -200,7 +226,7 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 5) -> float:
 # profiler sessions that saw no device kernel (or, in _per_launch, lost
 # some of a call's kernels) and were repeated
 EMPTY_PROFILES = []
-PROFILE_TRIES = 3
+PROFILE_TRIES = 5
 # names of kernels whose sources are gone: the FMA short SDPA and the
 # mma.sync long SDPA, both replaced by csrc/sdpa_sm90.cuh; the mma.sync
 # int8 GEMM (gemm_s8_kernel), replaced by csrc/gemm_s8_sm90.cuh; the
@@ -1367,13 +1393,16 @@ def _search_p50(index, queries, k, reps=30):
     return D, I, statistics.median(times) * 1e3
 
 
-def phase_search(embs: np.ndarray, device) -> dict:
+def phase_search(embs: np.ndarray, device, keep: str) -> dict:
+    """The phase-3 embeddings through the KV store (kept in ``keep`` for
+    phase tools' kv_tool) and images.index and back, then
+    ``corpus_search``."""
     from clipx_torch.search.engine import IndexWriter, read_index_vectors
     from clipx_torch.store.kv import open_env
 
     n = embs.shape[0]
     with tempfile.TemporaryDirectory() as tmp:
-        env = open_env(os.path.join(tmp, "vectors.lmdb"))
+        env = open_env(os.path.join(keep, "vectors.lmdb"))
         db = env.open_db(b"fn_db")
         with env.begin(db=db, write=True) as txn:
             for i, e in enumerate(embs):
@@ -1487,7 +1516,7 @@ def _search_profile(index, queries, p50_ms: float) -> dict:
                             for name, ms, n in kernels[:4]]}
 
 
-def phase_coded(search: dict, device) -> dict:
+def phase_coded(search: dict, device, keep: str) -> dict:
     """The coded tiers on phase search's corpus: images.index written, the
     port's write_codes_file for int8, int4 and pq (dsub 2, trained OPQ),
     each loaded through load_coded_index with the sidecar present and then
@@ -1495,7 +1524,9 @@ def phase_coded(search: dict, device) -> dict:
     Search p50 of phase search's 16 queries at k = 50 per tier, recall@50
     and top-1 against its exact ids (no floor). Then a capacity scan: a
     seeded random-code pq payload of 2^24 rows placed through
-    VectorIndex.from_codes (the chunked scan branch), Q = 1 and 16."""
+    VectorIndex.from_codes (the chunked scan branch), Q = 1 and 16. The
+    pq deployment (images.index and its codes) stays in ``keep`` for phase
+    tools' load_timing and drop-f32."""
     import argparse
 
     from clipx_torch.cli import common
@@ -1533,6 +1564,9 @@ def phase_coded(search: dict, device) -> dict:
             tiers[tier] = {"encode_s": time.perf_counter() - t0,
                            "codes_bytes": os.path.getsize(
                                codes_io.codes_path(path(tier)))}
+        kept = os.path.join(keep, "images.index")
+        os.link(sidecar, kept)
+        os.link(codes_io.codes_path(path("pq")), codes_io.codes_path(kept))
         results = {}
         for tier in CODED_TIERS:
             written = os.stat(codes_io.codes_path(path(tier))).st_mtime_ns
@@ -1814,6 +1848,7 @@ def phase_ivf(search: dict, device) -> dict:
     from clipx_torch.ops import packed_sdpa as ps
     from clipx_torch.search import ivf as tivf
     from clipx_torch.search.engine import VectorIndex
+    from clipx_torch.utils.env import restoring
 
     rows, queries = search["rows"], search["queries"]
     exact_D, exact_ids = search["scores"], search["ids"]
@@ -1867,7 +1902,7 @@ def phase_ivf(search: dict, device) -> dict:
         flat.add(sub)
         _, sub_ids = flat.search(queries, K)
         del flat
-        with _env("CLIPX_PQ_RESIDUAL", "on"):
+        with restoring(CLIPX_PQ_RESIDUAL="on"):
             t0 = time.perf_counter()
             idx = tivf.IVFIndex.from_vectors(sub, dtype="pq", device=device)
             torch.cuda.synchronize()
@@ -1889,9 +1924,11 @@ def phase_ivf(search: dict, device) -> dict:
 # phase: the HTTP service (python -m clipx_torch.serve)
 # ---------------------------------------------------------------------------
 
-SERVE_SECONDS = 5.0   # each closed-loop leg of /search_vector
-TEXT_SECONDS = 3.0    # each closed-loop leg of /search?q=
-INPROC_SECONDS = 3.0  # each leg of SearchService.search without HTTP
+# closed-loop legs' lengths (cut from 5, 3 and 3 s when phases train and
+# tools joined, to keep the run well inside its time limit)
+SERVE_SECONDS = 3.0   # each closed-loop leg of /search_vector
+TEXT_SECONDS = 2.0    # each closed-loop leg of /search?q=
+INPROC_SECONDS = 2.0  # each leg of SearchService.search without HTTP
 SERVE_CLIENTS = (1, 16)
 SERVE_IMAGES = 8      # /encode_image's batch: the bucket-8 chunk
 SERVE_APPEND = 1024   # rows /reload's incremental leg appends
@@ -2392,6 +2429,7 @@ def phase_serve(enc, search: dict, images: np.ndarray, card: str) -> dict:
     from clipx_torch.search import codes_io
     from clipx_torch.search.engine import corpus_rotation
     from clipx_torch.search.pq import PQCodebook
+    from clipx_torch.utils.env import restoring
 
     rows, queries = search["rows"], search["queries"]
     n = rows.shape[0]
@@ -2492,7 +2530,7 @@ def phase_serve(enc, search: dict, images: np.ndarray, card: str) -> dict:
         part("pq", coded)
 
         def coalesce_off():
-            with _env("CLIPX_SERVE_COALESCE", "0"):
+            with restoring(CLIPX_SERVE_COALESCE="0"):
                 run = _ServeRun(argv + ["--index", orig], enc)
             try:
                 check(run.service._search_co is None, "coalescer not off")
@@ -2533,6 +2571,8 @@ def _kernel_class(name: str) -> str:
         return "sm90 attention core / GEMM, LayerNorm (B1, B5, B7, B9's GEMM)"
     if "pq_scan" in low:
         return "pq_scan (B11)"
+    if "multi_tensor_apply" in low:
+        return "optimizer (foreach)"
     if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
         return "cuBLAS GEMM"
     if "reduce" in low:
@@ -2621,6 +2661,7 @@ def phase_int8(device, images: np.ndarray, base: np.ndarray) -> dict:
     from clipx_torch.models import convert
     from clipx_torch.ops import packed_sdpa as ps
     from clipx_torch.runtime.encoder import Encoder
+    from clipx_torch.utils.env import restoring
 
     layers = 12
     enc = Encoder.create("ViT-B/32", seed=SEED, device=device,
@@ -2638,7 +2679,7 @@ def phase_int8(device, images: np.ndarray, base: np.ndarray) -> dict:
     del cpu
     info = {"phase": "int8", "model": "ViT-B/32", "images": len(images),
             "batch": BATCH}
-    with _env("CLIPX_FUSED_MLP_INT8", "on"):
+    with restoring(CLIPX_FUSED_MLP_INT8="on"):
         enc.warmup(buckets=(1, BATCH))
         embs, info["img_per_s_fused"] = _encode_all(
             enc, images, {"fused_attn_block": layers,
@@ -2658,7 +2699,7 @@ def phase_int8(device, images: np.ndarray, base: np.ndarray) -> dict:
     info["cos_batch1_vs_batch128"] = float(one[0] @ embs[0])
     check(info["cos_vs_cpu_f32_int8_min"] >= COS_MIN,
           f"int8 card vs CPU f32 int8 cosine {info['cos_vs_cpu_f32_int8_min']}")
-    with _env("CLIPX_FUSED_MLP_INT8", "off"):
+    with restoring(CLIPX_FUSED_MLP_INT8="off"):
         enc.warmup(buckets=(BATCH,))
         unfused, info["img_per_s_unfused"] = _encode_all(
             enc, images, {"fused_attn_block": layers}, "int8 unfused")
@@ -2668,7 +2709,7 @@ def phase_int8(device, images: np.ndarray, base: np.ndarray) -> dict:
     del enc
 
     # W8A8 attention projections and patch embedding
-    with _env("CLIPX_INT8_ATTN", "on"), _env("CLIPX_INT8_PATCH", "on"):
+    with restoring(CLIPX_INT8_ATTN="on"), restoring(CLIPX_INT8_PATCH="on"):
         enc = Encoder.create("ViT-B/32", seed=SEED, device=device,
                              compute_quant="int8")
     few = images[:ROUTE_IMAGES]
@@ -2689,7 +2730,7 @@ def phase_int8(device, images: np.ndarray, base: np.ndarray) -> dict:
     # ViT-L/14@336px: the MLP is not fusible there, so no B6
     cfg = config_lib.get_config(LONG_MODEL)
     size = cfg.vision.image_size
-    with _env("CLIPX_FUSED_MLP_INT8", "on"):
+    with restoring(CLIPX_FUSED_MLP_INT8="on"):
         enc = Encoder(cfg, convert.init_params(cfg, SEED), device=device,
                       compute_quant="int8", batch_buckets=(BATCH,))
         enc.warmup()
@@ -2711,11 +2752,13 @@ def phase_fused(enc, images: np.ndarray, cpu_ref: np.ndarray) -> dict:
     and under CLIPX_PACKED_SDPA=sublayer (B5 on
     every even batch: 1,024 images, then a batch of 1 on packed_sdpa), each
     against the CPU f32 encode of phase encode (cosine >= COS_MIN)."""
+    from clipx_torch.utils.env import restoring
+
     layers = enc.cfg.vision.layers
     text_layers = enc.cfg.text.layers
     info = {"phase": "fused", "model": "ViT-B/32", "images": len(images),
             "batch": BATCH}
-    with _env("CLIPX_FUSED_MLP", "on"):
+    with restoring(CLIPX_FUSED_MLP="on"):
         enc.warmup(buckets=(BATCH,))
         embs, info["img_per_s_fused_mlp"] = _encode_all(
             enc, images, {"fused_attn_block": layers, "fused_mlp": layers},
@@ -2728,7 +2771,7 @@ def phase_fused(enc, images: np.ndarray, cpu_ref: np.ndarray) -> dict:
                                                    reps=1, plain_reps=4)
     info["cos_fused_mlp_vs_cpu_f32_min"] = _cos_min(cpu_ref,
                                                     embs[:CPU_CHECK])
-    with _env("CLIPX_PACKED_SDPA", "sublayer"):
+    with restoring(CLIPX_PACKED_SDPA="sublayer"):
         enc.warmup(buckets=(BATCH,))
         embs, info["img_per_s_sublayer"] = _encode_all(
             enc, images, {"fused_attn_sublayer": layers}, "sublayer")
@@ -2749,20 +2792,6 @@ def phase_fused(enc, images: np.ndarray, cpu_ref: np.ndarray) -> dict:
 LONG_MODEL, LONG_IMAGES, LONG_CPU_CHECK, ROUTE_IMAGES = (
     "ViT-L/14@336px", 256, 2, 8)
 LOGIT_ATOL = 0.05  # clip_forward logits vs the default route, x logit scale
-
-
-@contextlib.contextmanager
-def _env(name: str, value: str):
-    """os.environ[name] = value inside the block, restored after it."""
-    old = os.environ.get(name)
-    os.environ[name] = value
-    try:
-        yield
-    finally:
-        if old is None:
-            os.environ.pop(name, None)
-        else:
-            os.environ[name] = old
 
 
 def _launched(fn):
@@ -2792,6 +2821,7 @@ def _other_towers(device) -> dict:
     ROUTE_IMAGES images each; the variants against ViT-B/32's default
     route on the same images."""
     from clipx_torch.runtime.encoder import Encoder
+    from clipx_torch.utils.env import restoring
 
     out = {}
     for model, runs in (("ViT-B/16", (("auto", "fused_sdpa_long"),)),
@@ -2804,7 +2834,7 @@ def _other_towers(device) -> dict:
             0, 256, (ROUTE_IMAGES, size, size, 3), dtype=np.uint8)
         base = None
         for variant, kernel in runs:
-            with _env("CLIPX_PACKED_SDPA", variant):
+            with restoring(CLIPX_PACKED_SDPA=variant):
                 embs, n = _launched(lambda: enc.encode_images(images))
             check(n == {kernel: layers},
                   f"{model} CLIPX_PACKED_SDPA={variant}: launches {n}, "
@@ -2836,6 +2866,7 @@ def phase_long(device) -> dict:
     from clipx_torch.ops import packed_sdpa as ps
     from clipx_torch.ops.preprocess import normalize_batch
     from clipx_torch.runtime.encoder import Encoder
+    from clipx_torch.utils.env import restoring
 
     cfg = config_lib.get_config(LONG_MODEL)
     layers, text_layers = cfg.vision.layers, cfg.text.layers
@@ -2884,7 +2915,7 @@ def phase_long(device) -> dict:
     few = images[:ROUTE_IMAGES]
     base = enc.encode_images(few)
     routes = {}
-    with _env("CLIPX_PACKED_SDPA", "qkv"):
+    with restoring(CLIPX_PACKED_SDPA="qkv"):
         out, n = _launched(lambda: enc.encode_images(few))
     check(n == {"fused_sdpa_long_qkv": layers},
           f"CLIPX_PACKED_SDPA=qkv launched {n}, expected {layers} of "
@@ -3222,10 +3253,565 @@ def phase_quality() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase train: contrastive training (clipx_torch/train.py, cli/train.py)
+# ---------------------------------------------------------------------------
+
+TRAIN_MODEL, TRAIN_RN = "ViT-B/32", "RN50"
+TRAIN_PAIRS = 256          # seeded 224 x 224 JPEG + caption pairs
+TRAIN_BATCH = 64           # clipx-train's default --batch-size
+TRAIN_CLI_STEPS = 40       # steps of the CLI run before its SIGTERM
+TRAIN_RESUME_STEPS = 10
+TRAIN_TIMED_STEPS = 10     # in-process steps: CUDA-event median, --remat
+TRAIN_CPU_BATCH, TRAIN_CPU_STEPS, TRAIN_RN_CPU_BATCH = 8, 3, 4
+TRAIN_LR = 1e-5            # card vs CPU: clipx-train's default --lr
+# card vs CPU, both f32 with TF32 off (the same code and params): summation
+# order only. Loss per step within 1e-4 relative (12 layers, sums over 768
+# and 3072 wide rows); the pre-clip grad norm within 1e-3; accuracy equal.
+# Each parameter's update (p - p0): Adam's first steps move an element by
+# ~lr * sign(g), so an element whose gradient sits at rounding noise may
+# move the other way; the ViT's updates within 5 % of a step of each other
+# and their relative L2 error within 1e-3. cuDNN's f32 convolution
+# algorithms leave ~4e-3 relative error on RN50's conv gradients against
+# the CPU's (measured, TF32 off; TF32 on gives ~1e-1), so more of RN50's
+# elements flip: its updates' relative L2 error within 5e-2, their largest
+# difference reported
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 1e-4, 1e-3
+TRAIN_UPDATE_ATOL, TRAIN_UPDATE_RL2 = 0.05 * TRAIN_LR, 1e-3
+TRAIN_RN_UPDATE_RL2 = 5e-2
+REMAT_LOSS_RTOL = 1e-6     # --remat recomputes the same ops on the card
+TRAIN_CAPTIONS = ("a red square", "a green field", "blue sky over a city",
+                  "a dog on the beach", "two cats asleep", "a sunset",
+                  "the ocean at night", "a forest path")
+
+
+def _pair_folder(root: str) -> str:
+    """TRAIN_PAIRS seeded 224 x 224 JPEGs, each with a caption sidecar."""
+    from PIL import Image
+
+    d = os.path.join(root, "pairs")
+    os.makedirs(d)
+    rng = np.random.default_rng(SEED + 11)
+    for i in range(TRAIN_PAIRS):
+        # smooth colour fields (8 x 8 upsampled), JPEG-sized like photos
+        base = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
+        Image.fromarray(base).resize((224, 224), Image.BILINEAR).save(
+            os.path.join(d, f"p{i:04d}.jpg"), quality=90)
+        with open(os.path.join(d, f"p{i:04d}.txt"), "w") as f:
+            f.write(f"{TRAIN_CAPTIONS[i % len(TRAIN_CAPTIONS)]} {i}")
+    return d
+
+
+def _train_setup(name: str, tree, device, lr: float, warmup: int,
+                 total: int, remat: bool = False):
+    from clipx_torch import config as config_lib
+    from clipx_torch import train as ttrain
+
+    cfg = config_lib.get_config(name)
+    state, tx = ttrain.create_train_state(
+        cfg, tx=ttrain.make_optimizer(lr, 0.02, warmup, total),
+        device=device, params=tree)
+    return state, ttrain.make_train_step(cfg, tx, remat=remat)
+
+
+def _batches(pairs, size: int, batch: int, n: int, device):
+    from clipx_torch.cli.train import PairLoader
+
+    loader = PairLoader(pairs, size, 77, batch, SEED)
+    out = []
+    for _ in range(n):
+        px, ids = loader.next_batch()
+        out.append((torch.from_numpy(px).to(device),
+                    torch.from_numpy(ids).to(device)))
+    return out
+
+
+def _card_vs_cpu(name: str, tree, pairs, batch: int, steps: int,
+                 warmup: int, device, atol, rl2: float) -> dict:
+    """``steps`` steps of one seeded batch on the card and on the CPU from
+    one tree: per-step loss, accuracy and grad norm, and every parameter's
+    update, against the stated tolerances (``atol`` None: the largest
+    update difference is reported, not bounded)."""
+    from clipx_torch.models import convert
+
+    size = 224
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        px, ids = _batches(pairs, size, batch, 1, dev)[0]
+        state, step = _train_setup(name, tree, dev, TRAIN_LR, warmup, steps)
+        metrics = []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = step(state, px, ids)
+            metrics.append({k: float(v) for k, v in m.items()})
+        secs = time.perf_counter() - t0
+        runs.append((convert._flatten(convert.to_jax_params(state.params)),
+                     metrics, secs))
+        del state, step
+        torch.cuda.empty_cache()
+    (card, cm, card_s), (cpu, pm, cpu_s) = runs
+    init = convert._flatten(tree)
+    max_abs, sq_err, sq_ref, moved = 0.0, 0.0, 0.0, 0.0
+    for key, p0 in init.items():
+        dc = card[key].astype(np.float64) - p0
+        dp = cpu[key].astype(np.float64) - p0
+        max_abs = max(max_abs, float(np.abs(dc - dp).max()))
+        sq_err += float(((dc - dp) ** 2).sum())
+        sq_ref += float((dp ** 2).sum())
+        moved = max(moved, float(np.abs(dp).max()))
+    for a, b in zip(cm, pm):
+        check(abs(a["loss"] - b["loss"]) <= TRAIN_LOSS_RTOL * abs(b["loss"]),
+              f"{name}: card loss {a['loss']} vs CPU {b['loss']}")
+        check(abs(a["grad_norm"] - b["grad_norm"])
+              <= TRAIN_GNORM_RTOL * b["grad_norm"],
+              f"{name}: card grad norm {a['grad_norm']} vs CPU "
+              f"{b['grad_norm']}")
+        check(a["accuracy"] == b["accuracy"],
+              f"{name}: card accuracy {a['accuracy']} vs CPU {b['accuracy']}")
+    check(moved > 0, f"{name}: no parameter moved in {steps} steps")
+    rel = (sq_err / sq_ref) ** 0.5
+    check((atol is None or max_abs <= atol) and rel <= rl2,
+          f"{name}: card vs CPU updates differ by {max_abs} (max) and "
+          f"{rel} (relative L2)")
+    return {"batch": batch, "steps": steps, "lr": TRAIN_LR, "card": cm,
+            "cpu": pm, "update_max_abs_diff": max_abs, "update_rel_l2": rel,
+            "update_max_abs": moved, "card_s": card_s, "cpu_s": cpu_s,
+            "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
+                          "grad_norm_rtol": TRAIN_GNORM_RTOL,
+                          "update_atol": atol, "update_rel_l2": rl2}}
+
+
+def _timed_steps(name: str, tree, batches, device, remat: bool = False):
+    """TRAIN_TIMED_STEPS steps (CLI defaults: lr 1e-5, warmup 100) on
+    ``batches``: losses, CUDA-event ms of each, the allocator's peak."""
+    state, step = _train_setup(name, tree, device, 1e-5, 100, 1000,
+                               remat=remat)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, ms = [], []
+    for px, ids in batches[:TRAIN_TIMED_STEPS]:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, px, ids)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated(device)
+    return state, step, losses, ms, peak
+
+
+def _step_profile(state, step, batch) -> dict:
+    """torch.profiler over two steps: device ms by kernel class and the
+    busy share against the wall of two unprofiled steps."""
+    px, ids = batch
+    box = [state]
+
+    def one():
+        box[0], _ = step(box[0], px, ids)
+
+    one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 2
+    kernels, wall_prof = _profiled(one, 2)
+    busy = sum(ms for _, ms, _ in kernels)
+    classes: dict = {}
+    for name, ms, _ in kernels:
+        cls = _kernel_class(name)
+        classes[cls] = classes.get(cls, 0.0) + ms
+    return {"wall_ms_per_step": wall, "wall_ms_per_step_profiled": wall_prof,
+            "device_ms_per_step": busy, "device_busy_share": busy / wall,
+            "device_ms_by_class": dict(sorted(classes.items(),
+                                              key=lambda kv: -kv[1])),
+            "top_kernels": [{"name": n[:90], "ms": ms, "calls": c}
+                            for n, ms, c in kernels[:10]]}
+
+
+def _train_cli(pairs: str, ckpt: str, tmp: str) -> dict:
+    """python -m clipx_torch.cli.train at ViT-B/32 and its defaults (batch
+    64, lr 1e-5, warmup 100) in a process of its own: SIGTERM once it has
+    logged step TRAIN_CLI_STEPS (exit 0, 'SIGTERM: stopping after step N',
+    checkpoint and final params), then its main() with --resume for
+    TRAIN_RESUME_STEPS more steps from step N; the checkpoint's optimizer
+    count must follow the step. Returns both runs' lines and the img/s the
+    first logged."""
+    import select
+
+    from clipx_torch.cli import train as train_cli
+
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    base = [sys.executable, "-u", "-m", "clipx_torch.cli.train", pairs,
+            "--model", TRAIN_MODEL, "--checkpoint-dir", ckpt,
+            "--log-every", "10", "--checkpoint-every", "100000"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(base + ["--steps", "100000"], cwd=tmp, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        out = ""
+        while max(map(int, re.findall(r"step (\d+)/", out)),
+                  default=0) < TRAIN_CLI_STEPS:
+            check(time.perf_counter() - t0 < 600 and proc.poll() is None,
+                  f"the train CLI did not reach step {TRAIN_CLI_STEPS}:\n"
+                  f"{out}")
+            if select.select([proc.stdout], [], [], 1.0)[0]:
+                out += proc.stdout.readline()
+        logged_s = time.perf_counter() - t0
+        proc.send_signal(signal.SIGTERM)
+        rest, _ = proc.communicate(timeout=300)
+        out += rest
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    first_s = time.perf_counter() - t0
+    m = re.search(r"SIGTERM: stopping after step (\d+)", out)
+    check(proc.returncode == 0 and m is not None
+          and f"final params -> {ckpt}" in out,
+          f"the train CLI's SIGTERM exit ({proc.returncode}):\n{out}")
+    stopped = int(m.group(1))
+    rates = [float(r.replace(",", "")) for r in re.findall(
+        r"step \d+/\d+ loss [0-9.]+ acc [0-9.]+ \(([0-9,]+) img/s\)", out)]
+    # the resume runs in this process: the same main(), no second start
+    t0 = time.perf_counter()
+    total = stopped + TRAIN_RESUME_STEPS
+    rc, rout = _quiet(train_cli.main, base[4:] + ["--steps", str(total),
+                                                  "--resume"])
+    resume_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    check(rc == 0 and f"at step {stopped}" in rout
+          and f"step {total}/{total}" in rout,
+          f"--resume from step {stopped} failed:\n{rout}")
+    with np.load(os.path.join(ckpt, "latest")) as z:
+        check(int(z["step"]) == int(z["count"]) == total,
+              f"the resumed checkpoint holds step {int(z['step'])}, "
+              f"count {int(z['count'])}, not {total}")
+    return {"lines": out.splitlines(), "resume_lines": rout.splitlines(),
+            "img_per_s_logged": rates, "stopped_after_step": stopped,
+            "run_s": first_s, "to_step_s": logged_s, "resume_s": resume_s}
+
+
+def phase_train(device) -> dict:
+    """Contrastive training at ViT-B/32 full width (seeded init, f32): the
+    card against the CPU on one batch of 8 for 3 steps; CUDA-event step ms,
+    the allocator's peak and a profile of one step at batch 64; --remat on
+    the same 10 batches (loss within 1e-6, peak lower); the CLI with
+    SIGTERM and --resume, its params.npz loaded into the Encoder; then RN50
+    (10 timed steps at batch 64, one card-vs-CPU step at batch 4). No
+    kernel of the port's launches (checked by the caller)."""
+    from clipx_torch import config as config_lib
+    from clipx_torch.cli.train import find_pairs
+    from clipx_torch.models import convert
+    from clipx_torch.runtime.encoder import Encoder
+
+    info = {"phase": "train", "model": TRAIN_MODEL}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        folder = _pair_folder(tmp)
+        pairs = _quiet(find_pairs, folder)[0]
+        check(len(pairs) == TRAIN_PAIRS, f"{len(pairs)} pairs")
+        cfg = config_lib.get_config(TRAIN_MODEL)
+        tree = convert.init_params(cfg, SEED)
+        info["setup_s"] = time.perf_counter() - t0
+        legs = info["leg_seconds"] = {}
+        t0 = time.perf_counter()
+        info["card_vs_cpu"] = _card_vs_cpu(
+            TRAIN_MODEL, tree, pairs, TRAIN_CPU_BATCH, TRAIN_CPU_STEPS, 1,
+            device, TRAIN_UPDATE_ATOL, TRAIN_UPDATE_RL2)
+        legs["card_vs_cpu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batches = _batches(pairs, 224, TRAIN_BATCH, TRAIN_TIMED_STEPS,
+                           device)
+        state, step, losses, ms, peak = _timed_steps(TRAIN_MODEL, tree,
+                                                     batches, device)
+        info["step"] = {"batch": TRAIN_BATCH, "losses": losses,
+                        "step_ms": ms, "step_ms_median": statistics.median(
+                            ms[2:]),
+                        "img_per_s": TRAIN_BATCH * 1e3
+                        / statistics.median(ms[2:]),
+                        "peak_allocated_bytes": peak,
+                        "profile": _step_profile(state, step, batches[0])}
+        del state, step
+        torch.cuda.empty_cache()
+        state, step, rlosses, rms, rpeak = _timed_steps(
+            TRAIN_MODEL, tree, batches, device, remat=True)
+        del state, step
+        torch.cuda.empty_cache()
+        worst = max(abs(a - b) / abs(b) for a, b in zip(rlosses, losses))
+        check(worst <= REMAT_LOSS_RTOL,
+              f"--remat losses differ by {worst} relative")
+        check(rpeak < peak, f"--remat peak {rpeak} >= {peak}")
+        info["remat"] = {"losses": rlosses, "max_rel_loss_diff": worst,
+                         "peak_allocated_bytes": rpeak,
+                         "step_ms_median": statistics.median(rms[2:])}
+        legs["timed_profile_remat"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ckpt = os.path.join(tmp, "ckpts")
+        info["cli"] = _train_cli(folder, ckpt, tmp)
+        legs["cli"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        enc = Encoder.create(TRAIN_MODEL, device=device,
+                             checkpoint=os.path.join(ckpt, "params.npz"))
+        emb = enc.encode_texts(["a red square"])
+        _unit_rows(emb, cfg.embed_dim, "the trained params' text embedding")
+        del enc
+        legs["encoder_load"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        rn_cfg = config_lib.get_config(TRAIN_RN)
+        rn_tree = convert.init_params(rn_cfg, SEED)
+        info["rn50"] = {"card_vs_cpu": _card_vs_cpu(
+            TRAIN_RN, rn_tree, pairs, TRAIN_RN_CPU_BATCH, 1, 0, device,
+            None, TRAIN_RN_UPDATE_RL2)}
+        state, step, losses, ms, peak = _timed_steps(TRAIN_RN, rn_tree,
+                                                     batches, device)
+        check(all(np.isfinite(losses)), f"RN50 losses {losses}")
+        info["rn50"].update(
+            batch=TRAIN_BATCH, losses=losses, step_ms=ms,
+            step_ms_median=statistics.median(ms[2:]),
+            img_per_s=TRAIN_BATCH * 1e3 / statistics.median(ms[2:]),
+            peak_allocated_bytes=peak,
+            profile=_step_profile(state, step, batches[0]))
+        del state, step, batches
+        torch.cuda.empty_cache()
+        legs["rn50"] = time.perf_counter() - t0
+    emit(info)
+    return info
+
+
+# ---------------------------------------------------------------------------
+# phase tools: the capacity and maintenance tools (clipx_torch/tools/)
+# ---------------------------------------------------------------------------
+
+SYNTH_ROWS = 1_000_000     # make_synth_index: 1M x 512, as phase search's
+DUPE_ROWS, DUPE_GROUPS = 200_000, 500
+DIRECT_ROWS, DIRECT_DIM = 120_000, 64   # build_codes_direct (tests' size)
+DIRECT_QUERIES = 1024
+
+
+def _tool(fn, argv):
+    """(rc, stdout) of a tool's main(argv), and its seconds."""
+    t0 = time.perf_counter()
+    rc, out = _quiet(fn, argv)
+    return rc, out, time.perf_counter() - t0
+
+
+def _planted_dupes(tmp: str):
+    """DUPE_ROWS seeded unit rows of width DIM with DUPE_GROUPS planted
+    groups of 2 to 6 near-copies (noise 1e-3), written as images.index
+    plus an idx_db; returns the directory and the planted groups."""
+    from clipx_torch.search.engine import IndexWriter
+    from clipx_torch.store.kv import open_env
+
+    rng = np.random.default_rng(SEED + 12)
+    rows = rng.standard_normal((DUPE_ROWS, DIM), dtype=np.float32)
+    order = rng.permutation(DUPE_ROWS)
+    groups, at = [], 0
+    for g in range(DUPE_GROUPS):
+        size = 2 + g % 5
+        ids = order[at: at + size]
+        at += size
+        rows[ids[1:]] = rows[ids[0]] + 1e-3 * rng.standard_normal(
+            (size - 1, DIM), dtype=np.float32) * np.linalg.norm(rows[ids[0]])
+        groups.append(frozenset(int(i) for i in ids))
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    d = os.path.join(tmp, "dupes")
+    os.makedirs(d)
+    writer = IndexWriter(os.path.join(d, "images.index"), DUPE_ROWS, DIM)
+    writer.write(rows)
+    writer.close()
+    env = open_env(os.path.join(d, "vectors.lmdb"))
+    db = env.open_db(b"idx_db")
+    with env.begin(db=db, write=True) as txn:
+        for i in range(DUPE_ROWS):
+            txn.put(str(i).encode(), f"/dupes/img{i:06d}.jpg".encode())
+    env.close()
+    return d, groups
+
+
+def _tool_process(module: str, argv, tmp: str, name: str):
+    """python -m clipx_torch.tools.<module> argv, in the background, its
+    output to tmp/<name>.log."""
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    log = open(os.path.join(tmp, f"{name}.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"clipx_torch.tools.{module}", *argv],
+        cwd=tmp, env=env, stdout=log, stderr=subprocess.STDOUT)
+    proc.log = log
+    return proc
+
+
+def _finish(proc, tmp: str, name: str) -> str:
+    """Wait for a _tool_process (its exit code checked) and return its
+    output."""
+    rc = proc.wait(timeout=900)
+    proc.log.close()
+    with open(os.path.join(tmp, f"{name}.log")) as f:
+        out = f.read()
+    check(rc == 0, f"{name}: exit {rc}\n{out}")
+    return out
+
+
+def phase_tools(device, keep: str) -> dict:
+    """The port's tools on the card. make_synth_index at 1,000,000 x 512
+    and build_codes_direct at DIRECT_ROWS x DIRECT_DIM (host work, one core
+    and the host's BLAS threads) run in processes of their own while
+    find_dupes searches 200,000 rows with planted groups (found = planted)
+    and kv_tool stat, verify and compact phase search's store; then
+    kv_tool drop-f32 refused on the synthetic index (no codes file);
+    load_timing int8 cold, then warm with --query, on it; load_timing pq
+    --query on phase coded's pq deployment (B11), then drop-f32 on it; the
+    direct build booted codes-only (``_direct_checks``)."""
+    from clipx_torch.ops import packed_sdpa as ps
+    from clipx_torch.tools import find_dupes, kv_tool, load_timing
+
+    info = {"phase": "tools"}
+    with tempfile.TemporaryDirectory() as tmp:
+        synth = os.path.join(tmp, "synth")
+        direct = os.path.join(tmp, "direct")
+        procs = {"make_synth_index": _tool_process(
+                     "make_synth_index", [synth, "--rows", str(SYNTH_ROWS)],
+                     tmp, "make_synth_index"),
+                 "build_codes_direct": _tool_process(
+                     "build_codes_direct", [
+                         direct, "--rows", str(DIRECT_ROWS), "--dim",
+                         str(DIRECT_DIM), "--dsub", "2", "--store", "none",
+                         "--json", os.path.join(tmp, "direct.json")],
+                     tmp, "build_codes_direct")}
+        try:
+            d, planted = _planted_dupes(tmp)
+            rc, out, secs = _tool(find_dupes.main, [
+                "--db", os.path.join(d, "vectors.lmdb"),
+                "--index", os.path.join(d, "images.index"),
+                "--threshold", "0.99"])
+            found = []
+            for line in out.splitlines():
+                if line.startswith("# group of "):
+                    found.append(set())
+                elif line.strip():
+                    found[-1].add(int(line.split("\t")[0]))
+            found = [frozenset(g) for g in found]
+            check(rc == 0 and set(found) == set(planted)
+                  and len(found) == len(planted),
+                  f"find_dupes found {len(found)} groups, planted "
+                  f"{len(planted)}; equal: {set(found) == set(planted)}")
+            info["find_dupes"] = {"rows": DUPE_ROWS, "groups": len(found),
+                                  "seconds": secs}
+
+            store = os.path.join(keep, "vectors.lmdb")
+            kv = {}
+            for cmd in ("stat", "verify", "compact", "stat"):
+                rc, out, secs = _tool(kv_tool.main, [cmd, store])
+                check(rc == 0, f"kv_tool {cmd}: {rc}\n{out}")
+                kv.setdefault(cmd, []).append(out.strip().splitlines()[-1])
+            check(kv["verify"][0] == "verify: OK"
+                  and kv["compact"][0].startswith("compacted: "),
+                  f"kv_tool: {kv}")
+            info["kv_tool"] = kv
+
+            out = _finish(procs.pop("make_synth_index"), tmp,
+                          "make_synth_index")
+            m = re.search(r"in (\d+)s; content_hash=", out)
+            check(m is not None, f"make_synth_index:\n{out}")
+            index = os.path.join(synth, "images.index")
+            info["make_synth_index"] = {"rows": SYNTH_ROWS, "dim": DIM,
+                                        "seconds": int(m.group(1)),
+                                        "bytes": os.path.getsize(index)}
+            rc, out, _ = _tool(kv_tool.main, ["drop-f32", "--index", index])
+            check(rc == 2
+                  and out.startswith("REFUSING: no readable codes file"),
+                  f"drop-f32 without a codes file: {rc}\n{out}")
+            info["drop_f32_refused"] = out.splitlines()[0][:80]
+            lt = {}
+            for leg, argv in (
+                    ("int8_cold", ["--index", index, "--cold"]),
+                    ("int8_warm", ["--index", index, "--query"]),
+                    ("pq_warm", ["--index",
+                                 os.path.join(keep, "images.index"),
+                                 "--corpus-dtype", "pq", "--query"])):
+                jpath = os.path.join(tmp, f"{leg}.json")
+                before = ps.launch_counts()["pq_scan_scores"]
+                rc, out, secs = _tool(load_timing.main,
+                                      argv + ["--json", jpath])
+                check(rc == 0, f"load_timing {leg}: {rc}\n{out}")
+                with open(jpath) as f:
+                    lt[leg] = json.load(f)
+                lt[leg]["seconds"] = secs
+                lt[leg]["b11_launches"] = (
+                    ps.launch_counts()["pq_scan_scores"] - before)
+                check(lt[leg]["platform"] == "cuda",
+                      f"load_timing {leg} ran on {lt[leg]['platform']}")
+            check(lt["int8_cold"]["ntotal"] == SYNTH_ROWS
+                  and lt["int8_warm"]["query_p50_ms"] > 0
+                  and lt["pq_warm"]["b11_launches"] >= 51,
+                  f"load_timing legs: {lt}")
+            info["load_timing"] = lt
+            rc, out, _ = _tool(kv_tool.main, [
+                "drop-f32", "--index", os.path.join(keep, "images.index")])
+            check(rc == 0 and "codes-only" in out, f"drop-f32 on pq:\n{out}")
+            info["drop_f32"] = out.splitlines()[0]
+
+            _finish(procs.pop("build_codes_direct"), tmp,
+                    "build_codes_direct")
+            with open(os.path.join(tmp, "direct.json")) as f:
+                info["build_codes_direct"] = {"stats": json.load(f)}
+        finally:
+            for proc in procs.values():
+                proc.kill()
+                proc.wait(timeout=60)
+                proc.log.close()
+        _direct_checks(info["build_codes_direct"], direct, device)
+    emit(info)
+    return info
+
+
+def _direct_checks(out: dict, direct: str, device) -> None:
+    """The direct build booted codes-only: self-match at rank 0, within
+    the top 10 and recall@50 over DIRECT_QUERIES regenerated rows, in
+    tests/test_direct_build.py's bands (0.8, 0.95, 0.7)."""
+    import argparse
+
+    from clipx_torch.cli import common
+    from clipx_torch.search.engine import VectorIndex
+    from clipx_torch.tools import build_codes_direct
+
+    idx = common.load_index(argparse.Namespace(
+        index=os.path.join(direct, "images.index"), corpus_dtype="pq",
+        search_mode="ivf", sharded="off", device=device))
+    corpus = build_codes_direct.SynthCorpus(DIRECT_ROWS, DIRECT_DIM,
+                                            "clustered", 0)
+    qids = np.random.default_rng(3).choice(DIRECT_ROWS, DIRECT_QUERIES,
+                                           replace=False)
+    q = corpus.rows_at(qids)
+    _, ip = idx.search(q, 50, nprobe=100)
+    full = np.concatenate([corpus.chunk(c)
+                           for c in range(corpus.n_chunks())])
+    _, ie = VectorIndex.from_vectors(full, device=device).search(q, 50)
+    self1 = float(np.mean(ip[:, 0] == qids))
+    self10 = float(np.mean((ip[:, :10] == qids[:, None]).any(axis=1)))
+    recall = float(np.mean([len(set(ie[i]) & set(ip[i])) / 50
+                            for i in range(len(q))]))
+    check(self1 >= 0.8 and self10 >= 0.95 and recall >= 0.7,
+          f"direct build: self-match {self1}, top-10 {self10}, "
+          f"recall@50 {recall}")
+    out.update(rows=DIRECT_ROWS, dim=DIRECT_DIM, queries=DIRECT_QUERIES,
+               self_match=self1, self_match_top10=self10,
+               recall_at_50=recall)
+    del idx
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 6: the CLIs
 # ---------------------------------------------------------------------------
 
-CLI_WORKERS = 3  # CLI legs run at once: each is processes of its own
+CLI_WORKERS = 4  # CLI legs run at once: each is processes of its own
 
 
 def phase_cli(info_env: dict) -> dict:
@@ -3465,6 +4051,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
+    # phase search's store and phase coded's pq deployment, for phase tools
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as keep:
+        return _run_phases(device, keep)
+
+
+def _run_phases(device, keep: str) -> int:
     from clipx_torch.ops import packed_sdpa as ps
 
     start = time.perf_counter()
@@ -3486,8 +4078,8 @@ def main() -> int:
     ps.reset_launches()
     encoded = timed("encode", phase_encode, enc, images)
     timed("text", phase_text, enc)
-    search = timed("search", phase_search, encoded["embs"], device)
-    timed("coded", phase_coded, search, device)
+    search = timed("search", phase_search, encoded["embs"], device, keep)
+    timed("coded", phase_coded, search, device, keep)
     launches = dict(ps.LAUNCHES)
     emit({"phase": "main_path_launches", "launches": launches})
     check(launches["fused_attn_block"] > 0 and launches["packed_sdpa"] > 0
@@ -3559,6 +4151,22 @@ def main() -> int:
     check({name for name, n in paths[-1].items() if n}
           == {"fused_attn_block", "packed_sdpa", "pq_scan_scores"},
           f"the quality gate launched {paths[-1]}, not B1, B2 and B11")
+    # training's path: no kernel of the port's (clipx's step reaches none)
+    ps.reset_launches()
+    timed("train", phase_train, device)
+    paths.append(dict(ps.LAUNCHES))
+    emit({"phase": "train_path_launches", "launches": paths[-1]})
+    check(not any(paths[-1].values()),
+          f"the training path launched {paths[-1]}")
+    # the tools' path: B11 alone (pq loads and the direct build's search)
+    ps.reset_launches()
+    timed("tools", phase_tools, device, keep)
+    paths.append(dict(ps.LAUNCHES))
+    emit({"phase": "tools_path_launches", "launches": paths[-1]})
+    check(paths[-1]["pq_scan_scores"] > 0
+          and not any(n for name, n in paths[-1].items()
+                      if name != "pq_scan_scores"),
+          f"the tools launched {paths[-1]}, not B11 alone")
     total = {name: sum(p[name] for p in paths) for name in launches}
     for name, _, _ in KERNEL_TABLE:
         check(total[name] > 0,

@@ -37,9 +37,9 @@ QUANT_AUTO_THRESHOLD = 100_000
 # flag values accepted (clipx's choices) whose paths are not ported yet,
 # with the item of ROADMAP.md's queue A (modules still to port) that
 # brings each
-_NOT_PORTED = {
-    "sharded": {"on": "the port of multi-device search, ROADMAP.md queue A, "
-                      '"Multi-device"'}}
+MULTI_DEVICE = ('the port of multi-device search and training, ROADMAP.md '
+                'queue A, "Multi-device"')
+_NOT_PORTED = {"sharded": {"on": MULTI_DEVICE}}
 
 
 def add_model_flags(parser: argparse.ArgumentParser) -> None:
@@ -107,7 +107,7 @@ def check_ported(args) -> None:
     for flag, values in _NOT_PORTED.items():
         value = getattr(args, flag, None)
         if value in values:
-            raise SystemExit(_not_ported(flag, value, values[value]))
+            raise SystemExit(not_ported(flag, value, values[value]))
     try:
         device = resolve_device(args.device)
     except RuntimeError as exc:
@@ -119,7 +119,7 @@ def check_ported(args) -> None:
               "using one GPU)", file=sys.stderr, flush=True)
 
 
-def _not_ported(flag: str, value: str, when: str) -> str:
+def not_ported(flag: str, value, when: str) -> str:
     name = "--" + flag.replace("_", "-")
     return (f"error: {name} {value} is not yet ported to clipx_torch (it "
             f"comes with {when}; use the clipx package for it)")

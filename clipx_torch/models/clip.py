@@ -43,10 +43,11 @@ def _l2_normalize(emb: torch.Tensor) -> torch.Tensor:
 
 def encode_image(params: Params, cfg: CLIPConfig, pixels: torch.Tensor, *,
                  normalize: bool = False, dtype: torch.dtype = torch.float32,
-                 attn_impl: str = "xla") -> torch.Tensor:
+                 attn_impl: str = "xla", remat: bool = False) -> torch.Tensor:
     """Image embeddings (B, embed_dim) float32. ``normalize=True``
     additionally L2-normalizes, as the indexer stores them. ``attn_impl``
-    as in ``layers.mha_block`` (the ResNet towers ignore it)."""
+    as in ``layers.mha_block``, ``remat`` as in ``layers.transformer`` (the
+    ResNet towers ignore both, as clipx's do)."""
     if getattr(cfg.vision, "tower", "vit") == "resnet":
         from clipx_torch.models import resnet
 
@@ -68,7 +69,7 @@ def encode_image(params: Params, cfg: CLIPConfig, pixels: torch.Tensor, *,
     x = layer_norm(x, p["ln_pre"], cfg.layernorm_eps)
     x = transformer(x, p["blocks"], v.heads, causal=False,
                     eps=cfg.layernorm_eps, use_quick_gelu=cfg.quick_gelu,
-                    attn_impl=attn_impl)
+                    attn_impl=attn_impl, remat=remat)
     x = layer_norm(x[:, 0, :], p["ln_post"], cfg.layernorm_eps)
     emb = _project(x, p["proj"])
     return _l2_normalize(emb) if normalize else emb
@@ -76,7 +77,7 @@ def encode_image(params: Params, cfg: CLIPConfig, pixels: torch.Tensor, *,
 
 def encode_text(params: Params, cfg: CLIPConfig, token_ids: torch.Tensor, *,
                 normalize: bool = False, dtype: torch.dtype = torch.float32,
-                attn_impl: str = "xla") -> torch.Tensor:
+                attn_impl: str = "xla", remat: bool = False) -> torch.Tensor:
     """Text embeddings (B, embed_dim) float32 from (B, context_length)
     zero-padded token ids. The sequence feature is read at the EOT
     position, the argmax of the ids (EOT is the largest id)."""
@@ -88,7 +89,7 @@ def encode_text(params: Params, cfg: CLIPConfig, token_ids: torch.Tensor, *,
     x = x + p["pos_embedding"].to(dtype)
     x = transformer(x, p["blocks"], t.heads, causal=True,
                     eps=cfg.layernorm_eps, use_quick_gelu=cfg.quick_gelu,
-                    attn_impl=attn_impl)
+                    attn_impl=attn_impl, remat=remat)
     x = layer_norm(x, p["ln_final"], cfg.layernorm_eps)
     eot = token_ids.argmax(dim=-1)
     x = x[torch.arange(x.shape[0], device=x.device), eot]

@@ -11,7 +11,8 @@ HWIO conv kernels with folded BatchNorm. This module
   save_params`` (``load_params`` / ``save_params``), so a checkpoint saved
   by either package loads in the other;
 - makes seeded random parameters (``init_params``);
-- turns a tree into tensors on a device (``from_jax_params``).
+- turns a tree into tensors on a device (``from_jax_params``) and back
+  into numpy (``to_jax_params``).
 
 All conversion is host numpy; torch is only needed to read ``.pt`` files
 and to place the result.
@@ -328,10 +329,8 @@ def _flatten(tree: Params, prefix: str = "") -> Dict[str, np.ndarray]:
         path = f"{prefix}/{key}" if prefix else key
         if isinstance(val, dict):
             out.update(_flatten(val, path))
-        elif isinstance(val, torch.Tensor):
-            out[path] = val.detach().cpu().float().numpy()
         else:
-            out[path] = np.asarray(val)
+            out[path] = _to_numpy(val)
     return out
 
 
@@ -470,6 +469,27 @@ def from_jax_params(tree: Params, cfg: CLIPConfig | None = None,
             t = _conv_storage(t)
         out[key] = t
     return out
+
+
+def _to_numpy(val) -> np.ndarray:
+    """One leaf as a C-ordered host array: int8 stays int8, every other
+    tensor becomes f32. A stored-permuted conv kernel (``_conv_storage``)
+    leaves in its logical HWIO order."""
+    if isinstance(val, torch.Tensor):
+        t = val.detach().cpu()
+        if t.dtype != torch.int8:
+            t = t.float()
+        return np.array(t.numpy(), order="C")   # a copy, 0-d stays 0-d
+    return np.asarray(val)
+
+
+def to_jax_params(tree: Params) -> Params:
+    """The reverse of ``from_jax_params``: the port's tree of tensors (a
+    trained one included) -> clipx's numpy tree, the layout that
+    ``save_params`` writes and ``clipx.models.convert.load_params`` reads:
+    host f32 arrays (int8 stays int8), ResNet conv kernels in HWIO."""
+    return {key: (to_jax_params(val) if isinstance(val, dict)
+                  else _to_numpy(val)) for key, val in tree.items()}
 
 
 # the conv kernels of models/resnet.py's tree

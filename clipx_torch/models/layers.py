@@ -25,8 +25,10 @@ W8A8, through ``fused_mlp_w8a8`` under ``CLIPX_FUSED_MLP_INT8=on``. clipx
 takes the kernels only on a TPU; the port takes them on every device (CUDA
 tensors launch them, CPU tensors reach their plain versions).
 
-Not carried over from clipx: ``CLIPX_ATTN_ROWS`` (a TPU tiling knob that
-does not change results) and ``remat``.
+``remat`` (training) recomputes each residual block in the backward pass,
+as clipx's ``jax.checkpoint`` of the scan body does. Not carried over from
+clipx: ``CLIPX_ATTN_ROWS`` (a TPU tiling knob that does not change
+results).
 """
 
 from __future__ import annotations
@@ -258,11 +260,24 @@ def layer_slice(stacked: Params, i: int) -> Params:
 
 def transformer(x: torch.Tensor, stacked: Params, heads: int, *,
                 causal: bool, eps: float, use_quick_gelu: bool,
-                attn_impl: str = "xla") -> torch.Tensor:
-    """Run the stacked blocks in order over the leading layer axis."""
+                attn_impl: str = "xla", remat: bool = False) -> torch.Tensor:
+    """Run the stacked blocks in order over the leading layer axis. With
+    ``remat`` (and grad mode on) each block keeps only its input for the
+    backward pass and runs again there (``torch.utils.checkpoint``,
+    non-reentrant): clipx's ``jax.checkpoint`` of the block body
+    (``clipx/models/layers.py:272-291``), activation memory for FLOPs."""
     layers = next(iter(stacked["ln_1"].values())).shape[0]
+    remat = remat and torch.is_grad_enabled()
     for i in range(layers):
-        x = residual_block(x, layer_slice(stacked, i), heads, causal=causal,
+        p = layer_slice(stacked, i)
+        if remat:
+            from torch.utils.checkpoint import checkpoint
+
+            x = checkpoint(residual_block, x, p, heads, causal=causal,
                            eps=eps, use_quick_gelu=use_quick_gelu,
-                           attn_impl=attn_impl)
+                           attn_impl=attn_impl, use_reentrant=False)
+        else:
+            x = residual_block(x, p, heads, causal=causal, eps=eps,
+                               use_quick_gelu=use_quick_gelu,
+                               attn_impl=attn_impl)
     return x

@@ -73,9 +73,26 @@ def check_cuda(name: str, dtype, device, **tensors) -> None:
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
 
 
-def kernel_device(name: str, x: torch.Tensor) -> torch.device:
-    """The device a kernel launches on: a CUDA tensor's. Callers send CPU
-    tensors to the plain version first; anything else is refused."""
+def refuse_grad(name: str, *tensors) -> None:
+    """A kernel's output has no ``grad_fn``: autograd would stop at it and
+    leave the weights behind it unchanged. So while grad mode is on, an
+    input that requires grad is refused, by the op's name. The public
+    wrappers call this before they branch on the device, so a CPU run (the
+    plain versions) fails where the card would."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and the CUDA kernel has no "
+            "backward; run it under torch.no_grad() or take the op's plain "
+            "PyTorch route (attn_impl='plain', CLIPX_FUSED_MLP off)")
+
+
+def kernel_device(name: str, x: torch.Tensor, *inputs) -> torch.device:
+    """The device a kernel launches on: a CUDA tensor's. ``x`` and
+    ``inputs`` are every tensor the kernel reads; one that requires grad
+    is refused (``refuse_grad``). Callers send CPU tensors to the plain
+    version first; anything else is refused."""
+    refuse_grad(name, x, *inputs)
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device} "
                          "(CUDA tensors launch the kernel, CPU tensors "

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from clipx_torch.ops._launch import check_cuda, kernel_device
+from clipx_torch.ops._launch import check_cuda, kernel_device, refuse_grad
 from clipx_torch.ops.packed_sdpa import (LONG_HEAD_DIMS, attend_plain,
                                          launch_sdpa)
 
@@ -40,6 +40,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"shape; got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     d = q.shape[-1]
+    refuse_grad(name, q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     if d not in LONG_HEAD_DIMS:
@@ -51,7 +52,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
     """B10's C call: the SDPA kernel with (B, H, S, D) strides."""
     name = "flash_attention"
-    device = kernel_device(name, q)
+    device = kernel_device(name, q, k, v)
     check_cuda(name, torch.bfloat16, device, q=q, k=k, v=v)
     b, h, s, d = q.shape
     out = torch.empty_like(q)

@@ -51,7 +51,7 @@ import torch
 from clipx_torch.models import quant
 from clipx_torch.ops._launch import (LAUNCHES, F, I, L, P, c_fn, check_cuda,
                                      kernel_device, launch, launch_counts,
-                                     reset_launches)
+                                     refuse_grad, reset_launches)
 
 __all__ = ["LAUNCHES", "launch_counts", "reset_launches", "fused_attn_block",
            "packed_sdpa", "packed_sdpa_rows", "packed_sdpa_qkv",
@@ -263,7 +263,7 @@ def launch_sdpa(name: str, q: int, k: int, v: int, out: torch.Tensor, *,
 def _launch_sdpa(name: str, q, k, v, heads: int,
                  causal: bool = False) -> torch.Tensor:
     """B2, B3 and B8: SDPA on (B, S, W) q, k, v."""
-    device = kernel_device(name, q)
+    device = kernel_device(name, q, k, v)
     check_cuda(name, torch.bfloat16, device, q=q, k=k, v=v)
     b, s, w = q.shape
     d = w // heads
@@ -298,7 +298,7 @@ def _launch_long_qkv(qkv, wo, bo, heads: int, causal: bool,
     projection on the sm90 GEMM at tile width ``bn`` (default
     ``gemm_tile_n_mn(B*S, W)``)."""
     name = "fused_sdpa_long_qkv"
-    device = kernel_device(name, qkv)
+    device = kernel_device(name, qkv, wo, bo)
     check_cuda(name, torch.bfloat16, device, qkv=qkv, wo=wo)
     check_cuda(name, torch.float32, device, bo=bo)
     b, s, w3 = qkv.shape
@@ -368,7 +368,7 @@ def _launch_attn_block(x, wqkv, bqkv, wo, bo, heads: int,
     """B1's C call; the out projection's tile width is ``gemm_tile_n(W)``
     unless ``bn`` names another (for timing)."""
     name = "fused_attn_block"
-    device = kernel_device(name, x)
+    device = kernel_device(name, x, wqkv, bqkv, wo, bo)
     check_cuda(name, torch.bfloat16, device, x=x, wqkv=wqkv, wo=wo)
     check_cuda(name, torch.float32, device, bqkv=bqkv, bo=bo)
     b, s, w = x.shape
@@ -386,7 +386,7 @@ def _launch_attn_block(x, wqkv, bqkv, wo, bo, heads: int,
 def _launch_attn_sublayer(x, ln_scale, ln_bias, wqkv, bqkv, wo, bo,
                           heads: int, eps: float) -> torch.Tensor:
     name = "fused_attn_sublayer"
-    device = kernel_device(name, x)
+    device = kernel_device(name, x, ln_scale, ln_bias, wqkv, bqkv, wo, bo)
     check_cuda(name, torch.bfloat16, device, x=x, wqkv=wqkv, wo=wo)
     check_cuda(name, torch.float32, device, ln_scale=ln_scale,
                ln_bias=ln_bias, bqkv=bqkv, bo=bo)
@@ -412,7 +412,7 @@ def _launch_mlp(x2, w1, b1, w2, b2, quick: bool,
     operand that is not 16-byte aligned, by name: the kernel's TMA tensor
     maps cannot take it."""
     name = "fused_mlp"
-    device = kernel_device(name, x2)
+    device = kernel_device(name, x2, w1, b1, w2, b2)
     check_cuda(name, torch.bfloat16, device, x=x2, w1=w1, w2=w2)
     check_cuda(name, torch.float32, device, b1=b1, b2=b2)
     rows, width = x2.shape
@@ -440,7 +440,7 @@ def launch_mlp_w8a8(x2, w1_qt, s1, b1, w2_qt, s2, b2, *, quick: bool,
     (M, N); ``h``, an (R, H) f32 tensor, receives the hidden layer (else a
     scratch does). Counts the launch under ``fused_mlp_w8a8``."""
     name = "fused_mlp_w8a8"
-    device = kernel_device(name, x2)
+    device = kernel_device(name, x2, w1_qt, s1, b1, w2_qt, s2, b2)
     check_cuda(name, torch.bfloat16, device, x=x2)
     check_cuda(name, torch.int8, device, w1_qt=w1_qt, w2_qt=w2_qt)
     check_cuda(name, torch.float32, device, s1=s1, b1=b1, s2=s2, b2=b2)
@@ -511,6 +511,7 @@ def fused_attn_block(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor,
             or bqkv.numel() != 3 * w or bo.numel() != w):
         raise ValueError("fused_attn_block: weight shapes do not match "
                          f"width {w}")
+    refuse_grad("fused_attn_block", x, wqkv, bqkv, wo, bo)
     if x.device.type == "cpu":
         return fused_attn_block_plain(x, wqkv, bqkv, wo, bo, heads=heads)
     # as clipx's wrapper: matrices in x's dtype, biases in f32
@@ -528,6 +529,7 @@ def packed_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d != _D or w != heads * d or heads % 2 or s > _SP:
         raise ValueError(f"packed_sdpa needs D=64, even heads, S<=64; "
                          f"got heads={heads}, D={d}, S={s}")
+    refuse_grad("packed_sdpa", q, k, v)
     if q.device.type == "cpu":
         return sdpa_plain(q, k, v, heads=heads)
     return _launch_sdpa("packed_sdpa", q, k, v, heads)
@@ -543,6 +545,7 @@ def packed_sdpa_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d != _D or w != heads * d or s > _SP or b % 2:
         raise ValueError(f"packed_sdpa_rows needs D=64, S<=64, even B; "
                          f"got B={b}, D={d}, S={s}")
+    refuse_grad("packed_sdpa_rows", q, k, v)
     if q.device.type == "cpu":
         return sdpa_plain(q, k, v, heads=heads)
     return _launch_sdpa("packed_sdpa_rows", q, k, v, heads)
@@ -561,6 +564,7 @@ def packed_sdpa_qkv(qkv: torch.Tensor, *, heads: int) -> torch.Tensor:
     if d != _D or w != heads * d or s > _SP or b % 2:
         raise ValueError(f"packed_sdpa_qkv needs D=64, S<=64, even B; "
                          f"got B={b}, D={d}, S={s}")
+    refuse_grad("packed_sdpa_qkv", qkv)
     if qkv.device.type == "cpu":
         return packed_sdpa_qkv_plain(qkv, heads=heads)
     return _launch_sdpa_qkv(qkv, heads)
@@ -584,6 +588,7 @@ def fused_sdpa_long(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bf16. Returns (B, S, W)."""
     _check_qkv_shapes("fused_sdpa_long", q, k, v)
     _check_long_width("fused_sdpa_long", q.shape[-1], heads, q.device)
+    refuse_grad("fused_sdpa_long", q, k, v)
     if q.device.type == "cpu":
         return fused_sdpa_long_plain(q, k, v, heads=heads, causal=causal)
     return _launch_sdpa("fused_sdpa_long", q, k, v, heads, causal)
@@ -604,6 +609,7 @@ def fused_sdpa_long_qkv(qkv: torch.Tensor, wo: torch.Tensor,
     if tuple(wo.shape) != (w, w) or bo.numel() != w:
         raise ValueError("fused_sdpa_long_qkv: weight shapes do not match "
                          f"width {w}")
+    refuse_grad("fused_sdpa_long_qkv", qkv, wo, bo)
     if qkv.device.type == "cpu":
         return fused_sdpa_long_qkv_plain(qkv, wo, bo, heads=heads,
                                          causal=causal)
@@ -636,6 +642,8 @@ def fused_attn_sublayer(x: torch.Tensor, ln_scale: torch.Tensor,
             or ln_scale.numel() != w or ln_bias.numel() != w):
         raise ValueError("fused_attn_sublayer: weight shapes do not match "
                          f"width {w}")
+    refuse_grad("fused_attn_sublayer", x, ln_scale, ln_bias, wqkv, bqkv, wo,
+                bo)
     if x.device.type == "cpu":
         return fused_attn_sublayer_plain(x, ln_scale, ln_bias, wqkv, bqkv, wo,
                                          bo, heads=heads, eps=eps)
@@ -665,6 +673,7 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     clipx's wrapper: matrices in x's dtype, biases in f32. On CUDA x is
     bf16 and W and H are multiples of 64."""
     width, hidden = _check_mlp("fused_mlp", x, w1, w2, b1, b2, x.device)
+    refuse_grad("fused_mlp", x, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return fused_mlp_plain(x, w1, b1, w2, b2, quick=quick)
     out = _launch_mlp(x.reshape(-1, width).contiguous(), w1.to(x.dtype),
@@ -688,6 +697,7 @@ def fused_mlp_w8a8(x: torch.Tensor, w1_q: torch.Tensor, s1: torch.Tensor,
     version ignores them."""
     width, hidden = _check_mlp("fused_mlp_w8a8", x, w1_q, w2_q, b1, b2,
                                x.device)
+    refuse_grad("fused_mlp_w8a8", x, w1_q, s1, b1, w2_q, s2, b2)
     if x.device.type == "cpu":
         return fused_mlp_w8a8_plain(x, w1_q, s1, b1, w2_q, s2, b2,
                                     quick=quick)

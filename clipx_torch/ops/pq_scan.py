@@ -14,23 +14,25 @@ as exact integer sums (|sum| <= 127*M < 2**24), so the kernel, the plain
 version here and clipx's Pallas and XLA paths agree bitwise. The LUT may be
 int8 or integer-valued bf16 (values <= 127, converted to int8 exactly).
 
-``pq_scan_scores_plain`` is the plain PyTorch version: unpack, one-hot,
-exact integer product, in row chunks (as ``pq._pq_scan_chunk_xla`` does in
-clipx). The wrapper runs it only for CPU tensors; for a CUDA tensor it
-launches the kernel or raises. Launches count in ``LAUNCHES`` (one per
-call). Q is at most 16, the most queries one search sends.
+``pq_scan_scores_plain`` is the plain PyTorch version: unpack, then the
+exact integer LUT sums in row chunks, as the one-hot product of
+``pq._pq_scan_chunk_xla`` in clipx on CUDA tensors and as ``embedding_bag``
+sums on the CPU. The wrapper runs it only for CPU tensors; for a CUDA
+tensor it launches the kernel or raises. Launches count in ``LAUNCHES``
+(one per call). Q is at most 16, the most queries one search sends.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from clipx_torch.ops._launch import (I, P, c_fn, check_cuda, kernel_device,
-                                     launch)
+                                     launch, refuse_grad)
 
 PQ_K = 16
 MAX_Q = 16              # queries per call (the kernel's two n8 blocks)
-_PLAIN_CHUNK = 1 << 16  # rows per one-hot product in the plain version
+_PLAIN_CHUNK = 1 << 16  # rows per step of the plain version
 _ROW_ALIGN = 8          # code bytes the kernel loads at a time
 
 
@@ -62,14 +64,22 @@ def _check_shapes(packed: torch.Tensor, lut_t: torch.Tensor):
     return n, half, q
 
 
-def _onehot_scores(onehot: torch.Tensor, lut8: torch.Tensor) -> torch.Tensor:
-    """Exact (rows, Q) integer product of an int8 one-hot and the int8 LUT,
-    as f32: ``torch._int_mm`` on CUDA (int32 sums; it wants more than 16
-    rows and a multiple of 8 columns), an f32 product on the CPU (exact:
-    every partial sum is an integer below 2**24)."""
-    if onehot.device.type != "cuda":
-        return onehot.float() @ lut8.float()
-    rows, q = onehot.shape[0], lut8.shape[1]
+def _chunk_scores(codes: torch.Tensor, lut8: torch.Tensor) -> torch.Tensor:
+    """Exact (rows, Q) f32 LUT sums of a chunk of (rows, M) unpacked codes.
+    On CUDA the one-hot int8 product of ``torch._int_mm`` (int32 sums; it
+    wants more than 16 rows and a multiple of 8 columns), as the kernel and
+    clipx's XLA path compute it; on the CPU each row's M LUT rows summed by
+    ``embedding_bag`` (8x the one-hot product's speed there). Every partial
+    sum is an integer below 2**24, so both are exact in any order."""
+    rows, m = codes.shape
+    q = lut8.shape[1]
+    if codes.device.type != "cuda":
+        offsets = torch.arange(m, device=codes.device) * PQ_K
+        return F.embedding_bag(codes.long() + offsets, lut8.float(),
+                               mode="sum")
+    iota = torch.arange(PQ_K, dtype=torch.uint8, device=codes.device)
+    onehot = (codes[:, :, None] == iota).to(torch.int8).reshape(rows,
+                                                                 m * PQ_K)
     rp = max(rows, 32)
     qp = -(-q // 8) * 8
     lhs = onehot
@@ -85,18 +95,15 @@ def _onehot_scores(onehot: torch.Tensor, lut8: torch.Tensor) -> torch.Tensor:
 
 def pq_scan_scores_plain(packed: torch.Tensor,
                          lut_t: torch.Tensor) -> torch.Tensor:
-    """The plain version: unpack -> one-hot int8 -> exact product with the
-    LUT, ``_PLAIN_CHUNK`` rows at a time. Returns (Q, N) f32."""
+    """The plain version: unpack, then the exact LUT sums of
+    ``_chunk_scores``, ``_PLAIN_CHUNK`` rows at a time. Returns (Q, N)
+    f32."""
     n, half, q = _check_shapes(packed, lut_t)
-    mk = 2 * half * PQ_K
     lut8 = lut_t.to(torch.int8)
-    iota = torch.arange(PQ_K, dtype=torch.uint8, device=packed.device)
     out = torch.empty((q, n), dtype=torch.float32, device=packed.device)
     for i in range(0, n, _PLAIN_CHUNK):
         codes = unpack_codes4(packed[i: i + _PLAIN_CHUNK])     # (c, M)
-        onehot = (codes[:, :, None] == iota).to(torch.int8)
-        out[:, i: i + codes.shape[0]] = _onehot_scores(
-            onehot.reshape(codes.shape[0], mk), lut8).T
+        out[:, i: i + codes.shape[0]] = _chunk_scores(codes, lut8).T
     return out
 
 
@@ -110,9 +117,10 @@ def pq_scan_scores(packed: torch.Tensor, lut_t: torch.Tensor) -> torch.Tensor:
     layout choices and have no counterpart: any N is taken."""
     name = "pq_scan_scores"
     n, half, q = _check_shapes(packed, lut_t)
+    refuse_grad(name, packed, lut_t)
     if packed.device.type == "cpu":
         return pq_scan_scores_plain(packed, lut_t)
-    device = kernel_device(name, packed)
+    device = kernel_device(name, packed, lut_t)
     lut8 = lut_t.to(torch.int8).contiguous()
     # the kernel reads code rows 8 bytes at a time: a half that is not a
     # multiple of 8 is padded with zero bytes, whose LUT rows it zeroes

@@ -9,6 +9,8 @@ Counterpart of ``clipx/ops/preprocess.py`` (own copies of the host paths):
                          up), the indexer's default;
 - ``normalize_batch``  — uint8 NHWC batch -> mean/std-normalized float on
                          the batch's device;
+- ``normalize_host``   — the same on the host in numpy (the training
+                         loader's);
 - ``device_resize_normalize`` — the fully on-device variant for square
                          canvases (``--preprocess device``): antialiased
                          bicubic resize, clip, normalize.
@@ -64,6 +66,15 @@ def cv2_resize_crop(rgb: np.ndarray, size: int = 224) -> np.ndarray:
     left = int(round((nw - size) / 2.0))
     top = int(round((nh - size) / 2.0))
     return rgb[top: top + size, left: left + size]
+
+
+def normalize_host(images_uint8: np.ndarray) -> np.ndarray:
+    """(B, S, S, 3) uint8 -> normalized f32 NHWC on the host, in clipx's
+    ``normalize_host`` arithmetic: x / 255, minus the mean, over the std,
+    in f32 (the training loader's transform)."""
+    x = images_uint8.astype(np.float32) / 255.0
+    return ((x - np.asarray(CLIP_MEAN, np.float32))
+            / np.asarray(CLIP_STD, np.float32)).astype(np.float32)
 
 
 def normalize_batch(batch_uint8: torch.Tensor,

@@ -4,8 +4,10 @@ Entry points run on ``cuda`` unless the caller asks for the CPU. There is
 no silent move to the CPU: asking for CUDA on a machine without a visible
 GPU raises.
 
-``full_f32`` is the port's one TF32 policy: the f32 products that must be
-full f32 (searches, the device resize) run inside it.
+``full_f32`` is the port's one TF32 policy: the f32 work that must be full
+f32 (searches, the device resize, the training step) runs inside it, with
+TF32 off for cuBLAS's matmuls and for cuDNN's convolutions, whose flag
+PyTorch leaves on by default.
 """
 
 from __future__ import annotations
@@ -32,15 +34,16 @@ def resolve_device(device=None) -> torch.device:
 
 
 class FullF32:
-    """TF32 off on CUDA while any guarded product runs. The flag is global
-    to the process and concurrent searches overlap (the HTTP service's
-    workers), so one depth count decides: the first caller in saves the
-    flag and turns TF32 off, the last one out restores it."""
+    """TF32 off on CUDA (cuBLAS and cuDNN) while any guarded work runs. The
+    flags are global to the process and concurrent searches overlap (the
+    HTTP service's workers), so one depth count decides: the first caller
+    in saves both flags and turns TF32 off, the last one out restores
+    them."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._depth = 0
-        self._saved = False
+        self._saved = (False, False)
 
     @contextlib.contextmanager
     def __call__(self, device: torch.device):
@@ -49,8 +52,10 @@ class FullF32:
             return
         with self._lock:
             if self._depth == 0:
-                self._saved = torch.backends.cuda.matmul.allow_tf32
+                self._saved = (torch.backends.cuda.matmul.allow_tf32,
+                               torch.backends.cudnn.allow_tf32)
                 torch.backends.cuda.matmul.allow_tf32 = False
+                torch.backends.cudnn.allow_tf32 = False
             self._depth += 1
         try:
             yield
@@ -58,7 +63,8 @@ class FullF32:
             with self._lock:
                 self._depth -= 1
                 if self._depth == 0:
-                    torch.backends.cuda.matmul.allow_tf32 = self._saved
+                    (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32) = self._saved
 
 
 full_f32 = FullF32()

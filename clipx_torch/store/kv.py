@@ -115,6 +115,10 @@ def _load() -> ctypes.CDLL:
         lib.cxkv_error.argtypes = [ctypes.c_void_p]
         lib.cxkv_refresh.restype = ctypes.c_int
         lib.cxkv_refresh.argtypes = [ctypes.c_void_p]
+        lib.cxkv_compact.restype = ctypes.c_int
+        lib.cxkv_compact.argtypes = [ctypes.c_void_p]
+        lib.cxkv_generation.restype = ctypes.c_uint64
+        lib.cxkv_generation.argtypes = [ctypes.c_void_p]
         _lib = lib
         return lib
 
@@ -300,6 +304,17 @@ class Environment:
         rc = self._lib.cxkv_refresh(self._h)
         if rc != 0:
             raise Error(f"refresh failed (rc={rc})")
+
+    def compact(self) -> None:
+        """Rewrite the store with only its live records (a new segment
+        generation; the maintenance tool's ``compact``)."""
+        rc = self._lib.cxkv_compact(self._h)
+        if rc != 0:
+            raise Error(f"compact failed (rc={rc})")
+
+    def generation(self) -> int:
+        """Current segment generation (bumps on every compaction)."""
+        return int(self._lib.cxkv_generation(self._h))
 
     def _txn_enter(self) -> None:
         with self._txn_cv:

@@ -26,7 +26,6 @@ Returns 0 when every self-retrieval hit, 2 otherwise.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import sys
@@ -34,6 +33,7 @@ import sys
 import numpy as np
 
 from clipx_torch.runtime.device import DEVICES
+from clipx_torch.utils.env import restoring
 
 RESULTS = {}
 
@@ -41,21 +41,6 @@ RESULTS = {}
 def _record(key, **vals):
     RESULTS[key] = {k: (round(v, 4) if isinstance(v, float) else v)
                     for k, v in vals.items()}
-
-
-@contextlib.contextmanager
-def _env(name: str, value: str):
-    """$name = value inside the block; the caller's value (or its absence)
-    is restored after it."""
-    prev = os.environ.get(name)
-    os.environ[name] = value
-    try:
-        yield
-    finally:
-        if prev is None:
-            os.environ.pop(name, None)
-        else:
-            os.environ[name] = prev
 
 
 def _recall(ref_ids, ids, k: int) -> float:
@@ -160,7 +145,7 @@ def main(argv=None) -> int:
         opq_modes = (("trained",) if args.pq_modes == "default"
                      else ("fixed", "trained"))
         for opq in opq_modes:
-            with _env("CLIPX_PQ_OPQ", opq):
+            with restoring(CLIPX_PQ_OPQ=opq):
                 ipq = VectorIndex.from_vectors(vectors, device=dev,
                                                dtype="pq")
             recall, top1 = agreement(ipq)
@@ -200,7 +185,7 @@ def main(argv=None) -> int:
         res_modes = (("on",) if args.pq_modes == "default"
                      else ("off", "on"))
         for res in res_modes:
-            with _env("CLIPX_PQ_RESIDUAL", res):
+            with restoring(CLIPX_PQ_RESIDUAL=res):
                 ivf_pq = IVFIndex.from_vectors(vectors, device=dev,
                                                dtype="pq")
             r_fullp, r_defp = ivf_recall(ivf_pq, 100), ivf_recall(ivf_pq)

@@ -238,9 +238,13 @@ def test_port_imports_neither_jax_nor_clipx():
     names = {str(f.relative_to(ROOT)) for f in files}
     assert len(files) > 20
     assert {"clipx_torch/models/resnet.py",
-            "clipx_torch/tools/eval_quality.py"} <= names
+            "clipx_torch/tools/eval_quality.py", "clipx_torch/train.py",
+            "clipx_torch/cli/train.py", "clipx_torch/utils/env.py",
+            *(f"clipx_torch/tools/{t}.py" for t in (
+                "make_synth_index", "load_timing", "find_dupes", "kv_tool",
+                "build_codes_direct"))} <= names
     root_tools = {p.stem for p in (ROOT / "tools").glob("*.py")}
-    assert "eval_quality" in root_tools
+    assert {"eval_quality", "kv_tool", "build_codes_direct"} <= root_tools
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imports(f) if m and m.split(".")[0] in (
                "jax", "jaxlib", "flax", "clipx", "tools", *root_tools)]

@@ -1227,3 +1227,160 @@ def test_pq_lut_bf16_on_the_card_gives_the_same_results(cuda_device,
     assert tps.LAUNCHES["pq_scan_scores"] == before + 1
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[0], want[0])
+
+
+# -- training and the tools (clipx_torch/train.py, clipx_torch/tools/) -------
+
+# a card step against the CPU step, f32 on both with TF32 off: summation
+# order only, as the CPU parity tests' tolerances (tests/test_torch_train.py)
+# for the ViT tower. cuDNN's f32 convolution algorithms leave ~4e-3
+# relative error on the ResNet tower's conv gradients against the CPU's
+# (measured at RN50 width), and Adam's first steps move an element by ~lr *
+# sign(g), so elements whose gradient sits at that noise move the other
+# way: the RN tower's updates are held by their relative L2 error (5e-2)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_LR = 1e-3
+TRAIN_STEP_ATOL = 2e-3 * TRAIN_LR
+TRAIN_RN_UPDATE_RL2 = 5e-2
+
+
+def _train_steps(model, device, steps=3):
+    from clipx_torch import train as ttrain
+    from clipx_torch.text.tokenizer import ClipTokenizer
+
+    cfg = tcfg.get_config(model)
+    tree = tconvert.init_params(cfg, 0)
+    state, tx = ttrain.create_train_state(
+        cfg, tx=ttrain.make_optimizer(TRAIN_LR, 0.02, 1, steps),
+        device=device, params=tree)
+    step = ttrain.make_train_step(cfg, tx)
+    rng = np.random.default_rng(1)
+    size = cfg.vision.image_size
+    ids = torch.from_numpy(ClipTokenizer()(
+        ["a red square", "a green field", "blue sky", "city lights"],
+        context_length=cfg.text.context_length))
+    metrics = []
+    for _ in range(steps):
+        px = torch.from_numpy(rng.standard_normal(
+            (4, size, size, 3)).astype(np.float32))
+        state, m = step(state, px.to(device), ids.to(device))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return (tree, tconvert._flatten(tconvert.to_jax_params(state.params)),
+            metrics)
+
+
+@pytest.mark.parametrize("model", ["tiny-test", "tiny-rn-test"])
+@pytest.mark.parametrize("tf32", [False, True])
+def test_train_steps_on_the_card_match_the_cpu(cuda_device, model, tf32):
+    """Three train steps on the card against the same steps on the CPU:
+    loss, accuracy and grad norm, and every parameter's update. With the
+    caller's TF32 flags on, the step still runs in full f32 (cuBLAS and
+    cuDNN: the ResNet convolutions) and leaves the flags as it found
+    them."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        before = tps.launch_counts()
+        tree, card, cm = _train_steps(model, cuda_device)
+        assert tps.launch_counts() == before      # no kernel of the port
+        assert torch.backends.cuda.matmul.allow_tf32 == tf32
+        assert torch.backends.cudnn.allow_tf32 == tf32
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    _, cpu, pm = _train_steps(model, "cpu")
+    for a, b in zip(cm, pm):
+        np.testing.assert_allclose(a["loss"], b["loss"], rtol=TRAIN_LOSS_RTOL)
+        np.testing.assert_allclose(a["grad_norm"], b["grad_norm"], rtol=1e-4)
+        assert a["accuracy"] == b["accuracy"]
+    init = tconvert._flatten(tree)
+    if model == "tiny-rn-test":
+        err = sum(float(((card[k] - cpu[k]).astype(np.float64) ** 2).sum())
+                  for k in cpu)
+        ref = sum(float(((cpu[k] - init[k]).astype(np.float64) ** 2).sum())
+                  for k in cpu)
+        assert ref > 0 and (err / ref) ** 0.5 <= TRAIN_RN_UPDATE_RL2
+        return
+    for key in cpu:
+        np.testing.assert_allclose(card[key] - init[key], cpu[key] - init[key],
+                                   rtol=0, atol=TRAIN_STEP_ATOL, err_msg=key)
+
+
+def test_full_f32_turns_cudnn_tf32_off(cuda_device):
+    """The TF32 guard covers cuDNN's flag (on by default in PyTorch) as
+    well as cuBLAS's, and restores both."""
+    from clipx_torch.runtime.device import full_f32
+
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with full_f32(cuda_device):
+            assert not torch.backends.cuda.matmul.allow_tf32
+            assert not torch.backends.cudnn.allow_tf32
+            x = torch.randn((2, 64, 17, 17), device=cuda_device)
+            w = torch.randn((64, 64, 3, 3), device=cuda_device)
+            out = torch.nn.functional.conv2d(x, w, padding=1)
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    ref = torch.nn.functional.conv2d(x.double().cpu(), w.double().cpu(),
+                                     padding=1)
+    # full f32 (TF32 keeps 10 mantissa bits: errors near 1e-2 here)
+    torch.testing.assert_close(out.cpu().double(), ref, atol=1e-3, rtol=0)
+
+
+def test_kernel_refuses_an_input_that_requires_grad(cuda_device):
+    """B7 on CUDA: an input that requires grad is refused by name (its
+    output would carry no grad_fn); under torch.no_grad() it launches."""
+    gen = torch.Generator().manual_seed(0)
+    x = _bf(gen, cuda_device, 2, 50, 768)
+    w1 = _bf(gen, cuda_device, 768, 3072, scale=0.02).requires_grad_(True)
+    w2 = _bf(gen, cuda_device, 3072, 768, scale=0.02)
+    b1 = torch.zeros(3072, device=cuda_device)
+    b2 = torch.zeros(768, device=cuda_device)
+    before = tps.LAUNCHES["fused_mlp"]
+    with pytest.raises(RuntimeError, match="fused_mlp: an input requires"):
+        tps.fused_mlp(x, w1, b1, w2, b2)
+    with pytest.raises(RuntimeError, match="fused_attn_block"):
+        tps._launch_attn_block(
+            x, _bf(gen, cuda_device, 768, 2304).requires_grad_(True),
+            torch.zeros(2304, device=cuda_device),
+            _bf(gen, cuda_device, 768, 768),
+            torch.zeros(768, device=cuda_device), 12)
+    assert tps.LAUNCHES["fused_mlp"] == before
+    with torch.no_grad():
+        out = tps.fused_mlp(x, w1, b1, w2, b2)
+    assert tps.LAUNCHES["fused_mlp"] == before + 1
+    assert out.shape == x.shape and out.grad_fn is None
+
+
+def test_load_timing_pq_launches_b11(cuda_device, tmp_path):
+    """The port's load_timing over a pq deployment on the card: cold, then
+    warm with --query (50 searches, B11 each), the same keys as on the
+    CPU."""
+    from clipx_torch.search.engine import IndexWriter
+    from clipx_torch.tools import load_timing
+
+    rows = np.random.default_rng(4).standard_normal((20_000, 64)).astype(
+        np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    index = str(tmp_path / "images.index")
+    writer = IndexWriter(index, *rows.shape)
+    writer.write(rows)
+    writer.close()
+    jpath = str(tmp_path / "lt.json")
+    assert load_timing.main(["--index", index, "--corpus-dtype", "pq",
+                             "--cold", "--json", jpath]) == 0
+    before = tps.LAUNCHES["pq_scan_scores"]
+    assert load_timing.main(["--index", index, "--corpus-dtype", "pq",
+                             "--query", "--json", jpath]) == 0
+    out = json.load(open(jpath))
+    assert out["platform"] == "cuda" and out["mode"] == "warm"
+    assert out["ntotal"] == 20_000 and out["query_p50_ms"] > 0
+    assert tps.LAUNCHES["pq_scan_scores"] - before >= 51

@@ -296,7 +296,8 @@ def test_cuda_kernel_path_raises_without_a_gpu(monkeypatch):
 
     monkeypatch.setattr(_build, "load", no_build)
     monkeypatch.setattr(_launch, "_fns", {})
-    monkeypatch.setattr(tps, "kernel_device", lambda name, t: t.device)
+    monkeypatch.setattr(tps, "kernel_device",
+                        lambda name, t, *inputs: t.device)
     monkeypatch.setattr(tps, "check_cuda", lambda *a, **k: None)
     q = torch.zeros((2, 17, 128))
     with pytest.raises(RuntimeError, match="nvcc"):
@@ -307,7 +308,8 @@ def _capture_launch(monkeypatch, module):
     """Sends ``module``'s kernel path to a recorder on meta tensors: the
     tensors it checks and the arguments it would launch with."""
     seen = {"checked": {}, "launch": None}
-    monkeypatch.setattr(module, "kernel_device", lambda name, t: t.device)
+    monkeypatch.setattr(module, "kernel_device",
+                        lambda name, t, *inputs: t.device)
     monkeypatch.setattr(module, "check_cuda", lambda name, dtype, device, **
                         ts: seen["checked"].update(ts))
     monkeypatch.setattr(module, "c_fn", lambda *a: None)
@@ -435,7 +437,8 @@ def test_attn_launchers_match_their_c_entries(name, monkeypatch):
 
     calls = []
     for mod in (tps, tfa):
-        monkeypatch.setattr(mod, "kernel_device", lambda n, t: t.device)
+        monkeypatch.setattr(mod, "kernel_device",
+                            lambda n, t, *inputs: t.device)
         monkeypatch.setattr(mod, "check_cuda", lambda *a, **k: None)
     monkeypatch.setattr(tps, "c_fn", lambda lib, sym, argtypes: (lib, sym,
                                                                 argtypes))
@@ -549,7 +552,7 @@ def test_build_sources_are_the_cuda_files():
 @pytest.mark.parametrize("launcher", ["mlp", "long_qkv", "attn_block"])
 def test_launchers_refuse_a_tile_width_that_does_not_divide_n(launcher,
                                                              monkeypatch):
-    monkeypatch.setattr(tps, "kernel_device", lambda n, t: t.device)
+    monkeypatch.setattr(tps, "kernel_device", lambda n, t, *inputs: t.device)
     monkeypatch.setattr(tps, "check_cuda", lambda *a, **k: None)
     monkeypatch.setattr(tps, "launch", lambda *a: pytest.fail("launched"))
     w = 256
