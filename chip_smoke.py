@@ -69,9 +69,23 @@ these phases, printing one JSON line per phase:
               only), embeddings bitwise; /reload incremental and rebuild,
               the rebuild's allocator peak in corpora); --corpus-dtype pq
               booted from phase 6's pq codes (B11 once a search batch);
-              CLIPX_SERVE_COALESCE=0 at 16 clients; a cold start without
-              warm-up in a process of its own (first request of each
-              family against the warm numbers, then SIGTERM).
+              CLIPX_SERVE_COALESCE=0 at 16 clients; --sharded on (one
+              /search_vector answer equal to the default part's); a cold
+              start without warm-up in a process of its own (first request
+              of each family against the warm numbers, then SIGTERM).
+   sharded  — corpus-sharded search and the dp encode (clipx_torch/
+              parallel) on a "shard" mesh of cuda:0 listed 4 times (with
+              more GPUs visible, f32 and pq again over all of them): each
+              flat tier on phase search's corpus (f32, bf16, quant from the
+              rows; int8, int4, pq from phase coded's payloads), p50, recall
+              and ids against the single-device index (exact f32 and bf16
+              identical), B11 once a shard; growth by a 1 % append against
+              the fresh build; ShardedIVFIndex on phase ivf's layouts (f32
+              at nprobe 32 and 100 against IVFIndex, residual pq from its
+              stashed codes); ViT-B/32 over a "dp" mesh of cuda:0 twice on
+              phase encode's images (B1 once a layer a share, against phase
+              encode); one search over a single-rank NCCL process group;
+              then B11 bitwise against plain on one shard's codes.
    int8     — --compute int8 at ViT-B/32: 1,024 images and a batch of 1
               with CLIPX_FUSED_MLP_INT8=on (fused_mlp_w8a8, on the K-major
               weight copies made at quantization: no per-call transpose)
@@ -133,14 +147,17 @@ these phases, printing one JSON line per phase:
               loads its codes and .ivf),
               with --compute int8 (CLIPX_FUSED_MLP_INT8=on), then both at
               --model ViT-L/14@336px, with --preprocess device, and at
-              --model RN50, each build's [stats] rates read from stderr;
+              --model RN50, and both commands with --sharded on (the rows
+              of the default leg; the indexer's data-parallel line), each
+              build's [stats] rates read from stderr;
               four legs at a time, each in a work dir of its own (only
               when PIL or cv2 imports).
 
 Phases 3-6 are the main path of ViT-B/32 (which must launch none of the
 opt-in kernels B5-B7), phase preprocess the canvas path (B1 and B2 only),
 phase ivf the IVF path (B11 only), phase serve the HTTP service's path
-(B1, B2 and B11 only; each of its parts counted on its own), phases int8
+(B1, B2 and B11 only; each of its parts counted on its own), phase sharded
+the sharded path (B1 and B11 only), phases int8
 and fused its opt-in routes, phase 8 the long towers' path, phase resnet
 the ResNet towers' (no kernel), phase quality the gate's (B1, B2 and B11),
 phase train training's (no kernel: clipx's train step reaches none) and
@@ -1476,6 +1493,7 @@ def corpus_search(stored: np.ndarray, device, dim: int) -> dict:
             "max_abs_score_diff": float(np.abs(Dq - De).max())}
     quant.quantized = False
     return {"index": exact, "queries": queries, "ids": Ie, "scores": De,
+            "quant_ids": Iq, "quant_scores": Dq,
             "picks": picks.cpu().numpy(), "info": info}
 
 
@@ -1583,6 +1601,8 @@ def phase_coded(search: dict, device, keep: str) -> dict:
                 **_search_profile(idx, queries, p50))
             results[tier] = (D, I)
             del idx
+        # phase sharded holds its sharded tiers against these
+        search["tier_results"] = results
         t0 = time.perf_counter()
         bf16 = common.build_index_from_vectors(rows, args("bf16"))
         tiers["bf16"] = {"build_s": time.perf_counter() - t0}
@@ -1832,7 +1852,7 @@ def _ivf_probe_chunks(idx, queries, device) -> dict:
                     lambda: pqs.pq_scan_scores(flat, col))}
 
 
-def phase_ivf(search: dict, device) -> dict:
+def phase_ivf(search: dict, device, keep: str) -> dict:
     """IVF search (clipx_torch/search/ivf.py) on phase search's corpus:
     k-means on the card (twice: the same layout digest), the layout saved
     as an .ivf cache, then through that cache f32 (IVFIndex.from_vectors,
@@ -1844,10 +1864,12 @@ def phase_ivf(search: dict, device) -> dict:
     rows. Each leg through _ivf_leg, with pq_scan_scores_plain refused.
     Returns the info and the launch counts of these searches; the
     B11-versus-plain checks of _ivf_probe_chunks run after the counts are
-    read."""
+    read. For phase sharded it keeps (in ``keep`` and ``search``) both .ivf
+    caches, the unquantized f32 ranking at nprobe 100 and the residual pq
+    leg's flat-order codes."""
     from clipx_torch.ops import packed_sdpa as ps
     from clipx_torch.search import ivf as tivf
-    from clipx_torch.search.engine import VectorIndex
+    from clipx_torch.search.engine import VectorIndex, content_hash
     from clipx_torch.utils.env import restoring
 
     rows, queries = search["rows"], search["queries"]
@@ -1867,7 +1889,7 @@ def phase_ivf(search: dict, device) -> dict:
         info.update(clusters=int(assign.max()) + 1,
                     segments=len(layout) // 64, layout_digest=digest.hex(),
                     two_builds_one_layout=True)
-        cache = os.path.join(tmp, "images.index.ivf")
+        cache = search["ivf_cache"] = os.path.join(keep, "corpus.ivf")
         t0 = time.perf_counter()
         tivf._save_cache(cache, rows, layout)
         info["cache_save_s"] = time.perf_counter() - t0
@@ -1892,6 +1914,7 @@ def phase_ivf(search: dict, device) -> dict:
                 D, I = idx.search(queries, K, nprobe=100)
                 check(_same_ranking(D, I, exact_D, exact_ids),
                       "f32 IVF at nprobe 100 differs from the exact search")
+                search["ivf_full"] = (D, I)
                 tiers["f32_exact"] = {"full_probe_equals_exact": True,
                                       **_ivf_leg(idx, queries, exact_ids)}
             del idx
@@ -1902,12 +1925,22 @@ def phase_ivf(search: dict, device) -> dict:
         flat.add(sub)
         _, sub_ids = flat.search(queries, K)
         del flat
+        res_cache = os.path.join(keep, "residual.ivf")
         with restoring(CLIPX_PQ_RESIDUAL="on"):
             t0 = time.perf_counter()
-            idx = tivf.IVFIndex.from_vectors(sub, dtype="pq", device=device)
+            idx = tivf.IVFIndex.from_vectors(sub, dtype="pq", device=device,
+                                             cache_path=res_cache,
+                                             stash_codes=True)
             torch.cuda.synchronize()
             build_s = time.perf_counter() - t0
         check(idx._residual, "IVF pq_residual: codes are not residual")
+        # the install's flat-order residual codes, as a codes-file payload
+        search["ivf_residual"] = {
+            "cache": res_cache, "ids": sub_ids,
+            "payload": dict(idx._pending_codes_payload, tier="pq",
+                            ntotal=sub.shape[0], dim=DIM,
+                            content_hash=content_hash(sub))}
+        idx._pending_codes_payload = None
         # k-means on these rows, the residual OPQ training and encode
         tiers["pq_residual"] = {"build_s": build_s,
                                 **_ivf_leg(idx, queries, sub_ids)}
@@ -2422,7 +2455,9 @@ def phase_serve(enc, search: dict, images: np.ndarray, card: str) -> dict:
     2. --corpus-dtype pq booted from phase coded's pq codes: B11 once a
        search batch, answers against a direct search;
     3. CLIPX_SERVE_COALESCE=0 at 16 clients, over HTTP and without;
-    4. a cold start without warm-up in a process of its own."""
+    4. --sharded on (phase sharded's service leg): one /search_vector
+       answer equal to part 1's;
+    5. a cold start without warm-up in a process of its own."""
     from clipx_torch.ops import flash_attention as tfa
     from clipx_torch.ops import packed_sdpa as ps
     from clipx_torch.ops import pq_scan as pqs
@@ -2464,6 +2499,8 @@ def phase_serve(enc, search: dict, images: np.ndarray, card: str) -> dict:
         setup_s = time.perf_counter() - t0
         argv = ["--model", "ViT-B/32", "--db", db, "--port", "0"]
         pngs = [_png(im) for im in images[:SERVE_IMAGES]]
+        vector_0 = {"vector": queries[0].tolist(), "k": K}
+        answers = {}
 
         def default():
             run = _ServeRun(argv + ["--index", sidecar], enc)
@@ -2480,6 +2517,10 @@ def phase_serve(enc, search: dict, images: np.ndarray, card: str) -> dict:
                     status, sim, _ = run.get(f"/similar?id={i}&k={K}")
                     check(status == 200 and sim["results"][0]["id"] == i,
                           f"/similar?id={i}: rank 0 is not the id itself")
+                # the answer part "sharded" must give too
+                status, answer, _ = run.post("/search_vector", vector_0)
+                check(status == 200, "/search_vector of query 0 failed")
+                answers["default"] = _rows_of(answer["results"], K)
                 out.update(_image_requests(run, enc, pngs))
                 part_counts = ps.launch_counts()
                 check(not any(c for name, c in part_counts.items()
@@ -2543,6 +2584,31 @@ def phase_serve(enc, search: dict, images: np.ndarray, card: str) -> dict:
                 run.close()
 
         part("coalesce_off", coalesce_off)
+
+        def sharded():
+            # phase sharded's service leg, on this phase's deployment:
+            # --sharded on row-shards the index over every visible GPU
+            run = _ServeRun(argv + ["--index", orig, "--sharded", "on"], enc)
+            try:
+                index = run.service.current_index()
+                check(type(index).__name__ == "ShardedVectorIndex"
+                      and index.quantized and index.ntotal == n,
+                      "--sharded on did not serve a quant ShardedVectorIndex")
+                status, answer, secs = run.post("/search_vector", vector_0)
+                check(status == 200, "sharded /search_vector failed")
+                D, I = _rows_of(answer["results"], K)
+                Dd, Id = answers["default"]
+                check(_same_ranking(D, I, Dd, Id), "the sharded service's "
+                      "/search_vector answer differs from the default's")
+                return {"boot_s": run.boot_s, "warmup_s": run.warm_s,
+                        "shards": index.n_shards, "request_s": secs,
+                        "ids_identical_to_default": bool(
+                            np.array_equal(I, Id)),
+                        "max_abs_score_diff": float(np.abs(D - Dd).max())}
+            finally:
+                run.close()
+
+        part("sharded", sharded)
         default_info = parts["default"]
         parts["cold"] = {"phase": "serve", "part": "cold", "card": card,
                          **_cold_start(
@@ -2555,6 +2621,365 @@ def phase_serve(enc, search: dict, images: np.ndarray, card: str) -> dict:
         emit(parts["cold"])
     total = {name: sum(c[name] for c in launches) for name in launches[0]}
     return {"parts": parts, "launches": total}
+
+
+# ---------------------------------------------------------------------------
+# phase: corpus-sharded search and the data-parallel encode (clipx_torch/
+# parallel)
+# ---------------------------------------------------------------------------
+
+SHARDS = 4           # shards of the one-card mesh: cuda:0 listed 4 times
+SHARD_REPS = 10      # timed searches a p50 (after 3 warm-ups)
+GROW_SHARE = 100     # the growth leg appends the last 1/GROW_SHARE of rows
+RECALL_SLACK = 0.02  # a coded tier's sharded recall@50 may trail its
+# single-device recall by this much (its candidate pool is a superset; ties
+# may fall either way)
+
+
+def _sharded_tier(name, idx, queries, exact_ids, picks, total, ref) -> dict:
+    """One sharded tier: p50 at Q = 16, the _tier_checks and recall@50
+    against the single-device index's ids of the same tier (``ref``)."""
+    D, I, p50 = _search_p50(idx, queries, K, reps=SHARD_REPS)
+    out = {"p50_ms": p50, **_tier_checks(name, D, I, exact_ids, picks,
+                                         total)}
+    if ref is not None:
+        Dr, Ir = ref
+        out["recall_at_50_vs_single"] = float(np.mean(
+            [len(set(a) & set(b)) / K for a, b in zip(I, Ir)]))
+        out["ids_identical_to_single"] = bool(np.array_equal(I, Ir))
+        out["scores_bitwise_single"] = bool(np.array_equal(D, Dr))
+    return out, (D, I)
+
+
+def _flat_legs(mesh, search: dict, tiers) -> dict:
+    """ShardedVectorIndex on ``mesh`` for each of ``tiers``: f32 exact, bf16
+    and quant from the host rows, int8, int4 and pq from phase coded's
+    codes payloads (no re-encode). Exact f32 and bf16 must give the
+    single-device ids; quant phase search's exact ids but for the
+    near-duplicate exception; the coded tiers find the perturbed rows first
+    and keep their single-device recall@50 against exact (within
+    RECALL_SLACK)."""
+    from clipx_torch.ops import packed_sdpa as ps
+    from clipx_torch.parallel.mips import ShardedVectorIndex
+    from clipx_torch.search.engine import VectorIndex
+
+    rows, queries = search["rows"], search["queries"]
+    exact_ids, picks = search["ids"], search["picks"]
+    total = rows.shape[0]
+    single = dict(search["tier_results"], f32=(search["scores"], exact_ids),
+                  quant=(search["quant_scores"], search["quant_ids"]))
+    out = {}
+    for tier in tiers:
+        if tier == "bf16":
+            # phase coded's bf16 index ran quant (auto at 1M rows): the
+            # exact bf16 reference on one device
+            ref = VectorIndex(DIM, device=mesh.devices[0], dtype="bf16")
+            ref.add(rows)
+            single["bf16"] = ref.search(queries, K)
+            del ref
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        if tier in ("int8", "int4", "pq"):
+            idx = ShardedVectorIndex.from_codes(search["payloads"][tier],
+                                                mesh)
+        else:
+            idx = ShardedVectorIndex(rows, mesh,
+                                     dtype="bf16" if tier == "bf16" else "f32",
+                                     quantized=tier == "quant")
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        if tier == "pq":
+            before = ps.launch_counts()["pq_scan_scores"]
+            idx.search(queries, K)
+            b11 = ps.launch_counts()["pq_scan_scores"] - before
+            check(b11 == idx.n_shards, f"sharded pq launched B11 {b11} times "
+                  f"a search, expected one a shard ({idx.n_shards})")
+        info, (D, I) = _sharded_tier(tier, idx, queries, exact_ids, picks,
+                                     total, single[tier])
+        info["place_s"] = place_s
+        if tier == "pq":
+            info["b11_launches_per_search"] = b11
+        if tier in ("f32", "bf16"):
+            check(info["ids_identical_to_single"],
+                  f"sharded {tier} ids differ from the single-device index's")
+            info["max_abs_score_diff"] = float(np.abs(D - single[tier][0]
+                                                      ).max())
+        elif tier == "quant":
+            same = (I == exact_ids).all(axis=1)
+            exc = ((I[:, 0] == exact_ids[:, 0])
+                   & (np.abs(D - search["scores"]) <= NEAR_DUP_ATOL
+                      ).all(axis=1))
+            check(bool((same | exc).all()), "sharded quant ids differ from "
+                  "exact beyond the near-duplicate exception")
+            info["rows_identical_to_exact"] = int(same.sum())
+        else:
+            r1 = float(np.mean([len(set(a) & set(b)) / K for a, b in
+                                zip(single[tier][1], exact_ids)]))
+            info["single_recall_at_50"] = r1
+            check(info["recall_at_50"] >= r1 - RECALL_SLACK,
+                  f"sharded {tier} recall@50 {info['recall_at_50']} trails "
+                  f"the single-device {r1}")
+        out[tier] = info
+        if tier == "f32":
+            out["_f32"] = (D, I)
+        del idx
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ivf_legs(mesh, search: dict, device) -> dict:
+    """ShardedIVFIndex on phase ivf's .ivf layouts: f32 (unquantized) over
+    the whole corpus, its nprobe-100 ranking against phase ivf's IVFIndex
+    (ids identical, scores within 1e-5, bitwise reported); residual pq
+    installed from phase ivf's stashed codes (no encode), B11 once per
+    (shard, query, probed chunk). Recall@50 and p50 at nprobe 32 and
+    100."""
+    from clipx_torch.ops import packed_sdpa as ps
+    from clipx_torch.search import ivf as tivf
+
+    rows, queries = search["rows"], search["queries"]
+    res = search["ivf_residual"]
+    out = {}
+    for tier in ("f32", "pq_residual"):
+        t0 = time.perf_counter()
+        if tier == "f32":
+            idx = tivf.ShardedIVFIndex.from_vectors(
+                rows, cache_path=search["ivf_cache"], mesh=mesh)
+            ref_ids = search["ids"]
+        else:
+            idx = tivf.ShardedIVFIndex.from_codes(res["payload"],
+                                                  res["cache"], mesh=mesh)
+            ref_ids = res["ids"]
+        torch.cuda.synchronize()
+        check(idx is not None, f"sharded IVF {tier}: the .ivf did not load")
+        r = {"install_s": time.perf_counter() - t0, "segments": idx._segs()}
+        s_loc = idx._segs() // idx._n_shards
+        for nprobe in (32, 100):
+            before = ps.launch_counts()["pq_scan_scores"]
+            D, I = idx.search(queries, K, nprobe=nprobe)
+            b11 = ps.launch_counts()["pq_scan_scores"] - before
+            if tier == "pq_residual":
+                P = idx.probe_bucket(K, nprobe)
+                p_loc = min(tivf._bucket_probe(-(-P // idx._n_shards)),
+                            s_loc)
+                want = (idx._n_shards * NQ
+                        * -(-p_loc // tivf._pq_chunk_segs(p_loc, 64)))
+                check(b11 == want, f"sharded IVF-PQ nprobe {nprobe}: B11 "
+                      f"launched {b11} times, expected {want}")
+                r[f"b11_launches_nprobe{nprobe}"] = b11
+            check(I.shape == (NQ, K) and bool((I >= 0).all())
+                  and bool((np.diff(D, axis=1) <= 0).all()),
+                  f"sharded IVF {tier} nprobe {nprobe}: bad results")
+            _, _, p50 = _search_p50(
+                _NProbe(idx, nprobe), queries, K, reps=SHARD_REPS)
+            r[f"nprobe{nprobe}"] = {"p50_ms": p50, "recall_at_50": float(
+                np.mean([len(set(a) & set(b)) / K
+                         for a, b in zip(I, ref_ids)]))}
+        if tier == "f32":
+            Dv, Iv = search["ivf_full"]
+            check(_same_ranking(D, I, Dv, Iv),
+                  "sharded f32 IVF at nprobe 100 differs from IVFIndex's")
+            r["ids_identical_to_ivfindex"] = bool(np.array_equal(I, Iv))
+            r["bitwise_ivfindex"] = bool(np.array_equal(I, Iv)
+                                         and np.array_equal(D, Dv))
+            r["max_abs_score_diff"] = float(np.abs(D - Dv).max())
+        out[tier] = r
+        del idx
+        torch.cuda.empty_cache()
+    return out
+
+
+class _NProbe:
+    """An IVF index whose search takes a fixed nprobe (for _search_p50)."""
+
+    def __init__(self, idx, nprobe):
+        self.idx, self.nprobe = idx, nprobe
+
+    def search(self, queries, k):
+        return self.idx.search(queries, k, nprobe=self.nprobe)
+
+
+def _grow_leg(mesh, search: dict, fresh) -> dict:
+    """A sharded f32 index of all but the last 1/GROW_SHARE of the rows,
+    then add() of that delta: the growth re-deals the rows into larger
+    shards on the card; ids continue from ntotal (the 8 encoded images,
+    in the delta, are found there) and results equal the fresh build's
+    (``fresh``: _flat_legs' f32 (D, I)) over the same rows."""
+    from clipx_torch.parallel.mips import ShardedVectorIndex
+
+    rows, queries = search["rows"], search["queries"]
+    n0 = rows.shape[0] - rows.shape[0] // GROW_SHARE
+    Df, If = fresh
+    t0 = time.perf_counter()
+    idx = ShardedVectorIndex(rows[:n0], mesh)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    rows_before = idx._rows
+    t0 = time.perf_counter()
+    idx.add(rows[n0:])
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    check(idx.ntotal == rows.shape[0] and idx._rows > rows_before,
+          "the sharded add did not grow the shards")
+    D, I = idx.search(queries, K)
+    # the encoded images (queries 0-7 are their rows) lie in the delta
+    check(bool((I[: NQ // 2, 0] >= n0).all()),
+          "appended rows did not continue the ids")
+    check(_same_ranking(D, I, Df, If),
+          "the grown sharded index differs from the fresh build")
+    return {"base_rows": n0, "delta_rows": rows.shape[0] - n0,
+            "place_s": place_s, "add_s": add_s,
+            "rows_per_shard_before": rows_before,
+            "rows_per_shard_after": idx._rows,
+            "ids_identical_to_fresh": bool(np.array_equal(I, If)),
+            "bitwise_fresh": bool(np.array_equal(I, If)
+                                  and np.array_equal(D, Df))}
+
+
+def _dp_encode_leg(device, images: np.ndarray, embs: np.ndarray) -> dict:
+    """ViT-B/32 over a "dp" mesh of cuda:0 twice, 1,024 images at batch 128:
+    two even shares of 64 a batch, B1 once a layer a share; against phase
+    encode's embeddings of the same images (cosine >= COS_MIN; bitwise
+    reported)."""
+    from clipx_torch.ops import packed_sdpa as ps
+    from clipx_torch.parallel.mesh import make_mesh
+    from clipx_torch.runtime.encoder import Encoder
+
+    t0 = time.perf_counter()
+    enc = Encoder.create("ViT-B/32", seed=SEED,
+                         mesh=make_mesh({"dp": 2}, [device] * 2))
+    enc.warmup(buckets=(BATCH,))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    before = ps.launch_counts()["fused_attn_block"]
+    t0 = time.perf_counter()
+    out = np.concatenate([enc.encode_images(images[i: i + BATCH])
+                          for i in range(0, N_IMAGES, BATCH)])
+    secs = time.perf_counter() - t0
+    b1 = ps.launch_counts()["fused_attn_block"] - before
+    layers = enc.cfg.vision.layers
+    check(b1 == 2 * layers * (N_IMAGES // BATCH),
+          f"the dp encode launched B1 {b1} times, expected {2 * layers} a "
+          "batch (once a layer a share)")
+    cos = (out * embs).sum(axis=1)
+    check(bool((cos >= COS_MIN).all()), f"dp encode vs phase encode cosine "
+          f"{float(cos.min())}")
+    return {"mesh": {"dp": 2}, "images": N_IMAGES, "batch": BATCH,
+            "setup_s": setup_s, "seconds": secs,
+            "img_per_s": N_IMAGES / secs, "b1_launches_per_batch":
+            b1 / (N_IMAGES // BATCH), "cos_min": float(cos.min()),
+            "cos_tolerance": COS_MIN,
+            "max_abs_diff": float(np.abs(out - embs).max()),
+            "bitwise": bool(np.array_equal(out, embs))}
+
+
+def _process_leg(device, search: dict) -> dict:
+    """One search through distributed.initialize with a single NCCL rank:
+    the mesh from global_devices spans the process group, so the merge
+    runs all_gather over NCCL; the group is destroyed after."""
+    import socket
+
+    import torch.distributed as dist
+
+    from clipx_torch.parallel import distributed
+    from clipx_torch.parallel.mesh import make_mesh
+    from clipx_torch.parallel.mips import ShardedVectorIndex
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    rows, queries = search["rows"], search["queries"]
+    sub = rows[-(1 << 17):]  # the last 131,072 rows, the images among them
+    t0 = time.perf_counter()
+    distributed.initialize(f"127.0.0.1:{port}", num_processes=1,
+                           process_id=0, device=str(device))
+    try:
+        init_s = time.perf_counter() - t0
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        check(dist.get_backend() == backend, f"the group is not {backend}")
+        devices, ranks = distributed.global_devices([device] * SHARDS)
+        mesh = make_mesh({"shard": SHARDS}, devices, ranks)
+        check(mesh.process_group, "the mesh does not span the group")
+        D, I = ShardedVectorIndex(sub, mesh).search(queries, K)
+    finally:
+        distributed.shutdown()
+    check(not dist.is_initialized(), "the process group was not destroyed")
+    ref = ShardedVectorIndex(sub, make_mesh({"shard": SHARDS},
+                                            [device] * SHARDS))
+    Dr, Ir = ref.search(queries, K)
+    check(np.array_equal(I, Ir) and np.array_equal(D, Dr),
+          "the NCCL-gathered search differs from the in-process one")
+    return {"backend": backend, "ranks": 1, "rows": sub.shape[0],
+            "init_s": init_s, "identical_to_in_process": True}
+
+
+def phase_sharded(device, search: dict, images: np.ndarray,
+                  embs: np.ndarray) -> dict:
+    """Corpus-sharded search and the dp encode (clipx_torch/parallel), on a
+    "shard" mesh of SHARDS positions all on cuda:0 (one card serves every
+    shard: these are not multi-GPU numbers), and, with more than one GPU
+    visible, f32 and pq again over every GPU. Legs: the flat tiers on phase
+    search's corpus (_flat_legs), IVF on phase ivf's layouts (_ivf_legs),
+    growth (_grow_leg), the dp encode (_dp_encode_leg), one NCCL rank
+    (_process_leg); then B11 against its plain version, bitwise, on one
+    shard's codes. Returns the info and this path's launch counts, read
+    before that check."""
+    from clipx_torch.ops import packed_sdpa as ps
+    from clipx_torch.ops import pq_scan as pqs
+    from clipx_torch.parallel.mesh import make_mesh, visible_devices
+    from clipx_torch.parallel.mips import ShardedVectorIndex, shard_mesh
+    from clipx_torch.search import pq as pq_lib
+    from clipx_torch.search.engine import rotate_rows
+
+    mesh = make_mesh({"shard": SHARDS}, [device] * SHARDS)
+    info = {"phase": "sharded", "mesh": f"{SHARDS} shards on one card",
+            "rows": search["rows"].shape[0], "dim": DIM, "k": K,
+            "queries": NQ}
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    with _no_plain_pq_scan():
+        flat = timed("flat", _flat_legs, mesh, search,
+                     ("f32", "bf16", "quant", "int8", "int4", "pq"))
+        fresh = flat.pop("_f32")
+        info["flat"] = flat
+        info["grow"] = timed("grow", _grow_leg, mesh, search, fresh)
+        del fresh
+        torch.cuda.empty_cache()
+        info["ivf"] = timed("ivf", _ivf_legs, mesh, search, device)
+        if torch.cuda.device_count() > 1:
+            gpus = visible_devices("cuda")
+            every = timed("every_gpu", _flat_legs, shard_mesh(gpus), search,
+                          ("f32", "pq"))
+            every.pop("_f32")
+            info["every_gpu"] = {"gpus": len(gpus), **every}
+        info["dp_encode"] = timed("dp_encode", _dp_encode_leg, device,
+                                  images, embs)
+        info["process"] = timed("process", _process_leg, device, search)
+    launches = ps.launch_counts()
+    # B11 at a shard's shape against its plain version (not counted)
+    idx = ShardedVectorIndex.from_codes(search["payloads"]["pq"], mesh)
+    with torch.inference_mode():
+        q = torch.from_numpy(rotate_rows(search["queries"], idx._rot)).to(
+            device)
+        _, luti, _ = pq_lib.quantized_luts(q, idx._pq.device(device))
+        shard = idx._codes[0]
+        out = pqs.pq_scan_scores(shard, luti.T.contiguous())
+        ref = pqs.pq_scan_scores_plain(shard, luti.T.contiguous())
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), "B11 differs from plain on a shard")
+    info["b11_shard_check"] = {"rows": shard.shape[0], "queries": NQ,
+                               "bitwise": True}
+    del idx
+    torch.cuda.empty_cache()
+    info["seconds"] = seconds
+    emit(info)
+    return {"info": info, "launches": launches}
 
 
 def _kernel_class(name: str) -> str:
@@ -3927,11 +4352,12 @@ def phase_cli(info_env: dict) -> dict:
                     "reload_query_s": reload_s}
 
         def leg(name, flags, build_only, dim, leg_env=env):
+            err = []
             build_s, query_s, rows, stats = _cli_build_and_query(
                 flags, decode + build_only, photos, workdir(name), leg_env,
-                dim)
+                dim, err)
             return {"build_s": build_s, "query_s": query_s, "rows": rows,
-                    "stats": stats}
+                    "stats": stats, "build_stderr": err[0]}
 
         with ThreadPoolExecutor(CLI_WORKERS) as pool:
             futures = {
@@ -3951,7 +4377,12 @@ def phase_cli(info_env: dict) -> dict:
                     "--device", "cuda"], ["--preprocess", "device"], 512),
                 # the ResNet tower at RN50 (1024-wide embeddings)
                 "rn50": pool.submit(leg, "work_rn50", [
-                    "--device", "cuda", "--model", "RN50"], [], 1024)}
+                    "--device", "cuda", "--model", "RN50"], [], 1024),
+                # phase sharded's CLI leg: both commands --sharded on (the
+                # indexer's dp encode and a row-sharded index over every
+                # visible GPU), the rows of the default leg
+                "sharded": pool.submit(leg, "work_sharded", [
+                    "--device", "cuda", "--sharded", "on"], [], 512)}
             legs = {name: f.result() for name, f in futures.items()}
     main, ivf_leg = legs["main"], legs["ivf"]
     rows = main["rows"]
@@ -3966,6 +4397,17 @@ def phase_cli(info_env: dict) -> dict:
     check(shown(ivf_leg["rows"]) == shown(rows),
           f"ivf result rows {ivf_leg['rows']} differ from the f32 run's "
           f"{rows}")
+    sharded = legs["sharded"]
+    gpus = torch.cuda.device_count()
+    check(f"(data-parallel encode over {gpus} devices)"
+          in sharded["build_stderr"],
+          "build_index --sharded on did not print its data-parallel line")
+    same = [a.split()[1:] == b.split()[1:]
+            and abs(float(a.split()[0]) - float(b.split()[0])) <= 1e-4
+            for a, b in zip(sharded["rows"], rows)]
+    check(len(sharded["rows"]) == len(rows) and all(same),
+          f"--sharded on result rows {sharded['rows']} differ from the "
+          f"default run's {rows}")
     info = {"phase": "cli", "fixtures": backend, "workers": CLI_WORKERS,
             "build_s": main["build_s"], "query_s": main["query_s"],
             "result_rows": len(rows), "stats": main["stats"],
@@ -3977,8 +4419,10 @@ def phase_cli(info_env: dict) -> dict:
             "ivf_pq_reload_query_s": ivf_leg["reload_query_s"],
             "ivf_pq_result_rows": len(ivf_leg["rows"]),
             "long_model": LONG_MODEL}
+    info["sharded_rows_identical"] = sharded["rows"] == rows
     for name, key in (("int8", "int8"), ("long", "long"),
-                      ("device", "preprocess_device"), ("rn50", "rn50")):
+                      ("device", "preprocess_device"), ("rn50", "rn50"),
+                      ("sharded", "sharded")):
         info.update({f"{key}_build_s": legs[name]["build_s"],
                      f"{key}_query_s": legs[name]["query_s"],
                      f"{key}_result_rows": len(legs[name]["rows"])})
@@ -3989,13 +4433,14 @@ def phase_cli(info_env: dict) -> dict:
 
 
 def _cli_build_and_query(flags, decode, photos: str, work: str, env,
-                         dim: int):
+                         dim: int, stderr=None):
     """build_index over the fixture photos (6 images and one broken file)
     in work (``flags`` and the build-only ``decode`` flags), then the
     scripted REPL (``flags``: a text query, 'i 1', 'q'), with the
     stdout checks of the reference contract. Returns (build seconds,
     query seconds, result rows, the build's [stats] line on stderr as
-    {stage: items per second})."""
+    {stage: items per second}); ``stderr``, a list, gets the build's
+    stderr."""
     t0 = time.perf_counter()
     build = subprocess.run(
         [sys.executable, "-m", "clipx_torch.cli.build_index", *flags,
@@ -4004,6 +4449,8 @@ def _cli_build_and_query(flags, decode, photos: str, work: str, env,
     build_s = time.perf_counter() - t0
     check(build.returncode == 0, f"build_index {flags} failed:\n"
                                  f"{build.stderr}")
+    if stderr is not None:
+        stderr.append(build.stderr)
     out = build.stdout
     for want in (f"CLIPing {photos}...", "Preparing index for 6 entries...",
                  f"Generating (6, {dim}) matrix...", "Saving index...",
@@ -4102,7 +4549,7 @@ def _run_phases(device, keep: str) -> int:
     # the IVF path: counts from 0 just before it, read just after its
     # searches (before its kernel-versus-plain checks)
     ps.reset_launches()
-    ivf = timed("ivf", phase_ivf, search, device)
+    ivf = timed("ivf", phase_ivf, search, device, keep)
     paths.append(ivf["launches"])
     emit({"phase": "ivf_path_launches", "launches": paths[-1]})
     check(paths[-1]["pq_scan_scores"] > 0
@@ -4118,7 +4565,20 @@ def _run_phases(device, keep: str) -> int:
     check(served == {"fused_attn_block", "packed_sdpa", "pq_scan_scores"},
           f"the service's path launched {sorted(served)}, not B1, B2 and "
           "B11 alone")
-    del search, ivf, serve
+    del ivf, serve
+    torch.cuda.empty_cache()
+    # the sharded path (clipx_torch/parallel): counts from 0 just before
+    # it, read just after its legs (before its B11-versus-plain check)
+    ps.reset_launches()
+    sharded = timed("sharded", phase_sharded, device, search, images,
+                    encoded["embs"])
+    paths.append(sharded["launches"])
+    emit({"phase": "sharded_path_launches", "launches": paths[-1]})
+    check({name for name, n in paths[-1].items() if n}
+          == {"fused_attn_block", "pq_scan_scores"},
+          f"the sharded path launched {paths[-1]}, not B1 (the dp encode) "
+          "and B11 (the pq shards) alone")
+    del search, sharded
     # the opt-in routes: counts from 0 just before each, read just after
     ps.reset_launches()
     timed("int8", phase_int8, device, images, encoded["embs"])

@@ -12,7 +12,8 @@ into idx_db and streams the vectors into ``images.index`` (and, with a coded
 clipx's, line for line; per-stage throughput goes to stderr.
 
 Images stream through a host decode pool into batched GPU encodes, with up
-to ``PIPELINE_DEPTH`` batches in flight (``Encoder.encode_images_async``).
+to ``PIPELINE_DEPTH`` batches in flight (``Encoder.encode_images_async``);
+``--sharded`` splits each batch over the visible devices (data-parallel).
 """
 
 from __future__ import annotations
@@ -52,6 +53,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="host: resize+crop on the CPU (PIL-parity "
                         "option); device: decode to a larger square canvas "
                         "and do the antialiased bicubic resample on the GPU")
+    p.add_argument("--sharded", choices=("auto", "on", "off"),
+                   default=os.environ.get("CLIPX_SHARDED", "auto"),
+                   help="data-parallel encode over all visible devices of "
+                        "--device's type (batch split, params replicated; "
+                        "auto: only when more than one is visible)")
     p.add_argument("--trace-dir", default=None,
                    help="write a torch.profiler trace of the encode phase")
     p.add_argument("dirs", nargs="*")
@@ -61,7 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: List[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     args = build_parser().parse_args(argv)
-    common.check_ported(args)
+    common.check_device(args)
 
     try:
         lock = SingleWriterLock(args.db)
@@ -71,7 +77,11 @@ def main(argv: List[str] | None = None) -> int:
         return 1
 
     timers = StageTimers()
-    encoder = common.make_encoder(args)
+    mesh = common.encode_mesh(args)
+    if mesh is not None:
+        print(f"(data-parallel encode over {mesh.size} devices)",
+              file=sys.stderr)
+    encoder = common.make_encoder(args, mesh=mesh)
     env = open_env(args.db, map_size=common.DEFAULT_MAP_SIZE, max_dbs=4)
     fn_db = env.open_db(common.FN_DB)
     skip_db = env.open_db(common.SKIP_DB)

@@ -7,8 +7,9 @@ either package. The port adds ``--device {cuda,cpu}`` (default ``cuda``; no
 GPU and no ``--device cpu`` is an error). ``--search-mode ivf`` builds (or
 loads through ``<index>.ivf``) the IVF index of ``search/ivf.py``; the
 indexer's ``--preprocess device`` decodes to a square canvas that the
-Encoder resamples on the device. A flag value whose code path is not ported
-yet (``--sharded on``) exits with a message saying so.
+Encoder resamples on the device. ``--sharded`` spreads the index (and the
+indexer's encode) over the visible devices of ``--device``'s type: every
+GPU, or one CPU shard (``parallel/``).
 """
 
 from __future__ import annotations
@@ -16,9 +17,11 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+from typing import List, Optional
 
 import torch
 
+from clipx_torch.parallel.mesh import visible_devices
 from clipx_torch.runtime.device import DEVICES, resolve_device
 from clipx_torch.search.engine import DTYPES
 
@@ -34,12 +37,11 @@ IDX_DB = b"idx_db"
 # corpus size from which the int8 scan + exact-rescore path wins
 QUANT_AUTO_THRESHOLD = 100_000
 
-# flag values accepted (clipx's choices) whose paths are not ported yet,
-# with the item of ROADMAP.md's queue A (modules still to port) that
-# brings each
-MULTI_DEVICE = ('the port of multi-device search and training, ROADMAP.md '
-                'queue A, "Multi-device"')
-_NOT_PORTED = {"sharded": {"on": MULTI_DEVICE}}
+# what the train CLI's --dp / --tp > 1 wait for: the item of ROADMAP.md's
+# queue A (modules still to port) that brings them
+MULTI_DEVICE = ('slice 14 of the port, tensor parallelism and the dp x tp '
+                'train step, ROADMAP.md queue A item 8, "Multi-device '
+                'training"')
 
 
 def add_model_flags(parser: argparse.ArgumentParser) -> None:
@@ -91,32 +93,51 @@ def add_model_flags(parser: argparse.ArgumentParser) -> None:
 
 
 def add_sharded_flag(parser: argparse.ArgumentParser, what: str) -> None:
-    """clipx's --sharded flag. Only one device is ported: ``on`` exits
-    (``check_ported``), ``auto`` and ``off`` serve from one device."""
+    """clipx's --sharded flag (``sharded_devices`` reads it)."""
     parser.add_argument("--sharded", choices=("auto", "on", "off"),
                         default=os.environ.get("CLIPX_SHARDED", "auto"),
-                        help=f"{what} over all visible devices (auto: only "
-                             "when >1 device is visible; not ported yet, "
-                             "so auto and off use one device and on exits)")
+                        help=f"{what} over all visible devices of "
+                             "--device's type (auto: only when more than "
+                             "one is visible, so never on the CPU; on: "
+                             "every visible GPU, or one CPU shard)")
 
 
-def check_ported(args) -> None:
-    """Exit with a clear message for flag values not ported yet, and when
-    CUDA is asked for with no GPU visible. ``--sharded auto`` with more
-    than one GPU visible says on stderr that it uses one."""
-    for flag, values in _NOT_PORTED.items():
-        value = getattr(args, flag, None)
-        if value in values:
-            raise SystemExit(not_ported(flag, value, values[value]))
+def check_device(args) -> None:
+    """Exit with a clear message when CUDA is asked for and no GPU is
+    visible."""
     try:
-        device = resolve_device(args.device)
+        resolve_device(args.device)
     except RuntimeError as exc:
         raise SystemExit(f"error: {exc}") from None
-    if (getattr(args, "sharded", None) == "auto" and device.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        print(f"(--sharded auto: {torch.cuda.device_count()} GPUs are "
-              "visible, but sharding is not ported to clipx_torch yet; "
-              "using one GPU)", file=sys.stderr, flush=True)
+
+
+def sharded_devices(args) -> Optional[List[torch.device]]:
+    """The devices ``--sharded`` spreads over, or None for one device:
+    ``on`` takes every visible device of ``--device``'s type (every GPU, or
+    the one CPU), ``auto`` the same when there is more than one."""
+    mode = getattr(args, "sharded", "off")
+    if mode == "off":
+        return None
+    devices = visible_devices(getattr(args, "device", None) or "cuda")
+    return devices if mode == "on" or len(devices) > 1 else None
+
+
+def search_mesh(args):
+    """The ``"shard"`` mesh of a sharded index per --sharded, or None."""
+    from clipx_torch.parallel.mips import shard_mesh
+
+    devices = sharded_devices(args)
+    return None if devices is None else shard_mesh(devices)
+
+
+def encode_mesh(args):
+    """The ``"dp"`` mesh of the indexer's data-parallel encode per
+    --sharded, or None for a single-device encode."""
+    from clipx_torch.parallel.mesh import make_mesh
+
+    devices = sharded_devices(args)
+    return None if devices is None else make_mesh({"dp": len(devices)},
+                                                  devices)
 
 
 def not_ported(flag: str, value, when: str) -> str:
@@ -275,6 +296,7 @@ def build_index_from_codes(payload, args, orphan: bool = False):
     the HTTP service's incremental-reload fingerprint on a codes boot."""
     search_mode = getattr(args, "search_mode", "auto")
     device = getattr(args, "device", None)
+    mesh = search_mesh(args) if payload["ntotal"] > 0 else None
     if payload.get("residual") and search_mode != "ivf":
         # residual-pq codes only score inside the IVF probe (they need the
         # segment coarse term)
@@ -304,13 +326,15 @@ def build_index_from_codes(payload, args, orphan: bool = False):
             else:
                 return None
     if search_mode == "ivf":
-        from clipx_torch.search.ivf import IVFIndex
+        from clipx_torch.search.ivf import IVFIndex, ShardedIVFIndex
 
         index = getattr(args, "index", DEFAULT_INDEX_PATH)
-        idx = IVFIndex.from_codes(
+        cls, kw = ((IVFIndex, {}) if mesh is None
+                   else (ShardedIVFIndex, {"mesh": mesh}))
+        idx = cls.from_codes(
             payload, index + ".ivf",
             quantized=payload["ntotal"] >= QUANT_AUTO_THRESHOLD,
-            device=device)
+            device=device, **kw)
         if idx is None and orphan:
             raise SystemExit(
                 "codes-only IVF boot needs the v2 .ivf layout cache "
@@ -321,6 +345,10 @@ def build_index_from_codes(payload, args, orphan: bool = False):
                 + "); it is missing or stale, and rebuilding it needs "
                 "the absent f32 sidecar. Deploy the .ivf cache "
                 "alongside the codes file.")
+    elif mesh is not None:
+        from clipx_torch.parallel.mips import ShardedVectorIndex
+
+        idx = ShardedVectorIndex.from_codes(payload, mesh)
     else:
         from clipx_torch.search.engine import VectorIndex
 
@@ -332,32 +360,46 @@ def build_index_from_codes(payload, args, orphan: bool = False):
 
 def build_index_from_vectors(vectors, args, stash_codes: bool = False):
     """Place host vectors as the flag-selected index (flat, or IVF under
-    --search-mode ivf) of the flag-selected tier on ``args.device``, with
-    --search-mode applied. ``stash_codes``: see ``IVFIndex.from_vectors``."""
+    --search-mode ivf; sharded under --sharded) of the flag-selected tier on
+    ``args.device``, with --search-mode applied. ``stash_codes``: see
+    ``IVFIndex.from_vectors``."""
     from clipx_torch.search.engine import VectorIndex
 
-    if getattr(args, "search_mode", "auto") == "ivf":
-        from clipx_torch.search.ivf import IVFIndex
+    search_mode = getattr(args, "search_mode", "auto")
+    mesh = search_mesh(args) if vectors.shape[0] > 0 else None
+    if search_mode == "ivf":
+        from clipx_torch.search.ivf import IVFIndex, ShardedIVFIndex
 
-        return IVFIndex.from_vectors(
+        cls, kw = ((IVFIndex, {}) if mesh is None
+                   else (ShardedIVFIndex, {"mesh": mesh}))
+        return cls.from_vectors(
             vectors,
             quantized=vectors.shape[0] >= QUANT_AUTO_THRESHOLD,
             dtype=corpus_dtype(args),
             device=getattr(args, "device", None),
             cache_path=getattr(args, "index", DEFAULT_INDEX_PATH) + ".ivf",
-            stash_codes=stash_codes)
+            stash_codes=stash_codes, **kw)
+    if mesh is not None:
+        from clipx_torch.parallel.mips import ShardedVectorIndex
+
+        sharded = ShardedVectorIndex(vectors, mesh, dtype=corpus_dtype(args))
+        # --search-mode applies to both: the int8 scan must not disappear
+        # when the corpus is sharded
+        return apply_search_mode(sharded, search_mode)
     idx = VectorIndex(vectors.shape[1], device=getattr(args, "device", None),
                       dtype=corpus_dtype(args))
     if vectors.shape[0]:
         idx.add(vectors)
-    return apply_search_mode(idx, getattr(args, "search_mode", "auto"))
+    return apply_search_mode(idx, search_mode)
 
 
-def make_encoder(args):
+def make_encoder(args, mesh=None):
+    """The flag-selected Encoder on ``args.device``, or data-parallel over
+    ``mesh`` (``encode_mesh``)."""
     from clipx_torch.runtime.encoder import Encoder
 
     enc = Encoder.create(args.model, checkpoint=args.checkpoint,
-                         device=args.device,
+                         device=args.device, mesh=mesh,
                          compute_quant=getattr(args, "compute", None))
     if args.checkpoint is None and args.model != "tiny-test":
         print("(no checkpoint given — using randomly initialized weights; "

@@ -65,6 +65,7 @@ HELP_TEXT = (
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="query-index.py")
     common.add_model_flags(p)
+    common.add_sharded_flag(p, "row-shard the corpus")
     return p
 
 
@@ -259,7 +260,7 @@ class QueryREPL:
 def main(argv: List[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     args = build_parser().parse_args(argv)
-    common.check_ported(args)
+    common.check_device(args)
     if not os.path.exists(args.index):
         # a codes-only deployment boots from the codes file alone
         from clipx_torch.search import codes_io

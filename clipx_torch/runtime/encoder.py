@@ -32,8 +32,16 @@ resamples it on the device into the same tower. The ResNet towers (RN50
 ... RN50x64, ``models/resnet.py``) take the same buckets and canvas path;
 ``--compute int8`` is refused for them, as clipx refuses it.
 
-Not ported yet: the dp mesh and its tp option. The XLA compile cache has no
-counterpart.
+``mesh=`` (a ``parallel.mesh.Mesh`` with one ``"dp"`` axis) is clipx's
+data-parallel encode: the buckets round up to multiples of 2 * dp, so each
+position's share is even and the batch-pair attention kernel applies to
+it; each share is copied to its device and encoded there with that
+device's replica of the params (one a distinct device; a device listed
+twice encodes two shares), and the embeddings come back in row order. The
+shares are queued one after another with no host synchronisation, so
+several GPUs overlap. Text and ``encode_pixels`` run on the first device.
+Not ported yet: the ``tp`` option (tensor-parallel params). The XLA
+compile cache has no counterpart.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from clipx_torch.models import convert
 from clipx_torch.models.layers import ATTN_IMPLS
 from clipx_torch.ops.preprocess import (device_resize_normalize,
                                         normalize_batch, require_square)
+from clipx_torch.parallel import mesh as mesh_lib
 from clipx_torch.runtime.device import resolve_device
 from clipx_torch.text.tokenizer import ClipTokenizer
 
@@ -79,7 +88,22 @@ class Encoder:
                  attn_impl: str = "auto",
                  batch_buckets: Sequence[int] = _DEFAULT_BUCKETS,
                  tokenizer: Optional[ClipTokenizer] = None,
-                 compute_quant: Optional[str] = None):
+                 compute_quant: Optional[str] = None,
+                 mesh: Optional[mesh_lib.Mesh] = None, tp=None):
+        if tp is not None:
+            raise ValueError(mesh_lib.TP_NOT_PORTED)
+        if mesh is not None:
+            if "dp" not in mesh.axis_names:
+                raise ValueError("encoder mesh must have a 'dp' axis")
+            if len(mesh.axis_names) != 1 or mesh.multi_process:
+                raise ValueError("an encoder mesh is one 'dp' axis in one "
+                                 f"process, got {mesh}")
+            device = mesh.devices[0]
+            # every bucket splits evenly over dp, into even shares
+            grain = 2 * mesh.shape["dp"]
+            batch_buckets = {max(grain, -(-b // grain) * grain)
+                             for b in batch_buckets}
+        self.mesh = mesh
         quant = (compute_quant if compute_quant is not None
                  else os.environ.get("CLIPX_COMPUTE", ""))
         if quant not in ("", "bf16", "int8"):
@@ -107,19 +131,29 @@ class Encoder:
         self.buckets = tuple(sorted(batch_buckets))
         if self.compute_quant:
             params = self._quantized(params)
-        self.params = convert.from_jax_params(params, cfg, self.device,
-                                              self.dtype)
-        # the layout fused_attn_block, packed_sdpa_qkv and
-        # fused_sdpa_long_qkv consume, built once: [wq | wk | wv] per layer;
-        # wq/wk/wv become views into it (no second copy). W8A8 attention
-        # has no wq/wk/wv and does not use it, nor do the ResNet towers.
-        attn = self.params["visual"]["blocks"]["attn"] if vit else {}
+        self.params = self._placed(params, self.device)
+        # one replica a distinct device of the dp mesh
+        self._params_on = {self.device: self.params}
+        if mesh is not None:
+            self._params_on = mesh_lib.replicas(
+                mesh, lambda dev: self._placed(params, dev), self._params_on)
+
+    def _placed(self, params, device):
+        """The param tree on ``device`` in the compute dtype, with the
+        layout fused_attn_block, packed_sdpa_qkv and fused_sdpa_long_qkv
+        consume built once: [wq | wk | wv] a layer, wq/wk/wv views into it
+        (no second copy). W8A8 attention has no wq/wk/wv and does not use
+        it, nor do the ResNet towers."""
+        tree = convert.from_jax_params(params, self.cfg, device, self.dtype)
+        vit = getattr(self.cfg.vision, "tower", "vit") == "vit"
+        attn = tree["visual"]["blocks"]["attn"] if vit else {}
         if vit and "wq_q" not in attn:
             w = attn["wq"].shape[-1]
             attn["wqkv"] = torch.cat([attn["wq"], attn["wk"], attn["wv"]], -1)
             attn["bqkv"] = torch.cat([attn["bq"], attn["bk"], attn["bv"]], -1)
             for i, name in enumerate(("wq", "wk", "wv")):
                 attn[name] = attn["wqkv"][..., i * w:(i + 1) * w]
+        return tree
 
     def _quantized(self, params):
         """The param tree with the image tower's MLP (and, under
@@ -171,7 +205,7 @@ class Encoder:
     def embed_dim(self) -> int:
         return self.cfg.embed_dim
 
-    def _images(self, batch: torch.Tensor) -> torch.Tensor:
+    def _images(self, batch: torch.Tensor, params) -> torch.Tensor:
         # batches at the model input size go straight to encode; other
         # square canvases are resampled on the device first
         if batch.shape[1] == self.image_size:
@@ -179,7 +213,7 @@ class Encoder:
         else:
             pixels = device_resize_normalize(batch, self.image_size,
                                              dtype=self.dtype)
-        return model_lib.encode_image(self.params, self.cfg, pixels,
+        return model_lib.encode_image(params, self.cfg, pixels,
                                       normalize=True, dtype=self.dtype,
                                       attn_impl=self.attn_impl)
 
@@ -205,28 +239,35 @@ class Encoder:
             raise ValueError(f"async batch exceeds bucket cap "
                              f"{self.buckets[-1]}")
         require_square(*batch_uint8.shape[1:3])
-        host = torch.from_numpy(_pad_rows(batch_uint8,
-                                          _pick_bucket(n, self.buckets)))
+        rows = _pick_bucket(n, self.buckets)
+        host = torch.from_numpy(_pad_rows(batch_uint8, rows))
         cuda = self.device.type == "cuda"
         if cuda:
             host = host.pin_memory()
+        if self.mesh is None:
+            shares = [(slice(0, rows), self.device)]
+        else:  # one even share a dp position, each on its device
+            shares = list(zip(mesh_lib.split_batch(rows, self.mesh),
+                              self.mesh.devices))
+        result = torch.empty((rows, self.embed_dim), dtype=torch.float32,
+                             pin_memory=cuda)
+        events = []
         with torch.inference_mode():
-            out = self._images(host.to(self.device, non_blocking=cuda))
-            result = torch.empty(out.shape, dtype=torch.float32,
-                                 pin_memory=cuda)
-            result.copy_(out, non_blocking=cuda)
-        event = None
-        if cuda:
-            event = torch.cuda.Event()
-            event.record()
-        # the pinned input stays referenced until the copy has run
-        return (result, event, n, host)
+            for rows_of, dev in shares:
+                out = self._images(host[rows_of].to(dev, non_blocking=cuda),
+                                   self._params_on[dev])
+                result[rows_of].copy_(out, non_blocking=cuda)
+                if cuda:
+                    events.append(torch.cuda.Event())
+                    events[-1].record(torch.cuda.current_stream(dev))
+        # the pinned input stays referenced until the copies have run
+        return (result, events, n, host)
 
     @staticmethod
     def finalize(handle) -> np.ndarray:
         """Wait for an encode_images_async handle; host (n, D) float32."""
-        result, event, n, _ = handle
-        if event is not None:
+        result, events, n, _ = handle
+        for event in events:
             event.synchronize()
         return result[:n].numpy().copy()
 

@@ -39,8 +39,8 @@ CUDA ``torch._int_mm`` (int8 x int8 -> int32); on the CPU an f32 matmul of
 the codes, exact because every partial sum is an integer below
 127 * 127 * D < 2**24 for D <= 1040.
 
-IVF (``--search-mode ivf``) is ``search/ivf.py``. Not ported yet: sharding
-across devices.
+IVF (``--search-mode ivf``) is ``search/ivf.py``; the corpus-sharded index
+over several devices is ``parallel/mips.py``.
 """
 
 from __future__ import annotations
@@ -226,17 +226,21 @@ def _seg_rescore(segmax: torch.Tensor, valid: int, queries: torch.Tensor,
 
 
 def _int8_segscan(codes: torch.Tensor, scales: torch.Tensor, valid: int,
-                  queries: torch.Tensor, k: int, rows_of):
+                  queries: torch.Tensor, k: int, rows_of, base: int = 0):
     """int8 scan -> per-segment max -> top-k segments -> f32 rescore of all
     their rows (clipx's ``_int8_segscan``). ``rows_of`` supplies the rescore
     rows: the exact float rows (quant mode) or the dequantized codes (int8
-    storage)."""
+    storage). ``base`` is the global id of row 0 for sharded callers
+    (``parallel/mips.py``), whose ``valid`` is global: a row is valid when
+    base + row < valid, and ids come back global."""
+    valid = max(valid - base, 0)
     approx = _int8_scores(codes, _query_codes(queries)) * scales[:, None]
     approx[valid:] = float("-inf")
     nq = queries.shape[0]
     segmax = approx.reshape(-1, _SEG_W, nq).amax(dim=1)          # (segs, Q)
-    return _seg_rescore(segmax, valid, queries, k,
-                        min(k, segmax.shape[0]), rows_of)
+    d, ids = _seg_rescore(segmax, valid, queries, k,
+                          min(k, segmax.shape[0]), rows_of)
+    return d, ids + base
 
 
 def refuse_int8_element() -> None:
@@ -445,10 +449,11 @@ def _unpack_int4(packed: torch.Tensor) -> torch.Tensor:
 
 
 def _int4_segscan(packed: torch.Tensor, scales: torch.Tensor, valid: int,
-                  queries: torch.Tensor, k: int):
+                  queries: torch.Tensor, k: int, base: int = 0):
     """int4 segment scan: per chunk, two int8 products on the nibble views
     -> per-segment maxima; then the top 2k segments rescore from dequantized
-    rows (clipx's ``_int4_segscan``)."""
+    rows (clipx's ``_int4_segscan``). ``base``: as ``_int8_segscan``'s."""
+    valid = max(valid - base, 0)
     q_codes = _query_codes(queries)
     n, half = packed.shape
     nq = queries.shape[0]
@@ -467,24 +472,30 @@ def _int4_segscan(packed: torch.Tensor, scales: torch.Tensor, valid: int,
             approx[max(valid - start, 0):] = float("-inf")
         segmax[start // _SEG_W: (start + chunk) // _SEG_W] = approx.reshape(
             -1, _SEG_W, nq).amax(dim=1)
-    return _seg_rescore(segmax, valid, queries, k,
-                        min(_INT4_SEG_MARGIN * k, segmax.shape[0]),
-                        _dequant_rows_of(packed, scales, int4=True))
+    d, ids = _seg_rescore(segmax, valid, queries, k,
+                          min(_INT4_SEG_MARGIN * k, segmax.shape[0]),
+                          _dequant_rows_of(packed, scales, int4=True))
+    return d, ids + base
+
+
+def _int8_encode(index, vectors: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """The host codes and scales of an int8 or int4 add. The first add of a
+    centered index derives the canonical corpus mean from its rows; later
+    appends encode against that same center."""
+    if (index._codes is None and index._center is None
+            and coded_center_enabled()):
+        index._center = corpus_center(vectors, index._rot)
+    return quantize_rows_rotated(vectors, index._rot, index.int4_storage,
+                                 center=index._center)
 
 
 def _int8_append(index, vectors: np.ndarray) -> None:
     """add() of the int8 and int4 tiers: quantize on the host (the upload is
     1 or 0.5 B/dim), place padded codes and scales on the first add, write
-    later appends in place. The first add of a centered index derives the
-    canonical corpus mean from its rows; later appends encode against that
-    same center. Padded scale slots hold 1e-12, so a dequantized padding row
-    is zero."""
-    if (index._codes is None and index._center is None
-            and coded_center_enabled()):
-        index._center = corpus_center(vectors, index._rot)
-    codes, scales = quantize_rows_rotated(vectors, index._rot,
-                                          index.int4_storage,
-                                          center=index._center)
+    later appends in place. Padded scale slots hold 1e-12, so a dequantized
+    padding row is zero."""
+    codes, scales = _int8_encode(index, vectors)
     n_new = vectors.shape[0]
     if index._codes is None:
         index._place_int8(codes, scales)
@@ -503,7 +514,8 @@ def _to_device_rows(dst: torch.Tensor, src: np.ndarray,
                     step: int = 1 << 20) -> None:
     """Copy host rows (an array or a read-only memmap) into the head of a
     device tensor a chunk at a time, so a memmapped codes file never
-    materializes whole in host RAM."""
+    materializes whole in host RAM (and f32 rows bound for a bf16 tensor
+    cross as one chunk at a time)."""
     for i in range(0, src.shape[0], step):
         part = np.array(src[i: i + step], dtype=src.dtype)
         dst[i: i + part.shape[0]] = torch.from_numpy(part).to(dst.device)

@@ -38,7 +38,9 @@ sums (``engine._int8_scores``), the PQ scan's are exact integer LUT sums,
 every top-k breaks ties lowest index first. Queries are not padded to the Q
 bucket: each query's probe is independent of the others.
 
-Not ported: ``ShardedIVFIndex`` (ROADMAP.md queue A, multi-device).
+``ShardedIVFIndex`` deals the segments round-robin over a ``"shard"``
+mesh (``parallel/mesh.py``): each shard probes its local top segments and
+the candidates merge as in ``parallel/mips.py``.
 """
 
 from __future__ import annotations
@@ -210,9 +212,15 @@ def cluster_layout(assign: np.ndarray) -> np.ndarray:
 # probe bodies
 # ---------------------------------------------------------------------------
 
-def _coarse(queries: torch.Tensor, seg_cent: torch.Tensor, P: int):
-    """(Q, P) scores and ids of each query's top-P segments by centroid."""
-    return top_k(queries @ seg_cent.T, P)
+def _coarse(queries: torch.Tensor, seg_cent: torch.Tensor, P: int,
+            seg_valid: Optional[torch.Tensor] = None):
+    """(Q, P) scores and ids of each query's top-P segments by centroid;
+    segments where ``seg_valid`` is False (a shard's all-dead alignment
+    segments) score -inf."""
+    scores = queries @ seg_cent.T
+    if seg_valid is not None:
+        scores = scores.masked_fill(~seg_valid, float("-inf"))
+    return top_k(scores, P)
 
 
 def _gids(seg_idx: torch.Tensor) -> torch.Tensor:
@@ -229,8 +237,16 @@ def _ivf_kernel_f32(corpus3: torch.Tensor, seg_cent: torch.Tensor,
     (IVFFlat semantics; bf16 rows upcast, the queries stay f32, as clipx's
     mixed-type einsum promotes). Returns (Q, k) scores and INTERNAL row ids
     (dead rows -> -inf)."""
-    nq = queries.shape[0]
     _, seg_idx = _coarse(queries, seg_cent, P)
+    return _f32_probe_body(corpus3, valid2, queries, seg_idx, k)
+
+
+def _f32_probe_body(corpus3: torch.Tensor, valid2: torch.Tensor,
+                    queries: torch.Tensor, seg_idx: torch.Tensor, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact f32 scores of every row of the (Q, P) probed segments, top k
+    (internal ids)."""
+    nq, P = seg_idx.shape
     exact = torch.einsum("qd,qpwd->qpw", queries, corpus3[seg_idx].float())
     exact = exact.masked_fill(~valid2[seg_idx], float("-inf"))
     kk = min(k, P * _SEG_W)
@@ -513,14 +529,15 @@ class IVFIndex:
     def from_vectors(cls, vectors: np.ndarray, *, quantized: bool = False,
                      cache_path: Optional[str] = None, seed: int = 0,
                      dtype: str = "f32", device=None,
-                     stash_codes: bool = False) -> "IVFIndex":
+                     stash_codes: bool = False, **index_kw) -> "IVFIndex":
         """Train (or load from ``cache_path``) the layout and install
         ``vectors``. ``stash_codes`` keeps a coded tier's flat-order encode
         on ``_pending_codes_payload`` so the caller can write the codes file
-        without encoding again."""
+        without encoding again. ``index_kw`` goes to the constructor (a
+        sharded index's ``mesh``)."""
         vectors = np.ascontiguousarray(vectors, dtype=np.float32)
         idx = cls(dim=vectors.shape[1], quantized=quantized, dtype=dtype,
-                  device=device)
+                  device=device, **index_kw)
         if vectors.shape[0] == 0:
             return idx
         layout = None
@@ -540,8 +557,8 @@ class IVFIndex:
 
     @classmethod
     def from_codes(cls, payload: dict, cache_path: str, *,
-                   quantized: bool = False,
-                   device=None) -> Optional["IVFIndex"]:
+                   quantized: bool = False, device=None,
+                   **index_kw) -> Optional["IVFIndex"]:
         """A coded-storage IVF index from a loaded ``<index>.codes`` payload
         plus the v2 ``.ivf`` cache (layout + per-segment sums): no f32 rows
         read, no k-means, no re-encode. None when the cache is absent,
@@ -550,13 +567,13 @@ class IVFIndex:
         dtype = payload["tier"]
         if payload["ntotal"] == 0:
             return cls(dim=payload["dim"], quantized=quantized, dtype=dtype,
-                       device=device)
+                       device=device, **index_kw)
         cache = _load_cache_for_codes(cache_path, payload)
         if cache is None:
             return None
         layout, sums = cache
         idx = cls(dim=payload["dim"], quantized=quantized, dtype=dtype,
-                  device=device)
+                  device=device, **index_kw)
         idx._install(None, layout, coded=payload, seg_sums=sums)
         return idx
 
@@ -587,60 +604,79 @@ class IVFIndex:
         live = row_ext >= 0
         valid2 = live.reshape(segs, _SEG_W)
         counts = valid2.sum(axis=1).astype(np.float32)
-        live_counts = valid2.sum(axis=1)
-        self._live_count_cumsum = np.cumsum(
-            np.sort(live_counts[live_counts > 0]))
         if self.coded_storage:
-            from clipx_torch.search import codes_io
-
-            # encoded on the host: a full f32 copy never lies on the device
-            if seg_sums is None:
-                seg_sums = _segment_sums(vectors, row_ext)
-            if coded is None:
-                if (self.pq_storage and self._pq is None
-                        and pq_lib.pq_residual_enabled()):
-                    coded = _encode_residual_flat(
-                        vectors, row_ext, seg_sums, counts, self._rot)
-                    self._pq = coded["codebook"]
-                else:
-                    coded = codes_io.encode_corpus(
-                        vectors, self.dtype, rot=self._rot,
-                        codebook=self._pq)
-                    if self.pq_storage and self._pq is None:
-                        self._pq = coded["codebook"]
-            elif self.pq_storage and self._pq is None:
-                self._pq = pq_lib.PQCodebook(np.asarray(coded["centroids"]))
-            if self.pq_storage:
-                self._residual = bool(coded.get("residual"))
-                if coded.get("rot_matrix") is not None:
-                    self._rot = coded["rot_matrix"]  # trained OPQ
-            self._center = coded.get("center")  # centered int8/int4
-            if stash_codes:
-                self._pending_codes_payload = coded
-            codes, scales = _permute_coded(coded, row_ext, live)
+            codes, scales, cent = self._coded_layout(
+                vectors, row_ext, live, counts, coded, seg_sums, stash_codes)
             self._corpus3 = None
             self._codes3 = torch.from_numpy(codes.reshape(
                 segs, _SEG_W, codes.shape[1])).to(dev)
             self._scales2 = (None if scales is None else torch.from_numpy(
                 scales.reshape(segs, _SEG_W)).to(dev))
-            # centroids in rotated space (rotation is linear)
-            sums = engine.rotate_rows(
-                np.ascontiguousarray(seg_sums, np.float32), self._rot)
-            self._seg_cent = torch.from_numpy(np.ascontiguousarray(
-                sums / np.maximum(counts[:, None], 1.0),
-                np.float32)).to(dev)
+            self._seg_cent = torch.from_numpy(cent).to(dev)
         else:
             padded = np.zeros((segs * _SEG_W, self.dim), np.float32)
             padded[live] = vectors[row_ext[live]]
-            store = torch.bfloat16 if self.dtype == "bf16" else torch.float32
             self._corpus3 = torch.from_numpy(padded.reshape(
-                segs, _SEG_W, self.dim)).to(dev).to(store)
+                segs, _SEG_W, self.dim)).to(dev).to(self._store_dtype())
             del padded
             self._seg_cent = _segment_stats(
                 self._corpus3, torch.from_numpy(counts).to(dev))
             self._codes3 = None
             self._scales2 = None
         self._valid2 = torch.from_numpy(valid2).to(dev)
+        self._index_rows(row_ext, n)
+
+    def _store_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.dtype == "bf16" else torch.float32
+
+    def _coded_layout(self, vectors, row_ext: np.ndarray, live: np.ndarray,
+                      counts: np.ndarray, coded: Optional[dict],
+                      seg_sums: Optional[np.ndarray], stash_codes: bool
+                      ) -> Tuple[np.ndarray, Optional[np.ndarray], np.ndarray]:
+        """A coded tier's install on the host: the canonical flat-order
+        codes (encoded here, or the payload's) permuted into the layout
+        ``row_ext``, their scales, and the rotated segment centroids. Sets
+        the codebook, residual flag, rotation and centre."""
+        from clipx_torch.search import codes_io
+
+        # encoded on the host: a full f32 copy never lies on the device
+        if seg_sums is None:
+            seg_sums = _segment_sums(vectors, row_ext)
+        if coded is None:
+            if (self.pq_storage and self._pq is None
+                    and pq_lib.pq_residual_enabled()):
+                coded = _encode_residual_flat(
+                    vectors, row_ext, seg_sums, counts, self._rot)
+                self._pq = coded["codebook"]
+            else:
+                coded = codes_io.encode_corpus(
+                    vectors, self.dtype, rot=self._rot, codebook=self._pq)
+                if self.pq_storage and self._pq is None:
+                    self._pq = coded["codebook"]
+        elif self.pq_storage and self._pq is None:
+            self._pq = pq_lib.PQCodebook(np.asarray(coded["centroids"]))
+        if self.pq_storage:
+            self._residual = bool(coded.get("residual"))
+            if coded.get("rot_matrix") is not None:
+                self._rot = coded["rot_matrix"]  # trained OPQ
+        self._center = coded.get("center")  # centered int8/int4
+        if stash_codes:
+            self._pending_codes_payload = coded
+        codes, scales = _permute_coded(coded, row_ext, live)
+        # centroids in rotated space (rotation is linear)
+        sums = engine.rotate_rows(
+            np.ascontiguousarray(seg_sums, np.float32), self._rot)
+        cent = np.ascontiguousarray(
+            sums / np.maximum(counts[:, None], 1.0), np.float32)
+        return codes, scales, cent
+
+    def _index_rows(self, row_ext: np.ndarray, n: int) -> None:
+        """The install's host bookkeeping: the live-occupancy sums of
+        ``_probe_floor``, the row <-> external-id maps and the counts."""
+        live = row_ext >= 0
+        live_counts = live.reshape(-1, _SEG_W).sum(axis=1)
+        self._live_count_cumsum = np.cumsum(
+            np.sort(live_counts[live_counts > 0]))
         self._row_ext = row_ext.astype(np.int64)
         pos = np.flatnonzero(live)
         self._pos_of_ext = np.empty(n, np.int64)
@@ -799,56 +835,72 @@ class IVFIndex:
         return d, ids_ext
 
     # -- reconstruction -------------------------------------------------------
+    def _take(self, name: str, idx: np.ndarray) -> np.ndarray:
+        """Rows ``idx`` of a layout tensor, on the host: segments of
+        ``_seg_cent``, row slots (segments x 64, flattened) of the others."""
+        t = getattr(self, name)
+        return _take_rows([t], idx, t.shape[0] if name == "_seg_cent"
+                          else t.shape[0] * _SEG_W, name != "_seg_cent")
+
     def _decode(self, codes: np.ndarray, pos: np.ndarray) -> np.ndarray:
         """Coded rows at internal positions ``pos`` -> user-space f32."""
         if self.pq_storage:
             v = self._pq.decode(codes)
             if self._residual:  # decode is the residual only
-                v = v + self._seg_cent[torch.from_numpy(
-                    pos // _SEG_W).to(self.device)].cpu().numpy()
+                v = v + self._take("_seg_cent", pos // _SEG_W)
         else:
             if self.int4_storage:
                 codes = engine.unpack_int4_host(codes)
-            scales = self._scales2.reshape(-1)[torch.from_numpy(pos).to(
-                self.device)].cpu().numpy()
-            v = codes.astype(np.float32) * scales[:, None]
+            v = codes.astype(np.float32) * self._take("_scales2", pos)[:, None]
             if self._center is not None:
                 v = v + self._center
         return v @ self._rot.T if self._rot is not None else v
+
+    def _base_rows(self, pos: np.ndarray) -> np.ndarray:
+        """User-space f32 rows of the clustered base at positions ``pos``."""
+        if not self.coded_storage:
+            return self._take("_corpus3", pos)
+        return self._decode(self._take("_codes3", pos), pos)
 
     def reconstruct(self, row: int) -> np.ndarray:
         if not (0 <= row < self.ntotal):
             raise IndexError(row)
         if row >= self._base_n:
             return self._tail.reconstruct(row - self._base_n)
-        pos = np.array([self._pos_of_ext[row]])
-        if not self.coded_storage:
-            return self._corpus3.reshape(-1, self.dim)[int(pos[0])].float(
-                ).cpu().numpy()
-        codes = self._codes3.reshape(-1, self._codes3.shape[-1])[
-            int(pos[0])].cpu().numpy()[None, :]
-        return self._decode(codes, pos)[0]
+        return self._base_rows(self._pos_of_ext[row: row + 1])[0]
 
     def vectors(self) -> np.ndarray:
         """Rows in EXTERNAL id order (the sidecar order); coded tiers
         return decoded rows in user space."""
-        if self._segs() == 0:
-            base = np.zeros((0, self.dim), np.float32)
-        elif self.coded_storage:
-            codes = self._codes3.reshape(-1, self._codes3.shape[-1]).cpu(
-                ).numpy()
-            pos = self._pos_of_ext
-            base = np.empty((len(pos), self.dim), np.float32)
-            step = 1 << 18  # bounds the decode transient
-            for i in range(0, len(pos), step):
-                p = pos[i: i + step]
-                base[i: i + len(p)] = self._decode(codes[p], p)
-        else:
-            flat = self._corpus3.reshape(-1, self.dim).float().cpu().numpy()
-            base = flat[self._pos_of_ext]
+        pos = self._pos_of_ext if self._segs() else np.zeros((0,), np.int64)
+        base = np.empty((len(pos), self.dim), np.float32)
+        step = 1 << 18  # bounds the gather and decode transients
+        for i in range(0, len(pos), step):
+            base[i: i + step] = self._base_rows(pos[i: i + step])
         if self._tail is not None and self._tail.ntotal:
             return np.concatenate([base, self._tail.vectors()])
         return base
+
+
+def _take_rows(parts, idx: np.ndarray, per: int, slots: bool) -> np.ndarray:
+    """Rows ``idx`` of the concatenation of ``parts`` (``per`` rows each; a
+    part's first two dims flattened when ``slots``), gathered on each part's
+    device and returned on the host in the order of ``idx`` (floats as
+    f32)."""
+    out = None
+    for j, t in enumerate(parts):
+        sel = np.flatnonzero(idx // per == j)
+        if not len(sel):
+            continue
+        flat = t.reshape(-1, *t.shape[2:]) if slots else t
+        rows = flat[torch.from_numpy(idx[sel] - j * per).to(t.device)]
+        if rows.is_floating_point():
+            rows = rows.float()
+        rows = rows.cpu().numpy()
+        if out is None:
+            out = np.empty((len(idx),) + rows.shape[1:], rows.dtype)
+        out[sel] = rows
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1012,3 +1064,191 @@ def _load_cache_for_codes(path: str, payload: dict
     if sums.shape != (len(layout) // _SEG_W, payload["dim"]):
         return None
     return layout, sums
+
+
+# ---------------------------------------------------------------------------
+# the corpus-sharded IVF index
+# ---------------------------------------------------------------------------
+
+class ShardedIVFIndex(IVFIndex):
+    """IVF with the segment list row-sharded over a 1-D ``"shard"`` mesh
+    (clipx's ``ShardedIVFIndex``).
+
+    Segments are dealt ROUND-ROBIN to shards (shard j holds the layout's
+    segments j, j+n, j+2n, ...; cached segment sums follow the deal).
+    Clusters occupy contiguous segment runs, so the deal spreads every
+    cluster ~evenly across shards, which makes the probe rule sound: each
+    shard probes its LOCAL top ceil(P/n) segments (bucketed), and the union
+    tracks the global top P a single device would pick. At ``nprobe=100``
+    every shard probes everything: the f32 ranking is the single-device
+    one, and the quantized tiers rescore a superset of the single-device
+    segment pool (min(kk, P/n) a shard against min(kk, P)). Global ids are
+    (segment + shard * S_local) * 64 + slot, mapped back through the dealt
+    ``row_ext``. Each shard's (Q, k) candidates merge as in
+    ``parallel/mips.py``; the pq tiers scan each shard's probed segments
+    with the PQ kernel (``_pq_probe_body``).
+
+    ``add`` is inherited: appended rows go to the exact tail on the first
+    device until the next full rebuild re-clusters them."""
+
+    def __init__(self, dim: int, quantized: bool = False, dtype: str = "f32",
+                 device=None, mesh=None):
+        from clipx_torch.parallel.mesh import visible_devices
+        from clipx_torch.parallel.mips import AXIS, shard_mesh
+
+        if mesh is None:
+            mesh = shard_mesh(None if device is None
+                              else visible_devices(device))
+        if AXIS not in mesh.axis_names:
+            raise ValueError(f"mesh must have a {AXIS!r} axis")
+        self.mesh = mesh
+        self._n_shards = mesh.shape[AXIS]
+        self._local = mesh.local_positions()
+        self._devices = [mesh.devices[j] for j in self._local]
+        super().__init__(dim, quantized=quantized, dtype=dtype,
+                         device=self._devices[0])
+        self._seg_valid = None
+        self._segs_total = 0
+
+    def _segs(self) -> int:
+        return self._segs_total
+
+    def _install(self, vectors: Optional[np.ndarray], row_ext: np.ndarray, *,
+                 coded: Optional[dict] = None,
+                 seg_sums: Optional[np.ndarray] = None,
+                 stash_codes: bool = False) -> None:
+        n_rows = coded["ntotal"] if vectors is None else vectors.shape[0]
+        n = self._n_shards
+        segs = max(1, len(row_ext) // _SEG_W)
+        segs_pad = -(-segs // n) * n
+        if segs_pad * _SEG_W > len(row_ext):
+            row_ext = np.concatenate([
+                row_ext,
+                np.full(segs_pad * _SEG_W - len(row_ext), -1, np.int64)])
+        # deal segments round-robin: contiguous shard block j ends up
+        # holding the layout's segments [j::n]
+        perm = np.arange(segs_pad).reshape(-1, n).T.reshape(-1)
+        row_ext = row_ext.reshape(segs_pad, _SEG_W)[perm].reshape(-1)
+        if seg_sums is not None:
+            # canonical segment order in, dealt order out; the alignment
+            # segments are all-dead, their sums zero
+            s = np.zeros((segs_pad, seg_sums.shape[1]), np.float32)
+            s[: seg_sums.shape[0]] = seg_sums
+            seg_sums = s[perm]
+        live = row_ext >= 0
+        valid2 = live.reshape(segs_pad, _SEG_W)
+        counts = valid2.sum(axis=1).astype(np.float32)
+        s_loc = segs_pad // n
+
+        def shard(a, j):  # shard j's block of a segment-major host array
+            return torch.from_numpy(np.ascontiguousarray(
+                a[j * s_loc: (j + 1) * s_loc]))
+
+        places = list(zip(self._local, self._devices))
+        if self.coded_storage:
+            codes, scales, cent = self._coded_layout(
+                vectors, row_ext, live, counts, coded, seg_sums, stash_codes)
+            codes = codes.reshape(segs_pad, _SEG_W, codes.shape[1])
+            self._corpus3 = None
+            self._codes3 = [shard(codes, j).to(d) for j, d in places]
+            self._scales2 = (None if scales is None else [
+                shard(scales.reshape(segs_pad, _SEG_W), j).to(d)
+                for j, d in places])
+            self._seg_cent = [shard(cent, j).to(d) for j, d in places]
+        else:
+            # one shard at a time: the host holds one padded shard
+            self._corpus3, self._seg_cent = [], []
+            for j, dev in places:
+                re = row_ext[j * s_loc * _SEG_W: (j + 1) * s_loc * _SEG_W]
+                lv = re >= 0
+                padded = np.zeros((len(re), self.dim), np.float32)
+                padded[lv] = vectors[re[lv]]
+                c3 = torch.from_numpy(padded.reshape(
+                    s_loc, _SEG_W, self.dim)).to(dev).to(self._store_dtype())
+                self._corpus3.append(c3)
+                self._seg_cent.append(
+                    _segment_stats(c3, shard(counts, j).to(dev)))
+            self._codes3 = None
+            self._scales2 = None
+        self._valid2 = [shard(valid2, j).to(d) for j, d in places]
+        # fully-dead alignment segments exist here (unlike the single-device
+        # layout): they are masked out of the coarse scoring
+        self._seg_valid = [shard(valid2.any(axis=1), j).to(d)
+                           for j, d in places]
+        self._segs_total = segs_pad
+        self._index_rows(row_ext, n_rows)
+
+    def _ensure_codes(self) -> None:
+        if self._codes3 is not None:
+            return
+        with self._codes_lock:
+            if self._codes3 is not None:
+                return
+            codes, scales = [], []
+            for c3 in self._corpus3:
+                c, sc = engine._quantize_device(c3.reshape(-1, self.dim))
+                scales.append(sc.reshape(c3.shape[0], _SEG_W))
+                codes.append(c.reshape(c3.shape))
+            # scales first: a search that sees the codes without the lock
+            # also sees their scales
+            self._scales2 = scales
+            self._codes3 = codes
+
+    def _take(self, name: str, idx: np.ndarray) -> np.ndarray:
+        per = self._segs_total // self._n_shards
+        if name != "_seg_cent":
+            per *= _SEG_W
+        held = np.isin(idx // per, self._local)
+        if not held.all():
+            raise ValueError("rows of a sharded IVF index held by another "
+                             "process cannot be read here")
+        # this process's shards are a contiguous run of the mesh
+        first = self._local[0] * per
+        return _take_rows(getattr(self, name), idx - first, per,
+                          name != "_seg_cent")
+
+    def _probe(self, qt: torch.Tensor, P: int, kk: int):
+        """Each shard probes its local top P_local segments; the (Q, kk)
+        candidates merge across shards (global internal ids)."""
+        from clipx_torch.parallel.mips import _merge_across_shards
+
+        s_loc = self._segs_total // self._n_shards
+        p_loc = min(_bucket_probe(-(-P // self._n_shards)), s_loc)
+        kk_loc = min(kk, p_loc * _SEG_W)
+        s = min(kk, p_loc)
+        if self.quantized and not self.coded_storage:
+            self._ensure_codes()
+        on = {}
+        parts = []
+        for j, dev in enumerate(self._devices):
+            if dev not in on:
+                on[dev] = qt.to(dev)
+            q = on[dev]
+            cvals, seg_idx = _coarse(q, self._seg_cent[j], p_loc,
+                                     self._seg_valid[j])
+            v2 = self._valid2[j]
+            if self.pq_storage:
+                d, ids = _pq_probe_body(
+                    self._codes3[j], self._pq.device(dev), v2, q, seg_idx,
+                    kk_loc, seg_scores=cvals if self._residual else None)
+            elif self.int4_storage:
+                packed, sc = self._codes3[j], self._scales2[j]
+                d, ids = _int8_probe_body(
+                    packed, sc, v2, q, seg_idx,
+                    _dequant_rows_int4(packed, sc), s, kk_loc,
+                    scan_raw=_scan_raw_int4(packed))
+            elif self.int8_storage:
+                codes, sc = self._codes3[j], self._scales2[j]
+                d, ids = _int8_probe_body(codes, sc, v2, q, seg_idx,
+                                          _dequant_rows(codes, sc), s,
+                                          kk_loc)
+            elif self.quantized:
+                c3 = self._corpus3[j]
+                d, ids = _int8_probe_body(
+                    self._codes3[j], self._scales2[j], v2, q, seg_idx,
+                    lambda chosen, c3=c3: c3[chosen].float(), s, kk_loc)
+            else:
+                d, ids = _f32_probe_body(self._corpus3[j], v2, q, seg_idx,
+                                         kk_loc)
+            parts.append((d, ids + self._local[j] * s_loc * _SEG_W))
+        return _merge_across_shards(parts, kk, self.mesh)

@@ -47,6 +47,10 @@ _PQ_SEED = 0xC11B9
 # block peaks at 128 MiB), then chunks of _PQ_PALLAS_CHUNK rows
 _PQ_PALLAS_ONESHOT = 1 << 21
 _PQ_PALLAS_CHUNK = 1 << 19
+# clipx's XLA scan chunk: the port scans in the chunks above, but a sharded
+# index aligns its rows a shard to this too, as clipx's does
+# (``parallel/mips.py::_shard_rows``)
+_PQ_CHUNK = 1 << 16
 
 
 def pq_dsub() -> int:
@@ -267,10 +271,14 @@ def quantized_luts(queries: torch.Tensor, centroids: torch.Tensor
 
 
 def _pq_topk(packed: torch.Tensor, centroids: torch.Tensor, valid: int,
-             queries: torch.Tensor, k: int):
+             queries: torch.Tensor, k: int, base: int = 0):
     """The PQ search: int8-LUT scan (``pq_scan_scores``) per chunk -> each
     chunk's top ``m_cand`` -> global merge -> f32-LUT rescore -> top k.
-    ``packed`` is the (N_pad, M/2) logical code array."""
+    ``packed`` is the (N_pad, M/2) logical code array. ``base`` is the
+    global id of row 0 for sharded callers (``parallel/mips.py``), whose
+    ``valid`` is global: a row is valid when base + row < valid, and ids
+    come back global."""
+    valid = max(valid - base, 0)
     half = centroids.shape[0] // 2
     n, width = packed.shape
     if width != half:
@@ -307,16 +315,15 @@ def _pq_topk(packed: torch.Tensor, centroids: torch.Tensor, valid: int,
     exact = torch.gather(lut3, 3, codes[..., None])[..., 0].sum(dim=-1)
     exact = exact.masked_fill(cand >= valid, float("-inf"))
     dd, sel = top_k(exact, k)
-    return dd, torch.gather(cand, 1, sel)
+    return dd, torch.gather(cand, 1, sel) + base
 
 
-def _pq_append(index, vectors: np.ndarray) -> None:
-    """add() of the pq tier: the FIRST batch trains the codebooks (frozen
-    afterwards, faiss's train-once contract) through the canonical encoder
-    (``codes_io.encode_corpus``), so the placed codes equal a
+def _pq_encode(index, vectors: np.ndarray) -> np.ndarray:
+    """The packed codes of a pq add. The FIRST batch trains the codebooks
+    (frozen afterwards, faiss's train-once contract) through the canonical
+    encoder (``codes_io.encode_corpus``), so the placed codes equal a
     ``<index>.codes`` file of the same rows byte for byte; later batches
-    encode against them. Placement pads to the row bucket; appends write in
-    place and grow as ``engine._int8_append`` does."""
+    encode against them."""
     rot = index._rot
     if index._pq is None:
         from clipx_torch.search.codes_io import encode_corpus
@@ -327,9 +334,15 @@ def _pq_append(index, vectors: np.ndarray) -> None:
             # OPQ may have replaced the fixed rotation: queries, later adds
             # and reconstruction use the rotation the codes were made under
             index._rot = payload["rot_matrix"]
-        codes = payload["codes"]
-    else:
-        codes = index._pq.encode(vectors, rot=rot)
+        return payload["codes"]
+    return index._pq.encode(vectors, rot=rot)
+
+
+def _pq_append(index, vectors: np.ndarray) -> None:
+    """add() of the pq tier (codes from ``_pq_encode``). Placement pads to
+    the row bucket; appends write in place and grow as
+    ``engine._int8_append`` does."""
+    codes = _pq_encode(index, vectors)
     n_new = codes.shape[0]
     if index._codes is None:
         index._place_pq(codes)

@@ -44,8 +44,9 @@ package replays in the other).
     python -m clipx_torch.serve --port 8765 --model ViT-B/32 \\
         --checkpoint vit_b32.npz
 
-Not ported yet: ``--sharded on`` (exits with a message); ``auto`` and
-``off`` serve from one device.
+``--sharded on`` (or ``auto`` with more than one GPU visible) row-shards the
+index over the visible devices (``parallel/mips.py``, ``ShardedIVFIndex``);
+an incremental ``/reload`` appends only the delta to its shards.
 """
 
 from __future__ import annotations
@@ -1057,7 +1058,7 @@ def make_server(args, encoder=None) -> ThreadingHTTPServer:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv if argv is not None
                                      else sys.argv[1:])
-    common.check_ported(args)
+    common.check_device(args)
     if not os.path.exists(args.index):
         from clipx_torch.search import codes_io
 

@@ -18,9 +18,11 @@ Using the indexed corpus itself as queries (no labels needed), it reports:
   stored embedding (cosine), and, for a ViT tower, the ``--compute int8``
   encoder against the bf16 one on the same pixels.
 
-The port runs on one device, so clipx's sharded lines (printed only with
-more than one device) never appear, and the IVF line names ``IVFIndex``.
-Returns 0 when every self-retrieval hit, 2 otherwise.
+With more than one device of ``--device``'s type visible (GPUs; the CPU
+counts as one), it also prints clipx's ``sharded vs exact`` line (a
+``ShardedVectorIndex`` over every visible device) and runs the IVF lines on
+``ShardedIVFIndex``, which the IVF line names. Returns 0 when every
+self-retrieval hit, 2 otherwise.
 """
 
 from __future__ import annotations
@@ -80,8 +82,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from clipx_torch.parallel.mesh import visible_devices
+    from clipx_torch.parallel.mips import ShardedVectorIndex, shard_mesh
     from clipx_torch.search.engine import VectorIndex, read_index
-    from clipx_torch.search.ivf import IVFIndex
+    from clipx_torch.search.ivf import IVFIndex, ShardedIVFIndex
 
     dev = args.device
     index = read_index(args.index, device=dev)
@@ -155,29 +159,39 @@ def main(argv=None) -> int:
             _record(f"pq_storage_opq_{opq}", recall=recall, top1=top1, k=k,
                     dsub=ipq._pq.dsub)
 
+    # more than one device: the corpus row-sharded over all of them
+    devices = visible_devices(dev)
+    ivf_cls, ivf_kw = IVFIndex, {}
+    if len(devices) > 1:
+        mesh = shard_mesh(devices)
+        _, Is = ShardedVectorIndex(vectors, mesh).search(queries, k=k)
+        print(f"sharded vs exact: recall@{k} {_recall(Ie, Is, k):.4f} "
+              f"({len(devices)} devices)")
+        ivf_cls, ivf_kw = ShardedIVFIndex, {"mesh": mesh}
+
     # IVF (--search-mode ivf): nprobe 100 probes everything and must
     # reproduce the exact ranking; nprobe 32 is the shipping default
     def ivf_recall(idx, nprobe=None):
         _, ids = idx.search(queries, k=k, nprobe=nprobe)
         return _recall(Ie, ids, k)
 
-    ivf = IVFIndex.from_vectors(vectors, device=dev)
-    r_full, r_def = ivf_recall(ivf, 100), ivf_recall(ivf)
-    print(f"ivf vs exact ({IVFIndex.__name__}): recall@{k} {r_full:.4f} "
+    def ivf(**kw):
+        return ivf_cls.from_vectors(vectors, device=dev, **ivf_kw, **kw)
+
+    ivf_f32 = ivf()
+    r_full, r_def = ivf_recall(ivf_f32, 100), ivf_recall(ivf_f32)
+    print(f"ivf vs exact ({ivf_cls.__name__}): recall@{k} {r_full:.4f} "
           f"at nprobe=100, {r_def:.4f} at nprobe=32")
     _record("ivf_f32", recall_nprobe100=r_full, recall_nprobe32=r_def, k=k)
     # the int8 probed scan, which ivf mode runs from 100k rows
-    r_fullq = ivf_recall(IVFIndex.from_vectors(vectors, quantized=True,
-                                               device=dev), 100)
+    r_fullq = ivf_recall(ivf(quantized=True), 100)
     print(f"ivf-int8 vs exact: recall@{k} {r_fullq:.4f} at nprobe=100")
-    r_fulls = ivf_recall(IVFIndex.from_vectors(vectors, device=dev,
-                                               dtype="int8"), 100)
+    r_fulls = ivf_recall(ivf(dtype="int8"), 100)
     print(f"ivf-int8-storage vs exact f32: recall@{k} {r_fulls:.4f} "
           f"at nprobe=100")
     _record("ivf_int8_storage", recall_nprobe100=r_fulls, k=k)
     if index.dim % 2 == 0:
-        r_full4 = ivf_recall(IVFIndex.from_vectors(vectors, device=dev,
-                                                   dtype="int4"), 100)
+        r_full4 = ivf_recall(ivf(dtype="int4"), 100)
         print(f"ivf-int4-storage vs exact f32: recall@{k} {r_full4:.4f} "
               f"at nprobe=100")
         _record("ivf_int4_storage", recall_nprobe100=r_full4, k=k)
@@ -186,8 +200,7 @@ def main(argv=None) -> int:
                      else ("off", "on"))
         for res in res_modes:
             with restoring(CLIPX_PQ_RESIDUAL=res):
-                ivf_pq = IVFIndex.from_vectors(vectors, device=dev,
-                                               dtype="pq")
+                ivf_pq = ivf(dtype="pq")
             r_fullp, r_defp = ivf_recall(ivf_pq, 100), ivf_recall(ivf_pq)
             print(f"ivf-pq-storage (residual={res}) vs exact f32: "
                   f"recall@{k} {r_fullp:.4f} at nprobe=100, "

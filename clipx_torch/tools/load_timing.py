@@ -54,7 +54,7 @@ def main(argv=None) -> int:
 
     from clipx_torch.cli import common
 
-    common.check_ported(args)
+    common.check_device(args)
     if args.cold:
         with restoring(CLIPX_CODES="refresh"):
             return _run(args)

@@ -73,7 +73,7 @@ def _run(pkg, fixture_dir, monkeypatch, capsys, tier="f32",
     (``extra`` flags added to both commands) in a work directory of its
     own (named by the package, the tier, the flags and ``tag``), calling
     ``before_query(work)`` between the two; returns (build stdout, REPL
-    stdout, REPL stderr)."""
+    stdout, build and REPL stderr)."""
     root, photos, ckpt = fixture_dir
     build, query = (jbuild, jquery) if pkg == "clipx" else (tbuild, tquery)
     flags = ["--model", "tiny-test", "--checkpoint", ckpt,
@@ -86,13 +86,13 @@ def _run(pkg, fixture_dir, monkeypatch, capsys, tier="f32",
     monkeypatch.setenv("CLIPX_NO_VIEWER", "1")
     capsys.readouterr()
     assert build.main(flags + [photos]) == 0
-    built = capsys.readouterr().out
+    built = capsys.readouterr()
     if before_query is not None:
         before_query(work)
     args = query.build_parser().parse_args(flags)
     assert query.QueryREPL(args, input_fn=Script(session)).run() == 0
     out = capsys.readouterr()
-    return built, out.out, out.err
+    return built.out, out.out, built.err + out.err
 
 
 def _compare(ours: str, ref: str) -> None:
@@ -200,14 +200,26 @@ def test_search_mode_ivf_cli_stdout_matches_clipx(fixture_dir, monkeypatch,
         assert "(loaded 5 pq rows from images.index.codes)" in err
 
 
-@pytest.mark.parametrize("flag,value", [("--sharded", "on")])
-def test_unported_flags_exit_with_a_message(flag, value, tmp_path,
-                                            monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    from clipx_torch import serve as tserve
-
-    with pytest.raises(SystemExit, match="not yet ported"):
-        tserve.main(["--device", "cpu", "--model", "tiny-test", flag, value])
+def test_sharded_cli_stdout_matches_unsharded_and_clipx(fixture_dir,
+                                                       monkeypatch, capsys):
+    """--sharded on for both commands (tests/test_cli_contract.py's sharded
+    REPL case): the port's indexer encodes data-parallel over its one CPU
+    shard and says so on stderr, as clipx's does over its 8 virtual
+    devices; the REPL prints the rows of --sharded off, and clipx's."""
+    on = ("--sharded", "on")
+    ref_build, ref_query, ref_err = _run("clipx", fixture_dir, monkeypatch,
+                                         capsys, extra=on)
+    build, query, err = _run("port", fixture_dir, monkeypatch, capsys,
+                             extra=on)
+    _, off_query, off_err = _run("port", fixture_dir, monkeypatch, capsys,
+                                 extra=("--sharded", "off"))
+    _compare(build, ref_build)
+    _compare(query, ref_query)
+    _compare(query, off_query)
+    assert query.count("Search time:") == 4
+    assert "(data-parallel encode over 8 devices)" in ref_err
+    assert "(data-parallel encode over 1 devices)" in err
+    assert "data-parallel" not in off_err
 
 
 def test_cuda_without_a_gpu_exits_with_a_message(tmp_path, monkeypatch):
@@ -231,13 +243,17 @@ def _imports(path: pathlib.Path):
 
 
 def test_port_imports_neither_jax_nor_clipx():
-    """No module of the port, nor chip_smoke.py, imports JAX, clipx or a
-    script of the root tools/ folder (by package or by module name)."""
+    """No module of the port, nor chip_smoke.py, nor the port's
+    multi-process test worker, imports JAX, clipx or a script of the root
+    tools/ folder (by package or by module name)."""
     files = sorted((ROOT / "clipx_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist_worker.py"]
     names = {str(f.relative_to(ROOT)) for f in files}
     assert len(files) > 20
     assert {"clipx_torch/models/resnet.py",
+            "clipx_torch/parallel/mesh.py", "clipx_torch/parallel/mips.py",
+            "clipx_torch/parallel/distributed.py",
+            "tests/_torch_dist_worker.py",
             "clipx_torch/tools/eval_quality.py", "clipx_torch/train.py",
             "clipx_torch/cli/train.py", "clipx_torch/utils/env.py",
             *(f"clipx_torch/tools/{t}.py" for t in (

@@ -1384,3 +1384,84 @@ def test_load_timing_pq_launches_b11(cuda_device, tmp_path):
     assert out["platform"] == "cuda" and out["mode"] == "warm"
     assert out["ntotal"] == 20_000 and out["query_p50_ms"] > 0
     assert tps.LAUNCHES["pq_scan_scores"] - before >= 51
+
+
+# -- corpus-sharded search and the dp encode (clipx_torch/parallel) --------
+
+def _card_mesh(axis, n, device):
+    from clipx_torch.parallel.mesh import make_mesh
+
+    return make_mesh({axis: n}, [device] * n)
+
+
+@pytest.mark.parametrize("tier", ["f32", "pq"])
+def test_sharded_flat_on_four_card_shards_matches_one_device(cuda_device,
+                                                             tier):
+    """ShardedVectorIndex on 4 shards of one card against the single-device
+    index of the same tier on the card: f32 ids identical and scores
+    within 1e-5; pq the same ids up to IVF_TIE; B11 launched once a shard
+    a search, never its plain version."""
+    from clipx_torch.parallel.mips import ShardedVectorIndex
+
+    corpus, queries = _ivf_corpus()
+    single = teng.VectorIndex.from_vectors(corpus, device=cuda_device,
+                                           dtype=tier)
+    sharded = ShardedVectorIndex(corpus, _card_mesh("shard", 4, cuda_device),
+                                 dtype=tier)
+    assert all(c.device == cuda_device for c in (
+        sharded._codes if tier == "pq" else sharded._corpus))
+    D1, I1 = single.search(queries, 50)
+    tps.reset_launches()
+    D, I = sharded.search(queries, 50)
+    launched = {k: n for k, n in tps.LAUNCHES.items() if n}
+    assert launched == ({"pq_scan_scores": 4} if tier == "pq" else {})
+    if tier == "f32":
+        np.testing.assert_array_equal(I, I1)
+        np.testing.assert_allclose(D, D1, atol=1e-5, rtol=0)
+    else:
+        _assert_same_ranking(D, I, D1, I1)
+
+
+def test_sharded_ivf_pq_on_four_card_shards(cuda_device, tmp_path,
+                                            monkeypatch):
+    """ShardedIVFIndex with residual pq on 4 shards of one card: at nprobe
+    100 the single-device ids (up to IVF_TIE); B11 once per (shard, query,
+    probed chunk)."""
+    from clipx_torch.search import ivf as tivf
+
+    monkeypatch.setenv("CLIPX_PQ_RESIDUAL", "on")
+    corpus, queries = _ivf_corpus()
+    cache = str(tmp_path / "images.index.ivf")
+    single = tivf.IVFIndex.from_vectors(corpus, dtype="pq", cache_path=cache,
+                                        device=cuda_device)
+    sharded = tivf.ShardedIVFIndex.from_vectors(
+        corpus, dtype="pq", cache_path=cache,
+        mesh=_card_mesh("shard", 4, cuda_device))
+    D1, I1 = single.search(queries, 50, nprobe=100)
+    tps.reset_launches()
+    D, I = sharded.search(queries, 50, nprobe=100)
+    s_loc = sharded._segs() // 4
+    chunks = -(-s_loc // tivf._pq_chunk_segs(s_loc, 64))
+    assert {k: n for k, n in tps.LAUNCHES.items() if n} == {
+        "pq_scan_scores": 4 * len(queries) * chunks}
+    _assert_same_ranking(D, I, D1, I1)
+
+
+def test_dp_encode_on_two_card_positions(cuda_device):
+    """The ViT dp encode over a mesh of cuda:0 twice, at D = 64 (the B1
+    route): each bucket splits into two even shares, B1 launches once a
+    layer a share, and the embeddings equal the single-device encode on the
+    card within 2e-3 (bf16; chip_smoke.py's ViT-B/32 leg came out
+    bitwise)."""
+    cfg = _d64()
+    params = tconvert.init_params(cfg, 0)
+    single = Encoder(cfg, params, device=cuda_device)
+    dp = Encoder(cfg, params, mesh=_card_mesh("dp", 2, cuda_device))
+    assert dp.buckets == (4, 8, 32, 128, 256)
+    images = np.random.default_rng(3).integers(0, 256, (20, 64, 64, 3),
+                                               dtype=np.uint8)
+    ref = single.encode_images(images)
+    tps.reset_launches()
+    out = dp.encode_images(images)
+    assert tps.LAUNCHES["fused_attn_block"] == 2 * cfg.vision.layers
+    np.testing.assert_allclose(out, ref, atol=2e-3, rtol=0)

@@ -13,6 +13,8 @@ the same floors.
 - on a small corpus, the tool's flat-tier lines are clipx's own, digit for
   digit; the IVF lines differ (the k-means layout is the port's own) and
   are held to the floors only;
+- with 8 devices visible (mocked), the ``sharded vs exact`` line is
+  clipx's, digit for digit, and the IVF lines name ``ShardedIVFIndex``;
 - ``CLIPX_INT8_SCAN=element`` is refused by name; ``CLIPX_PQ_LUT=bf16`` is
   ignored and changes no result, the port's or clipx's.
 """
@@ -316,6 +318,37 @@ def test_tool_restores_the_callers_pq_settings(tmp_path, monkeypatch):
     assert {"fixed", "trained"} <= set(seen)
     assert os.environ["CLIPX_PQ_OPQ"] == "trained"
     assert "CLIPX_PQ_RESIDUAL" not in os.environ
+
+
+def test_tool_prints_clipx_sharded_line_on_the_same_mesh(tmp_path,
+                                                        monkeypatch):
+    """With more than one device visible (8 here, mocked: the CPU listed 8
+    times, as the suite's 8 virtual devices are JAX's) the port's tool
+    prints clipx's ``sharded vs exact`` line digit for digit, and its IVF
+    line names ShardedIVFIndex, as clipx's does."""
+    from clipx_torch.parallel import mesh as tmesh
+
+    assert len(jax.devices()) == 8
+    monkeypatch.setattr(tmesh, "visible_devices",
+                        lambda kind: [torch.device("cpu")] * 8)
+    corpus = _unit(np.random.RandomState(5), 1500, 32)
+    path = str(tmp_path / "images.index")
+    jeng.write_index(jeng.VectorIndex.from_vectors(corpus), path)
+    outs = {}
+    for name, mod, extra in (("clipx", jeq, []),
+                             ("port", teq, ["--device", "cpu"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert mod.main(["--index", path, "--k", "10", "--samples",
+                             "16", *extra]) == 0
+        outs[name] = buf.getvalue()
+    lines = {name: [ln for ln in out.splitlines()
+                    if ln.startswith("sharded vs exact")]
+             for name, out in outs.items()}
+    assert lines["port"] == lines["clipx"]
+    assert lines["port"][0].endswith("(8 devices)")
+    for out in outs.values():
+        assert "ivf vs exact (ShardedIVFIndex)" in out
 
 
 # -- clipx's two knobs that pick another scan -------------------------------

@@ -1004,27 +1004,97 @@ def test_sigterm_shuts_down_cleanly(tmp_path, ckpt):
 
 
 def test_refusals_exit_with_a_message(tmp_path, ckpt, monkeypatch):
-    """--sharded on names queue A's multi-device item; cuda with no GPU
-    visible names the device."""
+    """cuda with no GPU visible exits naming the device."""
     _, work = _port_work(tmp_path, ckpt, 1, 1)
     argv = _flags("port", work, ckpt)
-    with pytest.raises(SystemExit, match='"Multi-device"'):
-        tserve.main(argv + ["--sharded", "on"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         tserve.main(argv[:-2])
 
 
-def test_sharded_auto_says_it_uses_one_gpu(monkeypatch, capsys):
-    """--sharded auto with two GPUs visible serves from one and says so on
-    stderr; --sharded off says nothing."""
+@pytest.mark.parametrize("cdtype", ["f32", "pq"])
+def test_sharded_on_service_answers_as_unsharded(tmp_path, ckpt, monkeypatch,
+                                                 cdtype):
+    """--sharded on (one CPU shard) serves a ShardedVectorIndex whose
+    /search_vector, /search and /similar answers equal --sharded off's,
+    before and after the same incremental /reload of a grown folder (the
+    sharded add gets only the delta)."""
+    monkeypatch.setenv("CLIPX_SERVE_WARMUP_K", "10")
+    flags = ("--corpus-dtype", cdtype)
+    photos, work = _port_work(tmp_path, ckpt, 4, 9, *flags)
+    requests = [("POST", "/search_vector",
+                 {"vector": _unit_queries(1, DIM, 3)[0].tolist(), "k": 3}),
+                ("GET", "/search?q=a+red+photo&k=3", None),
+                ("GET", "/similar?id=1&k=2", None),
+                ("GET", "/similar?id=3&k=5", None)]
+
+    def ask(port):
+        return [_retry_cold(lambda: _req(port, m, path, body)[:2])
+                for m, path, body in requests]
+
+    def answers(sharded):
+        """(index class, answers, answers after growing the folder and an
+        incremental /reload)"""
+        server = _start("port", work, ckpt, *flags, "--sharded", sharded)
+        try:
+            port = _port_of(server)
+            _wait_warm(port)
+            out = [_get(port, "/metrics")[1]["index"]["class"], ask(port)]
+            _save_photos(photos, [f"p{i}.jpg" for i in range(4, 7)], 19)
+            _build("port", photos, work, ckpt, *flags)
+            index = _service(server).index
+            calls, add = [], index.add
+            monkeypatch.setattr(index, "add", lambda v: (
+                calls.append(len(v)), add(v))[1])
+            status, r = _post(port, "/reload", {})
+            assert status == 200 and r["mode"] == "incremental", r
+            assert calls == [3] and r["ntotal"] == 7
+            return out + [ask(port)]
+        finally:
+            _stop(server)
+
+    shutil.copytree(work, tmp_path / "work4")
+    cls_off, off4, off7 = answers("off")
+    # the same 4-image deployment again, for the sharded service
+    shutil.rmtree(work)
+    shutil.copytree(tmp_path / "work4", work)
+    for i in range(4, 7):
+        (photos / f"p{i}.jpg").unlink()
+    cls_on, on4, on7 = answers("on")
+    assert (cls_on, cls_off) == ("ShardedVectorIndex", "VectorIndex")
+    for on, off in ((on4, off4), (on7, off7)):
+        for (s_on, a), (s_off, b) in zip(on, off):
+            assert s_on == s_off == 200
+            _assert_same_results(a, b)
+    assert max(r["id"] for r in on7[-1][1]["results"]) >= 4  # new rows
+
+
+def test_sharded_auto_with_two_gpus_builds_a_two_shard_mesh(monkeypatch,
+                                                            capsys):
+    """--sharded auto with two GPUs visible (mocked) shards the index over
+    both, and the indexer's encode; off uses one; on the CPU auto never
+    shards. No path prints anything about it."""
+    from clipx_torch.cli import common
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    for sharded, said in (("auto", True), ("off", False)):
-        tserve.common.check_ported(tserve.build_parser().parse_args(
-            ["--sharded", sharded]))
-        err = capsys.readouterr().err
-        assert ("sharding is not ported" in err) == said, err
+    parse = tserve.build_parser().parse_args
+    for sharded, shards in (("auto", 2), ("on", 2), ("off", None)):
+        args = parse(["--sharded", sharded])
+        common.check_device(args)
+        mesh = common.search_mesh(args)
+        if shards is None:
+            assert mesh is None and common.encode_mesh(args) is None
+        else:
+            assert mesh.shape == {"shard": 2}
+            assert mesh.devices == [torch.device("cuda", 0),
+                                    torch.device("cuda", 1)]
+            assert common.encode_mesh(args).shape == {"dp": 2}
+    assert common.search_mesh(parse(["--sharded", "auto", "--device",
+                                     "cpu"])) is None
+    assert common.search_mesh(parse(["--sharded", "on", "--device",
+                                     "cpu"])).devices == [torch.device("cpu")]
+    assert capsys.readouterr().err == ""
 
 
 @pytest.mark.parametrize("kind", ["flat", "ivf"])

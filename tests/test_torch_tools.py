@@ -174,7 +174,11 @@ def test_make_synth_index_and_load_timing(tmp_path, capsys):
     assert "(loaded 3000 int8 rows" in capsys.readouterr().err
 
 
-def test_load_timing_pq_query(tmp_path):
+def test_load_timing_pq_query(tmp_path, monkeypatch):
+    """load_timing loads and searches the pq deployment; with --sharded on
+    (as clipx's) it loads the row-sharded index, one CPU shard here."""
+    from clipx_torch.parallel.mips import ShardedVectorIndex
+
     index = str(tmp_path / "images.index")
     _write_sidecar(index, _unit(np.random.default_rng(4).standard_normal(
         (2000, 32)).astype(np.float32)))
@@ -184,8 +188,17 @@ def test_load_timing_pq_query(tmp_path):
     out = json.load(open(jpath))
     assert out["corpus_dtype"] == "pq" and out["query_p50_ms"] > 0
     assert os.path.exists(index + ".codes")
-    with pytest.raises(SystemExit, match="not yet ported"):
-        load_timing.main(["--index", index, "--sharded", "on", *CPU])
+    loaded = []
+    real = tcommon.load_index
+    monkeypatch.setattr(tcommon, "load_index",
+                        lambda args: loaded.append(real(args)) or loaded[-1])
+    assert load_timing.main(["--index", index, "--corpus-dtype", "pq",
+                             "--sharded", "on", "--query", "--json", jpath,
+                             *CPU]) == 0
+    sharded = json.load(open(jpath))
+    assert isinstance(loaded[0], ShardedVectorIndex)
+    assert loaded[0].n_shards == 1 and loaded[0].ntotal == 2000
+    assert sharded["ntotal"] == out["ntotal"] and sharded["query_p50_ms"] > 0
 
 
 @pytest.mark.parametrize("store,kind", [("full", "clustered"),

@@ -131,9 +131,11 @@ def test_train_empty_dir(tmp_path, capsys):
 @pytest.mark.parametrize("flags", [["--dp", "4", "--tp", "2"],
                                    ["--dp", "2"], ["--tp", "2"]])
 def test_train_dp_tp_mesh_is_refused(pair_dir, flags):
-    """clipx's dp x tp mesh needs the multi-device port: more than one
-    device exits with a message naming it; --dp 0|1 --tp 1 runs."""
-    with pytest.raises(SystemExit, match="not yet ported.*Multi-device"):
+    """clipx's dp x tp mesh needs slice 14 of the port (its sharded search
+    and dp encode came before it): more than one device exits with a
+    message naming it; --dp 0|1 --tp 1 runs."""
+    with pytest.raises(SystemExit,
+                       match="not yet ported.*slice 14.*Multi-device"):
         train_cli.main([pair_dir, *TINY, "--steps", "2", *flags])
 
 
