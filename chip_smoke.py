@@ -125,11 +125,25 @@ these phases, printing one JSON line per phase:
               step (device ms by kernel class, busy share) at batch 64;
               --remat on the same 10 batches (loss within 1e-6, peak
               lower); python -m clipx_torch.cli.train on 256 seeded JPEG +
-              caption pairs at its defaults, SIGTERM after its step-40 line
-              (exit 0, checkpoint), then its main() with --resume for 10
+              caption pairs at its defaults, SIGTERM after its step-20 line
+              (exit 0, checkpoint), then its main() with --resume for 5
               more steps (the optimizer's count follows), the params.npz
               loaded into the Encoder; RN50: 10 timed steps at batch 64 and
               one card-vs-CPU step at batch 4.
+   tp       — tensor parallelism (clipx_torch/parallel/tensor.py) at
+              ViT-B/32 full width over {"dp": 2, "tp": 2} of cuda:0 listed
+              4 times: the TP Encoder (attn_impl "pallas" asked, "plain"
+              taken) on phase encode's 1,024 images at batch 128, cosine
+              >= 0.99 against phase encode's embeddings and the CPU's f32
+              encode, img/s beside phase encode's; the dp x tp step in f32
+              with TF32 off: 3 steps of phase train's batch of 8 against
+              phase train's CPU steps (its tolerances, every replica
+              bitwise), 10 timed steps of its batches of 64 (median ms and
+              allocator peak beside the single-device step's) and --remat
+              on 3 of them
+              (losses within 1e-6); 2 steps over a one-rank NCCL group
+              against the in-process steps; with more GPUs visible, the
+              encode and the step again over {"dp": n / 2, "tp": 2}.
    tools    — the capacity and maintenance tools (clipx_torch/tools/):
               make_synth_index at 1,000,000 x 512 and build_codes_direct at
               120,000 x 64 in processes of their own while find_dupes
@@ -150,7 +164,7 @@ these phases, printing one JSON line per phase:
               --model RN50, and both commands with --sharded on (the rows
               of the default leg; the indexer's data-parallel line), each
               build's [stats] rates read from stderr;
-              four legs at a time, each in a work dir of its own (only
+              all seven legs at once, each in a work dir of its own (only
               when PIL or cv2 imports).
 
 Phases 3-6 are the main path of ViT-B/32 (which must launch none of the
@@ -160,8 +174,9 @@ phase ivf the IVF path (B11 only), phase serve the HTTP service's path
 the sharded path (B1 and B11 only), phases int8
 and fused its opt-in routes, phase 8 the long towers' path, phase resnet
 the ResNet towers' (no kernel), phase quality the gate's (B1, B2 and B11),
-phase train training's (no kernel: clipx's train step reaches none) and
-phase tools the tools' (B11 only):
+phase train training's (no kernel: clipx's train step reaches none),
+phase tp the tensor-parallel paths' (no kernel: clipx's TP encode and
+sharded step take plain attention) and phase tools the tools' (B11 only):
 every launch count is set to 0 just before each and read just after it,
 and every kernel must have been launched on one of them. Then one line
 gives each phase's seconds, one lists every kernel ({"kernels": [...]})
@@ -3684,8 +3699,10 @@ def phase_quality() -> dict:
 TRAIN_MODEL, TRAIN_RN = "ViT-B/32", "RN50"
 TRAIN_PAIRS = 256          # seeded 224 x 224 JPEG + caption pairs
 TRAIN_BATCH = 64           # clipx-train's default --batch-size
-TRAIN_CLI_STEPS = 40       # steps of the CLI run before its SIGTERM
-TRAIN_RESUME_STEPS = 10
+# steps of the CLI run before its SIGTERM, then of its resume (cut from 40
+# and 10 to keep the whole script inside its time limit on a slow host)
+TRAIN_CLI_STEPS = 20
+TRAIN_RESUME_STEPS = 5
 TRAIN_TIMED_STEPS = 10     # in-process steps: CUDA-event median, --remat
 TRAIN_CPU_BATCH, TRAIN_CPU_STEPS, TRAIN_RN_CPU_BATCH = 8, 3, 4
 TRAIN_LR = 1e-5            # card vs CPU: clipx-train's default --lr
@@ -3727,15 +3744,80 @@ def _pair_folder(root: str) -> str:
 
 
 def _train_setup(name: str, tree, device, lr: float, warmup: int,
-                 total: int, remat: bool = False):
+                 total: int, remat: bool = False, mesh=None):
+    """(state, step) of the single-device step on ``device``, or with
+    ``mesh`` of the sharded one, whose step takes the whole batch and
+    splits it over the mesh itself."""
     from clipx_torch import config as config_lib
     from clipx_torch import train as ttrain
+    from clipx_torch.models import convert
 
     cfg = config_lib.get_config(name)
-    state, tx = ttrain.create_train_state(
-        cfg, tx=ttrain.make_optimizer(lr, 0.02, warmup, total),
-        device=device, params=tree)
-    return state, ttrain.make_train_step(cfg, tx, remat=remat)
+    tx = ttrain.make_optimizer(lr, 0.02, warmup, total)
+    if mesh is None:
+        state, tx = ttrain.create_train_state(cfg, tx=tx, device=device,
+                                              params=tree)
+        return state, ttrain.make_train_step(cfg, tx, remat=remat)
+    # a fresh state straight from the numpy tree (zero moments), as
+    # create_train_state would make it, without its host copies
+    zeros = {}
+    for key, val in convert._flatten(tree).items():
+        node = zeros
+        *path, leaf = key.split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.zeros_like(val)
+    state = ttrain.TrainState(tree, ttrain.AdamWState(0, zeros, zeros), 0)
+    sharded, shard_state, split = ttrain.make_sharded_train_step(
+        cfg, tx, mesh, remat=remat)
+    return shard_state(state), (
+        lambda state, px, ids: sharded(state, *split(px, ids)))
+
+
+def _flat_params(params) -> dict:
+    """A param tree (or a sharded one, gathered whole) as clipx's flat
+    numpy layout."""
+    from clipx_torch.models import convert
+    from clipx_torch.parallel.mesh import Sharded
+
+    if isinstance(params, Sharded):
+        params = params.gather()
+    return convert._flatten(convert.to_jax_params(params))
+
+
+def _update_diff(card: dict, cpu: dict, init: dict):
+    """(largest |difference|, relative L2 error, largest |update|) of the
+    card's parameter updates against the CPU's."""
+    max_abs, sq_err, sq_ref, moved = 0.0, 0.0, 0.0, 0.0
+    for key, p0 in init.items():
+        dc = card[key].astype(np.float64) - p0
+        dp = cpu[key].astype(np.float64) - p0
+        max_abs = max(max_abs, float(np.abs(dc - dp).max()))
+        sq_err += float(((dc - dp) ** 2).sum())
+        sq_ref += float((dp ** 2).sum())
+        moved = max(moved, float(np.abs(dp).max()))
+    return max_abs, (sq_err / sq_ref) ** 0.5, moved
+
+
+def _replicas_bitwise(sharded) -> int:
+    """Checks that the trees of one tp column, and every tree's replicated
+    leaves, are equal bit for bit across the mesh's placements; returns
+    the number of trees compared."""
+    from clipx_torch import train as ttrain
+
+    trees = sharded.placements()
+    flags = ttrain._sharded_flags(trees[0][1], sharded.specs, sharded.tp)
+    firsts = {}
+    for pos, tree in trees:
+        leaves = ttrain.tree_leaves(tree)
+        ref = ttrain.tree_leaves(firsts.setdefault(sharded.column(pos),
+                                                   tree))
+        rep = ttrain.tree_leaves(trees[0][1])
+        for a, b, c, split in zip(leaves, ref, rep, flags):
+            check(torch.equal(a, b.to(a.device))
+                  and (split or torch.equal(a, c.to(a.device))),
+                  "replicas of a leaf differ after the sharded steps")
+    return len(trees)
 
 
 def _batches(pairs, size: int, batch: int, n: int, device):
@@ -3751,38 +3833,43 @@ def _batches(pairs, size: int, batch: int, n: int, device):
 
 
 def _card_vs_cpu(name: str, tree, pairs, batch: int, steps: int,
-                 warmup: int, device, atol, rl2: float) -> dict:
-    """``steps`` steps of one seeded batch on the card and on the CPU from
-    one tree: per-step loss, accuracy and grad norm, and every parameter's
-    update, against the stated tolerances (``atol`` None: the largest
-    update difference is reported, not bounded)."""
+                 warmup: int, device, atol, rl2: float, mesh=None,
+                 cpu_run=None) -> dict:
+    """``steps`` steps of one seeded batch on the card (over ``mesh``, when
+    given) and on the CPU from one tree: per-step loss, accuracy and grad
+    norm, and every parameter's update, against the stated tolerances
+    (``atol`` None: the largest update difference is reported, not
+    bounded). ``cpu_run`` is an earlier call's CPU run (its "_cpu" entry)
+    of the same batch, taken instead of running the CPU again."""
     from clipx_torch.models import convert
 
     size = 224
     runs = []
-    for dev in (device, torch.device("cpu")):
-        px, ids = _batches(pairs, size, batch, 1, dev)[0]
-        state, step = _train_setup(name, tree, dev, TRAIN_LR, warmup, steps)
+    for dev in ((device,) if cpu_run else (device, torch.device("cpu"))):
+        px, ids = (cpu_run["batch"] if cpu_run
+                   else _batches(pairs, size, batch, 1, dev)[0])
+        state, step = _train_setup(name, tree, dev, TRAIN_LR, warmup, steps,
+                                   mesh=mesh if dev == device else None)
         metrics = []
         t0 = time.perf_counter()
         for _ in range(steps):
             state, m = step(state, px, ids)
             metrics.append({k: float(v) for k, v in m.items()})
         secs = time.perf_counter() - t0
-        runs.append((convert._flatten(convert.to_jax_params(state.params)),
-                     metrics, secs))
+        replicas = (_replicas_bitwise(state.params)
+                    if mesh is not None and dev == device else None)
+        runs.append((_flat_params(state.params), metrics, secs))
+        if dev != device:
+            cpu_run = {"batch": (px, ids), "params": runs[-1][0],
+                       "metrics": metrics, "seconds": secs}
         del state, step
         torch.cuda.empty_cache()
+    if len(runs) == 1:
+        runs.append((cpu_run["params"], cpu_run["metrics"],
+                     cpu_run["seconds"]))
     (card, cm, card_s), (cpu, pm, cpu_s) = runs
     init = convert._flatten(tree)
-    max_abs, sq_err, sq_ref, moved = 0.0, 0.0, 0.0, 0.0
-    for key, p0 in init.items():
-        dc = card[key].astype(np.float64) - p0
-        dp = cpu[key].astype(np.float64) - p0
-        max_abs = max(max_abs, float(np.abs(dc - dp).max()))
-        sq_err += float(((dc - dp) ** 2).sum())
-        sq_ref += float((dp ** 2).sum())
-        moved = max(moved, float(np.abs(dp).max()))
+    max_abs, rel, moved = _update_diff(card, cpu, init)
     for a, b in zip(cm, pm):
         check(abs(a["loss"] - b["loss"]) <= TRAIN_LOSS_RTOL * abs(b["loss"]),
               f"{name}: card loss {a['loss']} vs CPU {b['loss']}")
@@ -3793,7 +3880,6 @@ def _card_vs_cpu(name: str, tree, pairs, batch: int, steps: int,
         check(a["accuracy"] == b["accuracy"],
               f"{name}: card accuracy {a['accuracy']} vs CPU {b['accuracy']}")
     check(moved > 0, f"{name}: no parameter moved in {steps} steps")
-    rel = (sq_err / sq_ref) ** 0.5
     check((atol is None or max_abs <= atol) and rel <= rl2,
           f"{name}: card vs CPU updates differ by {max_abs} (max) and "
           f"{rel} (relative L2)")
@@ -3802,14 +3888,17 @@ def _card_vs_cpu(name: str, tree, pairs, batch: int, steps: int,
             "update_max_abs": moved, "card_s": card_s, "cpu_s": cpu_s,
             "tolerance": {"loss_rtol": TRAIN_LOSS_RTOL,
                           "grad_norm_rtol": TRAIN_GNORM_RTOL,
-                          "update_atol": atol, "update_rel_l2": rl2}}
+                          "update_atol": atol, "update_rel_l2": rl2},
+            "replica_trees_bitwise": replicas, "_cpu": cpu_run}
 
 
-def _timed_steps(name: str, tree, batches, device, remat: bool = False):
+def _timed_steps(name: str, tree, batches, device, remat: bool = False,
+                 mesh=None):
     """TRAIN_TIMED_STEPS steps (CLI defaults: lr 1e-5, warmup 100) on
-    ``batches``: losses, CUDA-event ms of each, the allocator's peak."""
+    ``batches`` (over ``mesh``, when given): losses, CUDA-event ms of each,
+    the allocator's peak."""
     state, step = _train_setup(name, tree, device, 1e-5, 100, 1000,
-                               remat=remat)
+                               remat=remat, mesh=mesh)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     losses, ms = [], []
@@ -3948,6 +4037,7 @@ def phase_train(device) -> dict:
         info["card_vs_cpu"] = _card_vs_cpu(
             TRAIN_MODEL, tree, pairs, TRAIN_CPU_BATCH, TRAIN_CPU_STEPS, 1,
             device, TRAIN_UPDATE_ATOL, TRAIN_UPDATE_RL2)
+        cpu_run = info["card_vs_cpu"].pop("_cpu")
         legs["card_vs_cpu"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         batches = _batches(pairs, 224, TRAIN_BATCH, TRAIN_TIMED_STEPS,
@@ -3993,6 +4083,7 @@ def phase_train(device) -> dict:
         info["rn50"] = {"card_vs_cpu": _card_vs_cpu(
             TRAIN_RN, rn_tree, pairs, TRAIN_RN_CPU_BATCH, 1, 0, device,
             None, TRAIN_RN_UPDATE_RL2)}
+        del info["rn50"]["card_vs_cpu"]["_cpu"]
         state, step, losses, ms, peak = _timed_steps(TRAIN_RN, rn_tree,
                                                      batches, device)
         check(all(np.isfinite(losses)), f"RN50 losses {losses}")
@@ -4002,9 +4093,192 @@ def phase_train(device) -> dict:
             img_per_s=TRAIN_BATCH * 1e3 / statistics.median(ms[2:]),
             peak_allocated_bytes=peak,
             profile=_step_profile(state, step, batches[0]))
-        del state, step, batches
+        del state, step
         torch.cuda.empty_cache()
         legs["rn50"] = time.perf_counter() - t0
+    emit(info)
+    # what phase tp compares with and reuses
+    return {"info": info, "tree": tree, "batches": batches,
+            "cpu_run": cpu_run}
+
+
+# ---------------------------------------------------------------------------
+# phase tp: tensor parallelism (clipx_torch/parallel/tensor.py)
+# ---------------------------------------------------------------------------
+
+TP_AXES = {"dp": 2, "tp": 2}   # on one card: cuda:0 listed 4 times
+TP_NCCL_STEPS = 2
+TP_REMAT_STEPS = 3   # of phase train's 10 batches: --remat's losses
+
+
+def _tp_encode_leg(mesh, images: np.ndarray, embs: np.ndarray,
+                   cpu_ref: np.ndarray) -> dict:
+    """ViT-B/32 through Encoder(mesh=..., tp="tp") on phase encode's images
+    at batch 128 (attn_impl "pallas" asked for, "plain" taken): cosine
+    against phase encode's single-device bf16 embeddings of every image and
+    the CPU's f32 encode of the first CPU_CHECK; img/s; a text encode."""
+    from clipx_torch.runtime.encoder import Encoder
+
+    t0 = time.perf_counter()
+    enc = Encoder.create("ViT-B/32", seed=SEED, mesh=mesh, tp="tp",
+                         attn_impl="pallas")
+    check(enc.attn_impl == "plain", f"tp took attn_impl {enc.attn_impl}")
+    enc.warmup(buckets=(BATCH,))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = np.concatenate([enc.encode_images(images[i: i + BATCH])
+                          for i in range(0, N_IMAGES, BATCH)])
+    secs = time.perf_counter() - t0
+    _unit_rows(out, enc.embed_dim, "the TP encode")
+    cos = _cos_min(out, embs)
+    cos_cpu = _cos_min(out[:CPU_CHECK], cpu_ref)
+    check(cos >= COS_MIN and cos_cpu >= COS_MIN,
+          f"TP encode cosine {cos} vs the single-device encode, {cos_cpu} "
+          "vs the CPU's f32")
+    _unit_rows(enc.encode_texts(["a photo of a cat"]), enc.embed_dim,
+               "the TP text encode")
+    del enc
+    torch.cuda.empty_cache()
+    return {"mesh": dict(mesh.axes), "devices": len(set(mesh.devices)),
+            "images": N_IMAGES, "batch": BATCH, "setup_s": setup_s,
+            "seconds": secs, "img_per_s": N_IMAGES / secs,
+            "cos_min_vs_single_device": cos, "cos_min_vs_cpu_f32": cos_cpu,
+            "cos_tolerance": COS_MIN}
+
+
+def _tp_train_leg(mesh, device, train: dict) -> dict:
+    """The dp x tp step at ViT-B/32, f32 with TF32 off: 3 steps of phase
+    train's batch of 8 against its single-device CPU steps (phase train's
+    tolerances, every replica bitwise), TRAIN_TIMED_STEPS timed steps of
+    its batches of 64 (CUDA-event median, allocator peak), and --remat on
+    the first TP_REMAT_STEPS of them (losses within REMAT_LOSS_RTOL)."""
+    tree, batches = train["tree"], train["batches"]
+    legs = {}
+    t0 = time.perf_counter()
+    out = {"card_vs_cpu": _card_vs_cpu(
+        TRAIN_MODEL, tree, None, TRAIN_CPU_BATCH, TRAIN_CPU_STEPS, 1,
+        device, TRAIN_UPDATE_ATOL, TRAIN_UPDATE_RL2, mesh=mesh,
+        cpu_run=train["cpu_run"])}
+    del out["card_vs_cpu"]["_cpu"]
+    legs["card_vs_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, step, losses, ms, peak = _timed_steps(TRAIN_MODEL, tree, batches,
+                                                 device, mesh=mesh)
+    legs["timed"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    del state, step
+    torch.cuda.empty_cache()
+    _, _, rlosses, rms, rpeak = _timed_steps(
+        TRAIN_MODEL, tree, batches[:TP_REMAT_STEPS], device, remat=True,
+        mesh=mesh)
+    torch.cuda.empty_cache()
+    legs["remat"] = time.perf_counter() - t0
+    worst = max(abs(a - b) / abs(b) for a, b in zip(rlosses, losses))
+    check(worst <= REMAT_LOSS_RTOL,
+          f"dp x tp --remat losses differ by {worst} relative")
+    median = statistics.median(ms[2:])
+    single = train["info"]["step"]
+    out.update(batch=TRAIN_BATCH, losses=losses, step_ms=ms,
+               step_ms_median=median,
+               img_per_s=TRAIN_BATCH * 1e3 / median,
+               peak_allocated_bytes=peak,
+               single_device_step_ms_median=single["step_ms_median"],
+               single_device_peak_allocated_bytes=single[
+                   "peak_allocated_bytes"],
+               step_ms_ratio_to_single_device=median
+               / single["step_ms_median"],
+               remat={"losses": rlosses, "max_rel_loss_diff": worst,
+                      "step_ms_median": statistics.median(rms[2:]),
+                      "peak_allocated_bytes": rpeak}, leg_seconds=legs)
+    return out
+
+
+def _tp_process_leg(device, train: dict, losses) -> dict:
+    """TP_NCCL_STEPS dp x tp steps over a mesh whose positions (cuda:0 four
+    times) carry rank 0 of a one-rank NCCL group, so every collective runs
+    through the process group; their losses and grad norms against the
+    in-process timed run's first steps (the same batches and settings)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from clipx_torch.parallel import distributed
+    from clipx_torch.parallel.mesh import make_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    distributed.initialize(f"127.0.0.1:{port}", num_processes=1,
+                           process_id=0, device=str(device))
+    try:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        check(dist.get_backend() == backend, f"the group is not {backend}")
+        devices, ranks = distributed.global_devices([device] * 4)
+        mesh = make_mesh(TP_AXES, devices, ranks)
+        check(mesh.process_group, "the mesh does not span the group")
+        state, step = _train_setup(TRAIN_MODEL, train["tree"], device, 1e-5,
+                                   100, 1000, mesh=mesh)
+        got = []
+        for px, ids in train["batches"][:TP_NCCL_STEPS]:
+            state, m = step(state, px, ids)
+            got.append(float(m["loss"]))
+        del state, step
+    finally:
+        distributed.shutdown()
+    torch.cuda.empty_cache()
+    check(not dist.is_initialized(), "the process group was not destroyed")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got, losses))
+    check(worst <= REMAT_LOSS_RTOL,
+          f"the NCCL group's losses {got} differ from the in-process "
+          f"{losses[:TP_NCCL_STEPS]}")
+    return {"backend": backend, "ranks": 1, "steps": TP_NCCL_STEPS,
+            "losses": got, "max_rel_loss_diff": worst,
+            "bitwise": got == losses[:TP_NCCL_STEPS],
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_tp(device, train: dict, encoded: dict) -> dict:
+    """Tensor parallelism at ViT-B/32 full width over TP_AXES on cuda:0
+    listed 4 times (one card plays every position: not multi-GPU numbers),
+    and with more than one GPU visible over {"dp": n / 2, "tp": 2} of real
+    GPUs too: the TP encode (_tp_encode_leg), the dp x tp train step
+    (_tp_train_leg), one NCCL rank (_tp_process_leg). No kernel of the
+    port launches: clipx's TP paths reach no Pallas kernel (its sharded
+    step and its tp Encoder take plain attention), and the port's follow
+    (checked by the caller)."""
+    from clipx_torch.parallel.mesh import make_mesh, visible_devices
+
+    info = {"phase": "tp", "model": TRAIN_MODEL, "mesh": TP_AXES,
+            "positions": "cuda:0 listed 4 times"}
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    mesh = make_mesh(TP_AXES, [device] * 4)
+    info["encode"] = timed("encode", _tp_encode_leg, mesh, encoded["images"],
+                           encoded["embs"], encoded["cpu_ref"])
+    info["encode"]["single_device_img_per_s"] = encoded["img_per_s"]
+    info["train"] = timed("train", _tp_train_leg, mesh, device, train)
+    info["process"] = timed("process", _tp_process_leg, device, train,
+                            info["train"]["losses"])
+    n = torch.cuda.device_count()
+    if n > 1 and n % 2 == 0:
+        gpus = visible_devices("cuda")
+        real = make_mesh({"dp": n // 2, "tp": 2}, gpus)
+        info["every_gpu"] = {
+            "gpus": n,
+            "encode": timed("every_gpu_encode", _tp_encode_leg, real,
+                            encoded["images"], encoded["embs"],
+                            encoded["cpu_ref"]),
+            "train": timed("every_gpu_train", _tp_train_leg, real, device,
+                           train)}
+    info["seconds"] = seconds
     emit(info)
     return info
 
@@ -4236,7 +4510,7 @@ def _direct_checks(out: dict, direct: str, device) -> None:
 # phase 6: the CLIs
 # ---------------------------------------------------------------------------
 
-CLI_WORKERS = 4  # CLI legs run at once: each is processes of its own
+CLI_WORKERS = 7  # CLI legs run at once (all of them): each is processes
 
 
 def phase_cli(info_env: dict) -> dict:
@@ -4588,6 +4862,10 @@ def _run_phases(device, keep: str) -> int:
     timed("fused", phase_fused, enc, images, encoded["cpu_ref"])
     paths.append(dict(ps.LAUNCHES))
     emit({"phase": "fused_path_launches", "launches": paths[-1]})
+    # what phase tp compares its TP encode with
+    tp_inputs = {"images": images, "embs": encoded["embs"],
+                 "cpu_ref": encoded["cpu_ref"],
+                 "img_per_s": encoded["info"]["img_per_s"]}
     del enc, images, encoded
     torch.cuda.empty_cache()
     # the long towers' path: counts from 0 just before it, read just after
@@ -4613,11 +4891,21 @@ def _run_phases(device, keep: str) -> int:
           f"the quality gate launched {paths[-1]}, not B1, B2 and B11")
     # training's path: no kernel of the port's (clipx's step reaches none)
     ps.reset_launches()
-    timed("train", phase_train, device)
+    train = timed("train", phase_train, device)
     paths.append(dict(ps.LAUNCHES))
     emit({"phase": "train_path_launches", "launches": paths[-1]})
     check(not any(paths[-1].values()),
           f"the training path launched {paths[-1]}")
+    # the tensor-parallel paths: no kernel of the port's either (clipx's
+    # TP encode and sharded step take plain attention)
+    ps.reset_launches()
+    timed("tp", phase_tp, device, train, tp_inputs)
+    paths.append(dict(ps.LAUNCHES))
+    emit({"phase": "tp_path_launches", "launches": paths[-1]})
+    check(not any(paths[-1].values()),
+          f"the tensor-parallel paths launched {paths[-1]}")
+    del train, tp_inputs
+    torch.cuda.empty_cache()
     # the tools' path: B11 alone (pq loads and the direct build's search)
     ps.reset_launches()
     timed("tools", phase_tools, device, keep)

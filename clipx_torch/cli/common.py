@@ -37,13 +37,6 @@ IDX_DB = b"idx_db"
 # corpus size from which the int8 scan + exact-rescore path wins
 QUANT_AUTO_THRESHOLD = 100_000
 
-# what the train CLI's --dp / --tp > 1 wait for: the item of ROADMAP.md's
-# queue A (modules still to port) that brings them
-MULTI_DEVICE = ('slice 14 of the port, tensor parallelism and the dp x tp '
-                'train step, ROADMAP.md queue A item 8, "Multi-device '
-                'training"')
-
-
 def add_model_flags(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--model",
                         default=os.environ.get("CLIPX_MODEL", "ViT-B/32"),
@@ -138,12 +131,6 @@ def encode_mesh(args):
     devices = sharded_devices(args)
     return None if devices is None else make_mesh({"dp": len(devices)},
                                                   devices)
-
-
-def not_ported(flag: str, value, when: str) -> str:
-    name = "--" + flag.replace("_", "-")
-    return (f"error: {name} {value} is not yet ported to clipx_torch (it "
-            f"comes with {when}; use the clipx package for it)")
 
 
 def corpus_dtype(args) -> str:

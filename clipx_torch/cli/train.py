@@ -12,13 +12,18 @@ periodic checkpoints and ``--resume``.
 Data contract: for every image (the indexer's extensions) a sidecar
 ``.txt`` holds the caption; images without one are skipped and counted.
 
-The run uses one device: ``--dp``/``--tp`` values that ask for more exit
-with a message (the multi-device port is still to come). Checkpoints are
-the port's own ``.npz`` (``ckpt_dir/latest``); clipx's orbax ``latest``
-directory is refused, not read or overwritten. The final params go to
-``ckpt_dir/params.npz`` in clipx's layout, so clipx's ``Encoder`` and CLIs
-load them, as the port's do. SIGTERM and Ctrl-C stop between steps and
-save, so ``--resume`` continues the run.
+The mesh is clipx's: ``--tp`` positions a dp row (default 1) and ``--dp``
+rows (default: every visible device of ``--device``'s type over tp),
+lowered until the batch splits evenly; a mesh of more than one position
+trains with ``train.make_sharded_train_step``, one position with the
+single-device step. Asking for more positions than there are devices (on
+one GPU, ``--tp 2``) exits with clipx's size message. Checkpoints are the
+port's own ``.npz`` (``ckpt_dir/latest``, gathered whole from a sharded
+state); clipx's orbax ``latest`` directory is refused, not read or
+overwritten. The final params go to ``ckpt_dir/params.npz`` in clipx's
+layout, so clipx's ``Encoder`` and CLIs load them, as the port's do.
+SIGTERM and Ctrl-C stop between steps and save, so ``--resume`` continues
+the run.
 """
 
 from __future__ import annotations
@@ -35,10 +40,10 @@ import torch
 
 from clipx_torch import config as config_lib
 from clipx_torch import train as train_lib
-from clipx_torch.cli import common
 from clipx_torch.data.pipeline import IMAGE_EXTENSIONS, iter_decoded
 from clipx_torch.models import convert
 from clipx_torch.ops.preprocess import normalize_host
+from clipx_torch.parallel import mesh as mesh_lib
 from clipx_torch.runtime.device import DEVICES, resolve_device
 from clipx_torch.text.tokenizer import ClipTokenizer
 
@@ -61,11 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="restore the latest checkpoint in --checkpoint-dir")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel axis size (0 = all devices / tp; "
-                        "one device until the multi-device port)")
+                   help="data-parallel axis size (0 = all devices / tp)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel axis size (1 until the "
-                        "multi-device port)")
+                   help="tensor-parallel axis size")
     p.add_argument("--remat", action="store_true",
                    help="rematerialize blocks to trade FLOPs for memory")
     p.add_argument("--device", choices=DEVICES, default="cuda",
@@ -159,18 +162,26 @@ def _to_device(pixels: np.ndarray, ids: np.ndarray, device):
             ids.to(device, non_blocking=True))
 
 
-def _check_one_device(args) -> None:
-    for flag in ("dp", "tp"):
-        value = getattr(args, flag)
-        if value > 1:
-            raise SystemExit(common.not_ported(flag, value,
-                                               common.MULTI_DEVICE))
+def _mesh(args, device) -> mesh_lib.Mesh:
+    """clipx's mesh resolution over the visible devices of ``device``'s
+    type: tp = max(--tp, 1), dp = --dp or devices // tp, lowered until the
+    batch splits evenly over it. Too few devices exit with clipx's size
+    message."""
+    devices = mesh_lib.visible_devices(device)
+    tp = max(args.tp, 1)
+    dp = args.dp or max(len(devices) // tp, 1)
+    while dp > 1 and args.batch_size % dp != 0:
+        dp -= 1  # batch must shard evenly over dp
+    try:
+        return mesh_lib.make_mesh({"dp": dp, "tp": tp},
+                                  devices[: dp * tp])
+    except ValueError as exc:
+        raise SystemExit(f"error: {exc}") from None
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv if argv is not None
                                      else sys.argv[1:])
-    _check_one_device(args)
     try:
         device = resolve_device(args.device)
     except RuntimeError as exc:
@@ -182,7 +193,10 @@ def main(argv=None) -> int:
         print(f"no (image, caption) pairs found in {args.data_dir!r}")
         return 1
     print(f"{len(pairs)} caption pairs; model {cfg.name}")
-    print("mesh: dp=1 tp=1 on 1 device(s)")
+    mesh = _mesh(args, device)
+    dp, tp = mesh.shape["dp"], mesh.shape["tp"]
+    print(f"mesh: dp={dp} tp={tp} on {dp * tp} device(s)")
+    sharded = mesh.size > 1
 
     ckpt_path = (os.path.join(args.checkpoint_dir, "latest")
                  if args.checkpoint_dir else None)
@@ -212,13 +226,25 @@ def main(argv=None) -> int:
                 "tower. Point $CLIPX_BPE_PATH at the merge file or "
                 "place it next to clipx_torch/text/tokenizer.py.",
                 flush=True)
-    state, tx = train_lib.create_train_state(cfg, args.seed, tx,
-                                             device=device, params=init)
-    step_fn = train_lib.make_train_step(cfg, tx, remat=args.remat)
+    # a sharded run starts from a whole state on the host and slices it
+    state, tx = train_lib.create_train_state(
+        cfg, args.seed, tx, device="cpu" if sharded else device,
+        params=init)
+    if sharded:
+        step_fn, shard_state, split_batch = (
+            train_lib.make_sharded_train_step(cfg, tx, mesh,
+                                              remat=args.remat))
+        state = shard_state(state)
+    else:
+        step_fn = train_lib.make_train_step(cfg, tx, remat=args.remat)
 
     if args.resume and ckpt_path and os.path.exists(ckpt_path):
         try:
-            state = train_lib.restore_train_state(ckpt_path, state)
+            if sharded:
+                state = shard_state(train_lib.restore_train_state(
+                    ckpt_path, train_lib.unshard_state(state)))
+            else:
+                state = train_lib.restore_train_state(ckpt_path, state)
         except train_lib.CheckpointFormatError as exc:
             print(f"error: {exc}")
             return 1
@@ -242,8 +268,10 @@ def main(argv=None) -> int:
             for step in range(state.step, args.steps):
                 if stop["sig"]:
                     break
-                pixels, ids = _to_device(*loader.next_batch(), device)
-                state, metrics = step_fn(state, pixels, ids)
+                batch = loader.next_batch()
+                batch = (split_batch(*batch) if sharded
+                         else _to_device(*batch, device))
+                state, metrics = step_fn(state, *batch)
                 if ((step + 1) % args.log_every == 0
                         or step + 1 == args.steps):
                     loss = float(metrics["loss"])
@@ -270,7 +298,7 @@ def main(argv=None) -> int:
                 print(f"checkpoint -> {ckpt_path}")
         if args.checkpoint_dir:
             out = os.path.join(args.checkpoint_dir, "params.npz")
-            convert.save_params(out, state.params)
+            train_lib.save_params(out, state.params)
             print(f"final params -> {out}")
         return 0
     finally:

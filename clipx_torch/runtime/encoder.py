@@ -40,7 +40,15 @@ device's replica of the params (one a distinct device; a device listed
 twice encodes two shares), and the embeddings come back in row order. The
 shares are queued one after another with no host synchronisation, so
 several GPUs overlap. Text and ``encode_pixels`` run on the first device.
-Not ported yet: the ``tp`` option (tensor-parallel params). The XLA
+
+``mesh=`` with ``"dp"`` and ``"tp"`` axes and ``tp="tp"`` is clipx's dp x
+tp encode: the params are TP-sharded (``mesh.shard_params``), each dp
+row's share is copied to the row's tp positions and encoded by the
+tensor-parallel forward of ``parallel/tensor.py``, and the embeddings come
+back in row order; the text tower and ``encode_pixels`` run TP on the first
+dp row. As in clipx, ``tp`` forces ``attn_impl="plain"`` (every requested
+value, ``"pallas"`` included: the kernels consume full-width weight
+blocks), and refuses the ResNet towers and ``CLIPX_COMPUTE=int8``. The XLA
 compile cache has no counterpart.
 """
 
@@ -60,6 +68,8 @@ from clipx_torch.models.layers import ATTN_IMPLS
 from clipx_torch.ops.preprocess import (device_resize_normalize,
                                         normalize_batch, require_square)
 from clipx_torch.parallel import mesh as mesh_lib
+from clipx_torch.parallel import tensor as tensor_lib
+from clipx_torch.parallel.distributed import Group
 from clipx_torch.runtime.device import resolve_device
 from clipx_torch.text.tokenizer import ClipTokenizer
 
@@ -90,14 +100,20 @@ class Encoder:
                  tokenizer: Optional[ClipTokenizer] = None,
                  compute_quant: Optional[str] = None,
                  mesh: Optional[mesh_lib.Mesh] = None, tp=None):
-        if tp is not None:
-            raise ValueError(mesh_lib.TP_NOT_PORTED)
+        vit = getattr(cfg.vision, "tower", "vit") == "vit"
+        if tp is not None and not vit:
+            raise ValueError(
+                "tensor parallelism is not defined for the ResNet towers "
+                "(no TP sharding rules for convs; RN50 fits one chip "
+                "comfortably) — use a dp-only mesh")
         if mesh is not None:
             if "dp" not in mesh.axis_names:
                 raise ValueError("encoder mesh must have a 'dp' axis")
-            if len(mesh.axis_names) != 1 or mesh.multi_process:
-                raise ValueError("an encoder mesh is one 'dp' axis in one "
-                                 f"process, got {mesh}")
+            axes = {"dp", tp} if tp in mesh.axis_names else {"dp"}
+            if set(mesh.axis_names) != axes or mesh.multi_process:
+                raise ValueError("an encoder mesh is one 'dp' axis (and the "
+                                 "'tp' axis named by tp=) in one process, "
+                                 f"got {mesh}")
             device = mesh.devices[0]
             # every bucket splits evenly over dp, into even shares
             grain = 2 * mesh.shape["dp"]
@@ -110,11 +126,18 @@ class Encoder:
             raise ValueError(f"unknown compute mode {quant!r} "
                              "(CLIPX_COMPUTE: bf16 or int8)")
         self.compute_quant = quant if quant == "int8" else None
-        vit = getattr(cfg.vision, "tower", "vit") == "vit"
         if self.compute_quant and not vit:
             raise ValueError("CLIPX_COMPUTE=int8 is implemented for "
                              "the ViT towers (the RN family fits its "
                              "budget in bf16)")
+        if self.compute_quant and tp is not None:
+            raise ValueError("CLIPX_COMPUTE=int8 with tensor "
+                             "parallelism is not supported (no TP "
+                             "sharding rules for the quantized MLP)")
+        if tp is not None:
+            # the kernels consume full-width weight blocks: a TP shard
+            # takes plain attention, an explicit "pallas" included
+            attn_impl = "plain"
         if attn_impl == "auto":
             # "xla" lets mha_block pick the fused kernels per shape;
             # "pallas" forces the (B, H, S, D) flash_attention kernel
@@ -131,12 +154,20 @@ class Encoder:
         self.buckets = tuple(sorted(batch_buckets))
         if self.compute_quant:
             params = self._quantized(params)
-        self.params = self._placed(params, self.device)
-        # one replica a distinct device of the dp mesh
-        self._params_on = {self.device: self.params}
-        if mesh is not None:
-            self._params_on = mesh_lib.replicas(
-                mesh, lambda dev: self._placed(params, dev), self._params_on)
+        self._rows = None
+        if mesh is not None and tp in mesh.axis_names:
+            # one tree a distinct (device, tp column); one group a dp row
+            self.params = mesh_lib.shard_params(params, mesh, tp,
+                                                dtype=self.dtype, cfg=cfg)
+            self._rows = [Group(mesh, r) for r in mesh.groups(tp)]
+        else:
+            self.params = self._placed(params, self.device)
+            # one replica a distinct device of the dp mesh
+            self._params_on = {self.device: self.params}
+            if mesh is not None:
+                self._params_on = mesh_lib.replicas(
+                    mesh, lambda dev: self._placed(params, dev),
+                    self._params_on)
 
     def _placed(self, params, device):
         """The param tree on ``device`` in the compute dtype, with the
@@ -205,17 +236,38 @@ class Encoder:
     def embed_dim(self) -> int:
         return self.cfg.embed_dim
 
-    def _images(self, batch: torch.Tensor, params) -> torch.Tensor:
+    def _pixels(self, batch: torch.Tensor) -> torch.Tensor:
         # batches at the model input size go straight to encode; other
         # square canvases are resampled on the device first
         if batch.shape[1] == self.image_size:
-            pixels = normalize_batch(batch, dtype=self.dtype)
-        else:
-            pixels = device_resize_normalize(batch, self.image_size,
-                                             dtype=self.dtype)
-        return model_lib.encode_image(params, self.cfg, pixels,
+            return normalize_batch(batch, dtype=self.dtype)
+        return device_resize_normalize(batch, self.image_size,
+                                       dtype=self.dtype)
+
+    def _images(self, batch: torch.Tensor, params) -> torch.Tensor:
+        return model_lib.encode_image(params, self.cfg, self._pixels(batch),
                                       normalize=True, dtype=self.dtype,
                                       attn_impl=self.attn_impl)
+
+    def _on_row(self, row: Group, host: torch.Tensor):
+        """``host`` on each of the row's positions (one copy a device) and
+        the row's trees, for the tensor-parallel forward."""
+        cuda = self.device.type == "cuda"
+        copies = {}
+        for dev in row.devices:
+            if dev not in copies:
+                copies[dev] = host.to(dev, non_blocking=cuda)
+        return ([copies[dev] for dev in row.devices],
+                [self.params.trees[p] for p in row.local])
+
+    def _tp_images(self, row: Group, host: torch.Tensor) -> torch.Tensor:
+        """One dp row's share encoded over its tp positions; the embeddings
+        of its first position."""
+        batches, trees = self._on_row(row, host)
+        pixels = {id(b): self._pixels(b) for b in batches}
+        return tensor_lib.encode_image(
+            trees, self.cfg, [pixels[id(b)] for b in batches], row,
+            normalize=True, dtype=self.dtype)[0]
 
     def encode_images(self, batch_uint8: np.ndarray) -> np.ndarray:
         """(B, S, S, 3) uint8 -> (B, embed_dim) float32, L2-normalized.
@@ -246,6 +298,9 @@ class Encoder:
             host = host.pin_memory()
         if self.mesh is None:
             shares = [(slice(0, rows), self.device)]
+        elif self._rows is not None:  # one even share a dp row
+            shares = list(zip(mesh_lib.split_batch(rows, self.mesh),
+                              self._rows))
         else:  # one even share a dp position, each on its device
             shares = list(zip(mesh_lib.split_batch(rows, self.mesh),
                               self.mesh.devices))
@@ -253,9 +308,14 @@ class Encoder:
                              pin_memory=cuda)
         events = []
         with torch.inference_mode():
-            for rows_of, dev in shares:
-                out = self._images(host[rows_of].to(dev, non_blocking=cuda),
-                                   self._params_on[dev])
+            for rows_of, where in shares:
+                if isinstance(where, Group):
+                    out = self._tp_images(where, host[rows_of])
+                    dev = where.devices[0]
+                else:
+                    dev = where
+                    out = self._images(host[rows_of].to(
+                        dev, non_blocking=cuda), self._params_on[dev])
                 result[rows_of].copy_(out, non_blocking=cuda)
                 if cuda:
                     events.append(torch.cuda.Event())
@@ -277,10 +337,18 @@ class Encoder:
         if pixels.ndim == 3:
             pixels = pixels[None]
         with torch.inference_mode():
-            out = model_lib.encode_image(
-                self.params, self.cfg,
-                torch.from_numpy(pixels).to(self.device, self.dtype),
-                normalize=True, dtype=self.dtype, attn_impl=self.attn_impl)
+            if self._rows is not None:
+                batches, trees = self._on_row(self._rows[0],
+                                              torch.from_numpy(pixels))
+                out = tensor_lib.encode_image(
+                    trees, self.cfg, batches, self._rows[0], normalize=True,
+                    dtype=self.dtype)[0]
+            else:
+                out = model_lib.encode_image(
+                    self.params, self.cfg,
+                    torch.from_numpy(pixels).to(self.device, self.dtype),
+                    normalize=True, dtype=self.dtype,
+                    attn_impl=self.attn_impl)
             return out.float().cpu().numpy()
 
     def encode_texts(self, texts) -> np.ndarray:
@@ -300,10 +368,18 @@ class Encoder:
         n = ids.shape[0]
         ids = _pad_rows(ids, _pick_bucket(n, _TEXT_BUCKETS))
         with torch.inference_mode():
-            # the 77-token text tower always takes "xla", as in clipx
-            out = model_lib.encode_text(
-                self.params, self.cfg, torch.from_numpy(ids).to(self.device),
-                normalize=True, dtype=self.dtype, attn_impl="xla")
+            if self._rows is not None:
+                batches, trees = self._on_row(self._rows[0],
+                                              torch.from_numpy(ids))
+                out = tensor_lib.encode_text(
+                    trees, self.cfg, batches, self._rows[0], normalize=True,
+                    dtype=self.dtype)[0]
+            else:
+                # the 77-token text tower always takes "xla", as in clipx
+                out = model_lib.encode_text(
+                    self.params, self.cfg,
+                    torch.from_numpy(ids).to(self.device), normalize=True,
+                    dtype=self.dtype, attn_impl="xla")
             return out[:n].float().cpu().numpy()
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:

@@ -1,9 +1,10 @@
-"""CLIP contrastive training on one device (PyTorch).
+"""CLIP contrastive training on one device or a dp x tp mesh (PyTorch).
 
-Counterpart of the single-device parts of ``clipx/train.py``: the symmetric
-InfoNCE loss, clipx's optimizer chain, the train state and the train step.
-clipx's dp x tp step (``make_sharded_train_step``) belongs to the
-multi-device port.
+Counterpart of ``clipx/train.py``: the symmetric InfoNCE loss, clipx's
+optimizer chain, the train state, the single-device train step and the
+sharded one (``make_sharded_train_step``: the batch split over ``dp``, the
+ViT params over ``tp`` by ``parallel/mesh.py``'s specs, the forward of
+``parallel/tensor.py``).
 
 Loss: ``(ce(logits_per_image) + ce(logits_per_text)) / 2`` over
 ``scale * img @ txt.T`` with labels on the diagonal, ``scale =
@@ -27,11 +28,25 @@ clipx's it takes ``attn_impl="plain"``, which keeps every fused kernel off
 the path: the kernels have no backward, and their wrappers refuse an input
 that requires grad (``ops._launch.refuse_grad``).
 
+The sharded step computes clipx's loss over the *global* batch: each dp
+row encodes its share over its tp positions, the embeddings are gathered
+over dp (the global negatives), and every position computes the same (B,
+B) loss; each collective's backward is the one that keeps the gradient of
+that one loss (``parallel/distributed.py``). Each position's gradient is
+then summed over its dp column in mesh order, the global norm counts each
+sharded leaf's slices once and each replicated leaf once, and AdamW
+updates every distinct (device, tp column) tree with the same numbers, so
+replicas stay bitwise equal. Like clipx's it keeps every kernel off the
+path (plain attention). The ResNet towers ignore ``tp``: their params are
+replicated and only the batch is split.
+
 Checkpoints: clipx writes an orbax directory; the port writes one ``.npz``
 file (numpy arrays only, nothing pickled) holding the params, both Adam
 moments, the optimizer's count and the step, atomically (a temporary file,
 then ``os.replace``). Reading clipx's orbax directory needs JAX, so it is
-refused with ``CheckpointFormatError``.
+refused with ``CheckpointFormatError``. A sharded state is gathered whole
+first (``unshard_state``), in clipx's layout, and written by process 0
+while the others wait.
 """
 
 from __future__ import annotations
@@ -43,11 +58,15 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from clipx_torch.config import CLIPConfig
 from clipx_torch.models import clip as model_lib
 from clipx_torch.models import convert
+from clipx_torch.parallel import distributed as dist_lib
+from clipx_torch.parallel import mesh as mesh_lib
+from clipx_torch.parallel import tensor as tensor_lib
 from clipx_torch.runtime.device import full_f32, resolve_device
 
 Params = Dict[str, Any]
@@ -90,8 +109,13 @@ def contrastive_loss(params: Params, cfg: CLIPConfig, pixels: torch.Tensor,
     txt = model_lib.encode_text(params, cfg, token_ids, normalize=True,
                                 dtype=dtype, remat=remat,
                                 attn_impl=attn_impl)
-    scale = torch.exp(torch.clamp(params["logit_scale"].float(),
-                                  max=LOGIT_SCALE_MAX))
+    return _clip_loss(img, txt, params["logit_scale"])
+
+
+def _clip_loss(img: torch.Tensor, txt: torch.Tensor,
+               logit_scale: torch.Tensor):
+    """``contrastive_loss`` from the normalized embeddings."""
+    scale = torch.exp(torch.clamp(logit_scale.float(), max=LOGIT_SCALE_MAX))
     logits = scale * img @ txt.T                      # (B, B)
     labels = torch.arange(logits.shape[0], device=logits.device)
     li = F.cross_entropy(logits, labels, reduction="none")
@@ -149,13 +173,16 @@ class AdamW:
                           tree_map(torch.zeros_like, params))
 
     @torch.no_grad()
-    def clip(self, grads: List[torch.Tensor]) -> torch.Tensor:
+    def clip(self, grads: List[torch.Tensor],
+             norm: Optional[torch.Tensor] = None) -> torch.Tensor:
         """optax.clip_by_global_norm in place; returns the global norm,
         from each leaf's ``square().sum()``: a pairwise sum on the CPU,
         where PyTorch's f32 ``vector_norm`` and ``_foreach_norm`` add in
         order and come out ~1e-3 low at 28 M elements (a ViT-B/32 MLP
-        stack)."""
-        norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+        stack). A given ``norm`` (the sharded step's, over every shard) is
+        used as it is."""
+        if norm is None:
+            norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
         keep = norm < self.max_norm
         one = torch.ones_like(norm)
         torch._foreach_div_(grads, torch.where(keep, one, norm))
@@ -165,13 +192,15 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: List[torch.Tensor], state: AdamWState,
-               params: Params) -> Tuple[AdamWState, torch.Tensor]:
+               params: Params, norm: Optional[torch.Tensor] = None
+               ) -> Tuple[AdamWState, torch.Tensor]:
         """Apply one update to ``params`` (in place) from ``grads`` (the
-        leaves' gradients in ``tree_leaves`` order, clipped in place).
-        Returns the new state and the global norm before the clip."""
+        leaves' gradients in ``tree_leaves`` order, clipped in place by
+        ``norm``, or by their own global norm). Returns the new state and
+        the global norm before the clip."""
         p = tree_leaves(params)
         mu, nu = tree_leaves(state.mu), tree_leaves(state.nu)
-        norm = self.clip(grads)
+        norm = self.clip(grads, norm)
         b1, b2 = self.b1, self.b2
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, grads, alpha=1.0 - b1)
@@ -266,6 +295,248 @@ def make_train_step(cfg: CLIPConfig, tx: AdamW, *,
 
 
 # ---------------------------------------------------------------------------
+# the sharded step (dp x tp)
+# ---------------------------------------------------------------------------
+
+def _sharded_flags(tree: Params, specs: Optional[Params], tp: Optional[str]
+                   ) -> List[bool]:
+    """For each leaf of ``tree`` in ``tree_leaves`` order: is it sharded
+    over ``tp``."""
+    out = []
+    for key, val in tree.items():
+        spec = specs[key] if specs is not None else None
+        if isinstance(val, dict):
+            out.extend(_sharded_flags(val, spec, tp))
+        else:
+            out.append(spec is not None and tp in spec)
+    return out
+
+
+def _column_sum(group: dist_lib.Group, parts: List[List[torch.Tensor]]
+                ) -> List[torch.Tensor]:
+    """The leaves' gradients summed over a dp column: this process's
+    positions in mesh order on the first local device, then one
+    ``all_reduce`` of them all, flattened, over the column's processes."""
+    dev = group.devices[0]
+    acc = [g.to(dev) for g in parts[0]]
+    for other in parts[1:]:
+        torch._foreach_add_(acc, [g.to(dev) for g in other])
+    if group.pg is not None:
+        flat = torch.cat([g.reshape(-1) for g in acc])
+        dist.all_reduce(flat, group=group.pg)
+        start = 0
+        for g in acc:
+            g.copy_(flat[start: start + g.numel()].view(g.shape))
+            start += g.numel()
+    return acc
+
+
+def make_sharded_train_step(cfg: CLIPConfig, tx: AdamW, mesh, *,
+                            dp: str = "dp", tp: Optional[str] = "tp",
+                            dtype: torch.dtype = torch.float32,
+                            remat: bool = False):
+    """clipx's ``make_sharded_train_step`` over ``mesh`` (a "dp" axis and
+    optionally a "tp" one; positions may repeat a device, and may lie in
+    several processes). Returns ``(step, shard_state, split_batch)``:
+
+    - ``shard_state(state)``: a whole ``TrainState`` -> the sharded one
+      (params, both moments sliced like their params, the count and the
+      step kept, so ``--resume`` keeps its place in the schedule);
+    - ``split_batch(pixels, ids)``: this process's rows of the global batch
+      (those of the dp rows it holds, in order) -> one (pixels, ids) pair a
+      local position, each on its device;
+    - ``step(state, pixels, ids)`` with ``split_batch``'s lists -> (state,
+      metrics), the params and moments updated in place; the metrics
+      (``contrastive_loss``'s and ``grad_norm``) those of the first local
+      position, equal on every one.
+
+    ResNet towers have no TP rules (RN50 fits a card): their params are
+    replicated and ``tp`` is ignored, as in clipx."""
+    if dp not in mesh.axis_names or set(mesh.axis_names) - {dp, tp}:
+        raise ValueError(f"the train mesh has a {dp!r} axis and at most a "
+                         f"{tp!r} one, got {mesh}")
+    if getattr(cfg.vision, "tower", "vit") == "resnet":
+        tp = None
+    if tp is not None and tp not in mesh.axis_names:
+        tp = None
+    local = mesh.local_positions()
+    # the collectives' groups, made in the same order on every process
+    rows = ([dist_lib.Group(mesh, r) for r in mesh.groups(tp)] if tp
+            else [dist_lib.Group(mesh, [p]) for p in range(mesh.size)])
+    cols = [dist_lib.Group(mesh, c) for c in mesh.groups(dp)]
+    world = dist_lib.Group(mesh, range(mesh.size))
+    rows = [g for g in rows if g.local]
+    cols = [g for g in cols if g.local]
+    column_of = {p: g for g in cols for p in g.local}
+    owner: dict = {}   # tp column -> the first position that holds it
+    for pos in range(mesh.size):
+        owner.setdefault(mesh.coord(pos, tp) if tp else 0, pos)
+
+    def shard_state(state: TrainState) -> TrainState:
+        params = mesh_lib.shard_params(state.params, mesh, tp, cfg=cfg)
+        for _, tree in params.placements():
+            for leaf in tree_leaves(tree):
+                leaf.requires_grad_(True)
+        opt = state.opt_state
+        return TrainState(params, AdamWState(
+            opt.count, mesh_lib.shard_params(opt.mu, mesh, tp),
+            mesh_lib.shard_params(opt.nu, mesh, tp)), state.step)
+
+    def split_batch(pixels, ids):
+        pixels, ids = torch.as_tensor(pixels), torch.as_tensor(ids)
+        held = sorted({mesh.coord(p, dp) for p in local})
+        if pixels.shape[0] % len(held):
+            raise ValueError(f"batch {pixels.shape[0]} does not split over "
+                             f"{len(held)} 'dp' rows")
+        if pixels.device.type == "cpu" and any(
+                mesh.devices[p].type == "cuda" for p in local):
+            pixels, ids = pixels.pin_memory(), ids.pin_memory()
+        n = pixels.shape[0] // len(held)
+        placed: dict = {}
+        out_px, out_ids = [], []
+        for p in local:
+            k, dev = held.index(mesh.coord(p, dp)), mesh.devices[p]
+            if (k, dev) not in placed:
+                rows_of = slice(k * n, (k + 1) * n)
+                placed[k, dev] = (
+                    pixels[rows_of].to(dev, non_blocking=True),
+                    ids[rows_of].to(dev, non_blocking=True))
+            out_px.append(placed[k, dev][0])
+            out_ids.append(placed[k, dev][1])
+        return out_px, out_ids
+
+    def embed(trees, pixels, ids, group):
+        if tp is None:
+            return ([model_lib.encode_image(t, cfg, x, normalize=True,
+                                            dtype=dtype, remat=remat,
+                                            attn_impl="plain")
+                     for t, x in zip(trees, pixels)],
+                    [model_lib.encode_text(t, cfg, i, normalize=True,
+                                           dtype=dtype, remat=remat,
+                                           attn_impl="plain")
+                     for t, i in zip(trees, ids)])
+        kw = dict(normalize=True, dtype=dtype, remat=remat)
+        return (tensor_lib.encode_image(trees, cfg, pixels, group, **kw),
+                tensor_lib.encode_text(trees, cfg, ids, group, **kw))
+
+    def step(state: TrainState, pixels, ids):
+        params = state.params
+        at = {p: i for i, p in enumerate(local)}
+        # one alias of its tree a position: each position's gradient comes
+        # back on its own, to be summed over the column in mesh order
+        alias = {p: tree_map(lambda t: t.view_as(t), params.trees[p])
+                 for p in local}
+        with full_f32(mesh.devices[local[0]]):  # one device type a mesh
+            img, txt = {}, {}
+            for g in rows:
+                i, t = embed([alias[p] for p in g.local],
+                             [pixels[at[p]] for p in g.local],
+                             [ids[at[p]] for p in g.local], g)
+                img.update(zip(g.local, i))
+                txt.update(zip(g.local, t))
+            losses, metrics = [], None
+            for g in cols:
+                gi = dist_lib.gather([img[p] for p in g.local], g, 0)
+                gt = dist_lib.gather([txt[p] for p in g.local], g, 0)
+                for p, a, b in zip(g.local, gi, gt):
+                    # every position computes the whole loss, so the one
+                    # leaf used only after the gather takes its gradient
+                    # from dp row 0 alone: the column's sum is then exact
+                    scale = alias[p]["logit_scale"]
+                    if mesh.coord(p, dp):
+                        scale = scale.detach()
+                    loss, m = _clip_loss(a, b, scale)
+                    losses.append(loss)
+                    if p == local[0]:
+                        metrics = m
+            inputs = [leaf for p in local for leaf in tree_leaves(alias[p])]
+            grads = [torch.zeros_like(x) if g is None else g
+                     for x, g in zip(inputs, torch.autograd.grad(
+                         losses, inputs, allow_unused=True))]
+            del alias, img, txt, losses
+            count = len(inputs) // len(local)
+            per_pos = {p: list(grads[at[p] * count: (at[p] + 1) * count])
+                       for p in local}
+            del grads
+            with torch.no_grad():
+                norm, totals = _reduce_and_norm(params, per_pos)
+                opt = state.opt_state
+                for pos, tree in params.placements():
+                    dev = mesh.devices[pos]
+                    tx.update(totals[pos], AdamWState(
+                        opt.count, opt.mu.trees[pos], opt.nu.trees[pos]),
+                        tree, norm=norm.to(dev))
+        metrics["grad_norm"] = norm
+        return TrainState(params, AdamWState(
+            state.opt_state.count + 1, state.opt_state.mu,
+            state.opt_state.nu), state.step + 1), metrics
+
+    def _reduce_and_norm(params, per_pos):
+        """Each placement's gradient (its column's sum, a tensor of its
+        own) and the global norm: the squared sums of every column's
+        gradient, from the process holding the column's first position,
+        summed over the processes (each entry comes from one process, so
+        every one gets the same bits), then each sharded leaf's columns
+        summed and each replicated leaf counted once."""
+        sums = {}
+        first = params.placements()
+        flags = _sharded_flags(first[0][1], params.specs, params.tp)
+        dev0 = mesh.devices[local[0]]
+        sq = torch.zeros((len(flags), params.tp_size), device=dev0)
+        for g in cols:
+            sums[id(g)] = _column_sum(g, [per_pos[p] for p in g.local])
+            j = params.column(g.positions[0])
+            if g.local[0] == g.positions[0] == owner[j]:
+                sq[:, j] = torch.stack([t.square().sum()
+                                        for t in sums[id(g)]]).to(dev0)
+        if world.pg is not None:
+            dist.all_reduce(sq, group=world.pg)
+        mask = torch.tensor(flags, device=dev0)
+        norm = torch.where(mask, sq.sum(dim=1), sq[:, 0]).sum().sqrt()
+        totals, used = {}, set()
+        for pos, _ in first:
+            total = sums[id(column_of[pos])]
+            dev = mesh.devices[pos]
+            fresh = id(column_of[pos]) not in used and total[0].device == dev
+            used.add(id(column_of[pos]))
+            totals[pos] = (total if fresh else
+                           [t.to(dev, copy=True) for t in total])
+        return norm, totals
+
+    return step, shard_state, split_batch
+
+
+def unshard_state(state: TrainState) -> TrainState:
+    """The inverse of ``shard_state``: every leaf of the params and both
+    moments whole, as f32 tensors on the CPU in clipx's layout (a template
+    for ``restore_train_state``, or what ``save_train_state`` writes). Over
+    several processes every process must call it."""
+    opt = state.opt_state
+    return TrainState(state.params.gather(), AdamWState(
+        opt.count, opt.mu.gather(), opt.nu.gather()), state.step)
+
+
+def _written_by_process_0(mesh, write) -> None:
+    """``write()`` on process 0 of ``mesh``'s group; every process waits
+    for it."""
+    if mesh.rank == 0:
+        write()
+    if mesh.multi_process:
+        dist.barrier()
+
+
+def save_params(path: str, params) -> None:
+    """``convert.save_params`` of a whole tree, or of a sharded one
+    gathered whole (every process calls it, process 0 writes)."""
+    if isinstance(params, mesh_lib.Sharded):
+        full = params.gather()
+        _written_by_process_0(params.mesh,
+                              lambda: convert.save_params(path, full))
+        return
+    convert.save_params(path, params)
+
+
+# ---------------------------------------------------------------------------
 # checkpoints
 # ---------------------------------------------------------------------------
 
@@ -275,7 +546,14 @@ class CheckpointFormatError(ValueError):
 
 def save_train_state(path: str, state: TrainState) -> None:
     """Write ``state`` to ``path`` as one ``.npz`` (``CKPT_FORMAT``), through
-    a temporary file that replaces ``path`` once it is complete on disk."""
+    a temporary file that replaces ``path`` once it is complete on disk. A
+    sharded state is gathered whole first: every process calls this, and
+    process 0 writes."""
+    if isinstance(state.params, mesh_lib.Sharded):
+        full = unshard_state(state)
+        _written_by_process_0(state.params.mesh,
+                              lambda: save_train_state(path, full))
+        return
     flat = {"format": np.array(CKPT_FORMAT),
             "step": np.array(state.step, np.int64),
             "count": np.array(state.opt_state.count, np.int64)}

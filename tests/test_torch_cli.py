@@ -253,6 +253,7 @@ def test_port_imports_neither_jax_nor_clipx():
     assert {"clipx_torch/models/resnet.py",
             "clipx_torch/parallel/mesh.py", "clipx_torch/parallel/mips.py",
             "clipx_torch/parallel/distributed.py",
+            "clipx_torch/parallel/tensor.py",
             "tests/_torch_dist_worker.py",
             "clipx_torch/tools/eval_quality.py", "clipx_torch/train.py",
             "clipx_torch/cli/train.py", "clipx_torch/utils/env.py",

@@ -1465,3 +1465,84 @@ def test_dp_encode_on_two_card_positions(cuda_device):
     out = dp.encode_images(images)
     assert tps.LAUNCHES["fused_attn_block"] == 2 * cfg.vision.layers
     np.testing.assert_allclose(out, ref, atol=2e-3, rtol=0)
+
+
+# -- tensor parallelism (clipx_torch/parallel/tensor.py) ----------------------
+
+def _tp_mesh(device):
+    from clipx_torch.parallel.mesh import make_mesh
+
+    return make_mesh({"dp": 2, "tp": 2}, [device] * 4)
+
+
+def test_tp_encode_on_four_card_positions(cuda_device):
+    """The dp 2 x tp 2 Encoder over cuda:0 listed 4 times (bf16, plain
+    attention: no kernel of the port) against the single-device encode on
+    the card and the CPU's f32 encode of the same weights: cosine >= 0.99
+    (chip_smoke.py's COS_MIN), texts too."""
+    cfg = _d64()
+    params = tconvert.init_params(cfg, 0)
+    images = np.random.default_rng(4).integers(0, 256, (12, 64, 64, 3),
+                                               dtype=np.uint8)
+    texts = ["a red square", "blue sky over a city"]
+    tp = Encoder(cfg, params, mesh=_tp_mesh(cuda_device), tp="tp",
+                 attn_impl="pallas")
+    assert tp.attn_impl == "plain"
+    before = tps.launch_counts()
+    out, txt = tp.encode_images(images), tp.encode_texts(texts)
+    assert tps.launch_counts() == before
+    for enc in (Encoder(cfg, params, device=cuda_device),
+                Encoder(cfg, params, device="cpu")):
+        for a, b in ((out, enc.encode_images(images)),
+                     (txt, enc.encode_texts(texts))):
+            assert a.shape == b.shape
+            assert float((a * b).sum(axis=1).min()) >= 0.99
+
+
+def test_dp_tp_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """Three dp 2 x tp 2 steps of tiny-test over cuda:0 listed 4 times
+    against the same steps over 4 CPU positions: the losses within
+    TRAIN_LOSS_RTOL, every parameter's update within TRAIN_STEP_ATOL, no
+    kernel of the port launched, and the replicated leaves of the two tp
+    columns bitwise equal on the card."""
+    from clipx_torch import train as ttrain
+    from clipx_torch.parallel.mesh import make_mesh
+    from clipx_torch.text.tokenizer import ClipTokenizer
+
+    cfg = tcfg.get_config("tiny-test")
+    tree = tconvert.init_params(cfg, 0)
+    rng = np.random.default_rng(1)
+    ids = ClipTokenizer()([f"caption {i}" for i in range(8)],
+                          context_length=cfg.text.context_length)
+    batches = [(rng.standard_normal((8, 32, 32, 3)).astype(np.float32), ids)
+               for _ in range(3)]
+    runs = []
+    for mesh in (_tp_mesh(cuda_device),
+                 make_mesh({"dp": 2, "tp": 2}, [torch.device("cpu")] * 4)):
+        tx = ttrain.make_optimizer(TRAIN_LR, 0.02, 1, 3)
+        state, _ = ttrain.create_train_state(cfg, tx=tx, device="cpu",
+                                             params=tree)
+        step, shard_state, split = ttrain.make_sharded_train_step(
+            cfg, tx, mesh)
+        state = shard_state(state)
+        before = tps.launch_counts()
+        losses = []
+        for px, i in batches:
+            state, m = step(state, *split(px, i))
+            losses.append(float(m["loss"]))
+        assert tps.launch_counts() == before
+        runs.append((state, losses))
+    (card, cl), (cpu, pl) = runs
+    np.testing.assert_allclose(cl, pl, rtol=TRAIN_LOSS_RTOL)
+    (_, t0), (_, t1) = card.params.placements()
+    flags = ttrain._sharded_flags(t0, card.params.specs, card.params.tp)
+    for a, b, sharded in zip(ttrain.tree_leaves(t0), ttrain.tree_leaves(t1),
+                             flags):
+        if not sharded:
+            assert torch.equal(a, b)
+    init = tconvert._flatten(tree)
+    got = tconvert._flatten(card.params.gather())
+    want = tconvert._flatten(cpu.params.gather())
+    for key in init:
+        np.testing.assert_allclose(got[key] - init[key], want[key] - init[key],
+                                   rtol=0, atol=TRAIN_STEP_ATOL, err_msg=key)

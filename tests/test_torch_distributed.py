@@ -1,9 +1,12 @@
-"""The port's multi-process sharded search: two real processes, one global
-mesh over a loopback gloo process group (``clipx_torch.parallel.
-distributed``). The counterpart of ``tests/test_distributed.py``'s search
-half: cross-process initialization and a corpus-sharded search spanning
-both processes' shards (4 CPU shards each). Its train half (the dp x tp
-train step) comes with the port's tensor parallelism.
+"""The port's multi-process runs: two real processes, one global mesh over
+a loopback gloo process group (``clipx_torch.parallel.distributed``). The
+counterpart of ``tests/test_distributed.py``: cross-process
+initialization, a corpus-sharded search spanning both processes' shards (4
+CPU shards each), and the dp x tp train step whose gradients couple the
+processes (``tests/_torch_dist_worker.py``: dp 4 x tp 2 with 4 positions a
+process, dp 1 x tp 2 with tp across the processes, and the ResNet tower),
+each held to the same steps in one process within
+``tests/test_torch_train.py``'s ``STEP_ATOL``.
 """
 
 import os
@@ -13,9 +16,11 @@ import sys
 
 _WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "_torch_dist_worker.py")
-# per process: a worker imports torch and the port, joins the group and
-# searches in a few seconds
-_TIMEOUT = 25
+from test_torch_train import STEP_ATOL
+
+# per process: a worker imports torch and the port, joins the group,
+# searches and trains in several seconds
+_TIMEOUT = 45
 
 
 def _free_port() -> int:
@@ -29,7 +34,7 @@ def _run_pair():
     (procs, outs)."""
     port = _free_port()
     procs = [subprocess.Popen(
-        [sys.executable, _WORKER, str(pid), str(port)],
+        [sys.executable, _WORKER, str(pid), str(port), repr(STEP_ATOL)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for pid in (0, 1)]
     outs = []
@@ -59,5 +64,7 @@ def test_two_process_sharded_search():
     results = [line for out in outs for line in out.splitlines()
                if line.startswith("RESULT ")]
     assert len(results) == 2, outs
-    # the merged candidates are gathered to every process: one answer
+    # the merged candidates are gathered to every process: one answer; the
+    # losses are the global batch's, and the trees' digests gathered
     assert results[0] == results[1], results
+    assert "dp4xtp2" in results[0] and "dp1xtp2" in results[0], results

@@ -426,9 +426,10 @@ def test_dp_encode_shares_are_even(tiny_params, monkeypatch):
 
 
 def test_make_mesh_validates_like_clipx():
-    """The size check keeps clipx's message; a tp axis and the Encoder's
-    tp= name slice 14."""
+    """The size check keeps clipx's message; a tp axis builds a mesh and the
+    Encoder's tp= a TP encoder over it."""
     from clipx_torch import config as tcfg
+    from clipx_torch.models import convert as tconvert
     from clipx_torch.runtime.encoder import Encoder as TEncoder
 
     with pytest.raises(ValueError) as ref:
@@ -436,10 +437,12 @@ def test_make_mesh_validates_like_clipx():
     with pytest.raises(ValueError) as ours:
         tmesh.make_mesh({"dp": 3}, [CPU] * 8)
     assert str(ours.value) == str(ref.value)
-    with pytest.raises(ValueError, match="slice 14"):
-        tmesh.make_mesh({"dp": 4, "tp": 2}, [CPU] * 8)
-    with pytest.raises(ValueError, match="slice 14"):
-        TEncoder(tcfg.get_config("tiny-test"), {}, device="cpu", tp="tp")
+    tp_mesh = tmesh.make_mesh({"dp": 4, "tp": 2}, [CPU] * 8)
+    assert tp_mesh.shape == {"dp": 4, "tp": 2} and tp_mesh.size == 8
+    cfg = tcfg.get_config("tiny-test")
+    enc = TEncoder(cfg, tconvert.init_params(cfg, 0), mesh=tp_mesh,
+                   tp="tp")
+    assert enc.attn_impl == "plain" and enc.params.tp == "tp"
     with pytest.raises(ValueError, match="'shard' axis"):
         tmips.ShardedVectorIndex(np.zeros((4, 8), np.float32),
                                  tmesh.make_mesh({"dp": 2}, [CPU] * 2))

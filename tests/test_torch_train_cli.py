@@ -2,7 +2,7 @@
 tests/test_train_cli.py's scenarios on synthetic caption pairs at
 tiny-test, then the port against clipx's CLI from one --init-checkpoint on
 one pair folder (step lines, final params), params.npz across the two
-packages, clipx's orbax checkpoint refused, and the multi-device refusal.
+packages, clipx's orbax checkpoint refused, and clipx's dp x tp meshes.
 """
 
 import os
@@ -10,6 +10,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from clipx.cli import train as jtrain_cli
@@ -128,15 +129,31 @@ def test_train_empty_dir(tmp_path, capsys):
     assert "no (image, caption) pairs" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flags", [["--dp", "4", "--tp", "2"],
-                                   ["--dp", "2"], ["--tp", "2"]])
-def test_train_dp_tp_mesh_is_refused(pair_dir, flags):
-    """clipx's dp x tp mesh needs slice 14 of the port (its sharded search
-    and dp encode came before it): more than one device exits with a
-    message naming it; --dp 0|1 --tp 1 runs."""
-    with pytest.raises(SystemExit,
-                       match="not yet ported.*slice 14.*Multi-device"):
-        train_cli.main([pair_dir, *TINY, "--steps", "2", *flags])
+# each flag set's mesh line over 8 positions
+DP_TP_MESH = {("--dp", "4", "--tp", "2"): "dp=4 tp=2 on 8",
+              ("--dp", "2"): "dp=2 tp=1 on 2",
+              ("--tp", "2"): "dp=4 tp=2 on 8"}
+
+
+@pytest.mark.parametrize("flags", [list(f) for f in DP_TP_MESH])
+def test_train_dp_tp_mesh_is_refused(pair_dir, flags, monkeypatch, capsys):
+    """clipx's test_train_dp_tp_mesh on the port: over 8 positions (the one
+    CPU listed 8 times, as a test-only device list) each flag set trains
+    two steps at batch 8 on its mesh and prints clipx's mesh line; over the
+    one visible CPU the same flags ask for more devices than there are and
+    are refused with clipx's size message."""
+    argv = [pair_dir, *TINY, "--steps", "2", "--batch-size", "8",
+            "--log-every", "1", *flags]
+    with pytest.raises(SystemExit, match=r"error: mesh \{.*\} needs \d "
+                                         r"devices, have 1"):
+        train_cli.main(argv)
+    capsys.readouterr()
+    monkeypatch.setattr(train_cli.mesh_lib, "visible_devices",
+                        lambda kind="cuda": [torch.device("cpu")] * 8)
+    assert train_cli.main(argv) == 0
+    out = capsys.readouterr().out
+    assert f"mesh: {DP_TP_MESH[tuple(flags)]} device(s)" in out
+    assert "step 2/2" in out
 
 
 def test_train_cuda_without_a_gpu_raises(pair_dir):
