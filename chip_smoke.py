@@ -35,10 +35,16 @@ these phases, printing one JSON line per phase:
               images.index writer and back; exact and int8-seg ("quant")
               search at 1,000,000 x 512 + those rows, k=50, 16 queries.
 6. coded    — the same corpus as images.index plus images.index.codes for
-              int8, int4 and pq (encode seconds, bytes), each loaded with
+              int8 and int4 (encode seconds, bytes), each loaded with
               the sidecar and codes-only, and bf16: search p50, recall@50
               and top-1 against phase 5's exact ids; then a pq capacity
               scan over 2^24 seeded random codes (the chunked scan).
+              Beside it run, in threads: the pq tier's encode, phase ivf's
+              residual pq build, phase cli and phase quality (in a process
+              of its own); cli and quality end before it times its first
+              search, the two encodes before phase coded_pq.
+   coded_pq — (after phase resnet) the pq tier of phase coded, once its
+              encode has ended: the same loads, searches and checks.
 7. profile  — torch.profiler over two 128-image encodes: device time by
               kernel name, and the card's busy share of the host's wall
               per batch without the profiler (and with it).
@@ -55,7 +61,8 @@ these phases, printing one JSON line per phase:
               (quantized, and unquantized, whose nprobe-100 ids must be
               phase 5's exact ids), and int8, int4 and non-residual pq
               installed from phase 6's codes files; residual pq (the
-              default) on the last 131,072 rows. B11 once per query and
+              default) on the last 131,072 rows, built beside phases
+              coded to resnet. B11 once per query and
               probed chunk, its device ms per search, pq_scan_scores_plain
               refused; B11 bitwise against plain on probed chunks, beside
               the flat scan's device ms.
@@ -112,7 +119,9 @@ these phases, printing one JSON line per phase:
               CPU's f32 encode; a profile of one batch (device ms by kernel
               class, busy share); RN50's text p50; RN101, RN50x4, RN50x16
               and RN50x64 on 8 images each (batch ms), against the CPU on 2.
-   quality  — the port's quality tool (clipx_torch/tools/eval_quality.py)
+   quality  — (beside phase coded, in a process of its own: python3
+              chip_smoke.py --phase quality, its launches counted there)
+              the port's quality tool (clipx_torch/tools/eval_quality.py)
               on tests/test_quality_gate.py's corpus (10,000 x 512, k = 50)
               held to that test's floors, and its drift leg over 12 PNGs
               that build_index indexed at ViT-B/32 on the card (cv2 >=
@@ -155,7 +164,8 @@ these phases, printing one JSON line per phase:
               it; the direct build booted codes-only (self-match at rank 0
               and recall@50 over 1,024 queries in
               tests/test_direct_build.py's bands).
-9. cli      — build_index and a scripted query_index REPL at ViT-B/32 on a
+9. cli      — (beside phase coded) build_index and a scripted
+              query_index REPL at ViT-B/32 on a
               few fixture images, then the same with --corpus-dtype pq,
               with --corpus-dtype pq --search-mode ivf (and a restart that
               loads its codes and .ivf),
@@ -167,8 +177,12 @@ these phases, printing one JSON line per phase:
               all seven legs at once, each in a work dir of its own (only
               when PIL or cv2 imports).
 
-Phases 3-6 are the main path of ViT-B/32 (which must launch none of the
-opt-in kernels B5-B7), phase preprocess the canvas path (B1 and B2 only),
+They run in this order: env, kernels, encode, text, search, coded (cli
+and quality beside it), profile, preprocess, int8, fused, long, resnet,
+coded_pq, ivf, serve, sharded, train, tp, tools. Phases 3-6 are the main
+path of ViT-B/32 (which must launch none of the opt-in kernels B5-B7),
+phase coded_pq the pq tier's (B11 only), phase preprocess the canvas path
+(B1 and B2 only),
 phase ivf the IVF path (B11 only), phase serve the HTTP service's path
 (B1, B2 and B11 only; each of its parts counted on its own), phase sharded
 the sharded path (B1 and B11 only), phases int8
@@ -177,9 +191,16 @@ the ResNet towers' (no kernel), phase quality the gate's (B1, B2 and B11),
 phase train training's (no kernel: clipx's train step reaches none),
 phase tp the tensor-parallel paths' (no kernel: clipx's TP encode and
 sharded step take plain attention) and phase tools the tools' (B11 only):
-every launch count is set to 0 just before each and read just after it,
-and every kernel must have been launched on one of them. Then one line
-gives each phase's seconds, one lists every kernel ({"kernels": [...]})
+every launch count is set to 0 just before each and read just after it
+(phase quality's in its own process), and every kernel must have been
+launched on one of them. The host's OPQ training (the pq tier's encode,
+phase ivf's residual build) takes minutes and times nothing on the card,
+so it runs in two threads beside the phases from coded to resnet, and the
+phases that start processes of their own (cli, quality) beside phase
+coded's int8 and int4 encodes, with numpy's BLAS on one thread a process
+(OPENBLAS_NUM_THREADS, unless set). Then one
+line
+gives each phase's seconds (cli's and quality's: each one's own wall), one lists every kernel ({"kernels": [...]})
 with the sum of those counts, and one the card's name and power limit;
 the last line is
 {"ok": true, "device": {...}}. Any failed check raises, so the run exits
@@ -199,10 +220,21 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
-import numpy as np
-import torch
+# numpy's OpenBLAS keeps one thread a core, and they spin between calls.
+# The host work that runs beside the phases (two OPQ trainings in threads,
+# the quality and CLI processes) then starves itself instead of
+# overlapping, while the OPQ training, small GEMMs and element-wise numpy,
+# runs as fast on one BLAS thread as on eight. So unless the caller chose,
+# this process and the ones it starts run BLAS on one thread each (before
+# numpy is imported: OpenBLAS reads it once)
+os.environ.setdefault("OPENBLAS_NUM_THREADS", "1")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -225,8 +257,16 @@ ATOL_F32, RTOL_F32 = 3e-2, 3e-2
 VIT_B32_HEADS = 12
 
 
+_EMIT_LOCK = threading.Lock()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line on stdout, whole even when a thread beside the phases
+    prints too."""
+    line = (obj if isinstance(obj, str) else json.dumps(obj)) + "\n"
+    with _EMIT_LOCK:
+        sys.stdout.write(line)
+        sys.stdout.flush()
 
 
 class Failed(RuntimeError):
@@ -267,19 +307,24 @@ RETIRED_KERNELS = ("short_sdpa", "long_sdpa_kernel", "gemm_s8_kernel",
                    "pq_scan_kernel<")
 
 
-def _profiled(fn, iters: int):
+def _profiled(fn, iters: int, host_ops: bool = True):
     """torch.profiler over iters calls of fn: (CUDA time by kernel name in
     ms per call, calls per call of fn, host wall in ms per call). A session
     that records no device kernel at all is repeated, up to PROFILE_TRIES
     sessions, and counted in EMPTY_PROFILES: on the H100 one such session
     came back empty for a kernel that the same code had profiled in earlier
-    runs. A kernel of a retired source (RETIRED_KERNELS) fails the run."""
+    runs. A kernel of a retired source (RETIRED_KERNELS) fails the run.
+    With ``host_ops=False`` the session records CUDA activity only: a dp x
+    tp step launches tens of thousands of host ops, whose records make a
+    CPU-side profile take tens of seconds and inflate the wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
     for attempt in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             for _ in range(iters):
                 fn()
@@ -1549,106 +1594,147 @@ def _search_profile(index, queries, p50_ms: float) -> dict:
                             for name, ms, n in kernels[:4]]}
 
 
-def phase_coded(search: dict, device, keep: str) -> dict:
-    """The coded tiers on phase search's corpus: images.index written, the
-    port's write_codes_file for int8, int4 and pq (dsub 2, trained OPQ),
-    each loaded through load_coded_index with the sidecar present and then
-    codes-only with it deleted; bf16 through build_index_from_vectors.
-    Search p50 of phase search's 16 queries at k = 50 per tier, recall@50
-    and top-1 against its exact ids (no floor). Then a capacity scan: a
-    seeded random-code pq payload of 2^24 rows placed through
-    VectorIndex.from_codes (the chunked scan branch), Q = 1 and 16. The
-    pq deployment (images.index and its codes) stays in ``keep`` for phase
-    tools' load_timing and drop-f32."""
+def _coded_args(search: dict, tier: str):
     import argparse
 
+    return argparse.Namespace(index=os.path.join(search["coded_dir"],
+                                                 f"{tier}.index"),
+                              corpus_dtype=tier, search_mode="auto",
+                              device=search["device"])
+
+
+def _coded_tier(search: dict, tier: str, tiers: dict) -> None:
+    """One coded tier of phase coded: its codes file loaded with the
+    sidecar present (no re-encode), search p50, recall and a profile; then
+    codes-only with the sidecar's link deleted (the same answers), and its
+    payload kept for phases ivf and sharded."""
     from clipx_torch.cli import common
     from clipx_torch.search import codes_io
-    from clipx_torch.search.engine import IndexWriter, corpus_rotation
 
-    exact, queries = search["index"], search["queries"]
-    exact_ids, picks = search["ids"], search["picks"]
-    rows = search["rows"] = exact.vectors()  # phase ivf's corpus too
+    queries, total = search["queries"], search["rows"].shape[0]
+    args = _coded_args(search, tier)
+    codes = codes_io.codes_path(args.index)
+    written = os.stat(codes).st_mtime_ns
+    t0 = time.perf_counter()
+    idx = common.load_coded_index(args)
+    tiers[tier]["load_s"] = time.perf_counter() - t0
+    check(idx is not None and idx.ntotal == total and idx.dtype == tier,
+          f"{tier}: codes file did not load")
+    check(os.stat(codes).st_mtime_ns == written,
+          f"{tier}: the load re-encoded the codes file")
+    D, I, p50 = _search_p50(idx, queries, K)
+    tiers[tier].update(p50_ms=p50, **_tier_checks(
+        tier, D, I, search["ids"], search["picks"], total),
+        **_search_profile(idx, queries, p50))
+    del idx
+    # phase sharded holds its sharded tiers against these
+    search.setdefault("tier_results", {})[tier] = (D, I)
+    os.remove(args.index)
+    t0 = time.perf_counter()
+    idx = common.load_coded_index(args)
+    tiers[tier]["codes_only_load_s"] = time.perf_counter() - t0
+    Dc, Ic = idx.search(queries, K)
+    check(np.array_equal(Ic, I) and np.array_equal(Dc, D),
+          f"{tier}: codes-only boot searches differently")
+    del idx
+    # phase ivf installs these codes into its IVF layout
+    payload = codes_io.load_codes(args.index, tier, rotated=True,
+                                  orphan=True)
+    for key in ("codes", "scales"):
+        if payload[key] is not None:
+            payload[key] = np.array(payload[key])
+    search.setdefault("payloads", {})[tier] = payload
+
+
+def phase_coded(search: dict, device, keep: str, pool, beside=()) -> dict:
+    """The coded tiers on phase search's corpus: images.index written, the
+    port's write_codes_file for int8 and int4, each loaded through
+    load_coded_index with the sidecar present and then codes-only with it
+    deleted; bf16 through build_index_from_vectors. Search p50 of phase
+    search's 16 queries at k = 50 per tier, recall@50 and top-1 against
+    its exact ids (no floor). Then a capacity scan: a seeded random-code pq
+    payload of 2^24 rows placed through VectorIndex.from_codes (the chunked
+    scan branch), Q = 1 and 16.
+
+    The pq tier's encode (dsub 2, trained OPQ: minutes on the host) is
+    submitted to ``pool`` first and runs beside this phase and the ones
+    after it; phase coded_pq loads and searches it. ``beside`` holds the
+    futures of the other work beside this phase (module docstring): this
+    thread encodes int8 and int4 meanwhile and waits for them before it
+    times its first search. Each encode_s is its encode's wall under that
+    sharing of the host."""
+    from clipx_torch.cli import common
+    from clipx_torch.search.engine import IndexWriter
+
+    rows, queries = search["rows"], search["queries"]
     total = rows.shape[0]
-    del exact, search["index"]
+    search.pop("index", None)
     torch.cuda.empty_cache()
-    tiers = {}
-
-    with tempfile.TemporaryDirectory() as tmp:
-        # one index path per tier (an index has one codes file), each a
-        # hard link to the same images.index
-        def path(tier):
-            return os.path.join(tmp, f"{tier}.index")
-
-        def args(tier):
-            return argparse.Namespace(index=path(tier), corpus_dtype=tier,
-                                      search_mode="auto", device=device)
-
-        sidecar = os.path.join(tmp, "images.index")
-        writer = IndexWriter(sidecar, total, DIM)
-        writer.write(rows)
-        writer.close()
-        for tier in CODED_TIERS:
-            os.link(sidecar, path(tier))
-            t0 = time.perf_counter()
-            codes_io.write_codes_file(path(tier), rows, tier,
-                                      rot=corpus_rotation(DIM),
-                                      content_hash=writer.content_hash)
-            tiers[tier] = {"encode_s": time.perf_counter() - t0,
-                           "codes_bytes": os.path.getsize(
-                               codes_io.codes_path(path(tier)))}
-        kept = os.path.join(keep, "images.index")
-        os.link(sidecar, kept)
-        os.link(codes_io.codes_path(path("pq")), codes_io.codes_path(kept))
-        results = {}
-        for tier in CODED_TIERS:
-            written = os.stat(codes_io.codes_path(path(tier))).st_mtime_ns
-            t0 = time.perf_counter()
-            idx = common.load_coded_index(args(tier))
-            tiers[tier]["load_s"] = time.perf_counter() - t0
-            check(idx is not None and idx.ntotal == total
-                  and idx.dtype == tier, f"{tier}: codes file did not load")
-            check(os.stat(codes_io.codes_path(path(tier))).st_mtime_ns
-                  == written, f"{tier}: the load re-encoded the codes file")
-            D, I, p50 = _search_p50(idx, queries, K)
-            tiers[tier].update(p50_ms=p50, **_tier_checks(
-                tier, D, I, exact_ids, picks, total),
-                **_search_profile(idx, queries, p50))
-            results[tier] = (D, I)
-            del idx
-        # phase sharded holds its sharded tiers against these
-        search["tier_results"] = results
-        t0 = time.perf_counter()
-        bf16 = common.build_index_from_vectors(rows, args("bf16"))
-        tiers["bf16"] = {"build_s": time.perf_counter() - t0}
-        D, I, p50 = _search_p50(bf16, queries, K)
-        tiers["bf16"].update(p50_ms=p50, **_tier_checks(
-            "bf16", D, I, exact_ids, picks, total),
-            **_search_profile(bf16, queries, p50))
-        del bf16, rows
-        for tier in CODED_TIERS:
-            os.remove(path(tier))
-            t0 = time.perf_counter()
-            idx = common.load_coded_index(args(tier))
-            tiers[tier]["codes_only_load_s"] = time.perf_counter() - t0
-            D, I = idx.search(queries, K)
-            check(np.array_equal(I, results[tier][1])
-                  and np.array_equal(D, results[tier][0]),
-                  f"{tier}: codes-only boot searches differently")
-            del idx
-        # phase ivf installs these codes into its IVF layout
-        search["payloads"] = {}
-        for tier in CODED_TIERS:
-            payload = codes_io.load_codes(path(tier), tier, rotated=True,
-                                          orphan=True)
-            for key in ("codes", "scales"):
-                if payload[key] is not None:
-                    payload[key] = np.array(payload[key])
-            search["payloads"][tier] = payload
+    # one index path per tier (an index has one codes file), each a hard
+    # link to the same images.index; kept until phase coded_pq
+    search["coded_dir"] = os.path.join(keep, "coded")
+    search["device"] = device
+    os.makedirs(search["coded_dir"])
+    sidecar = os.path.join(search["coded_dir"], "images.index")
+    writer = IndexWriter(sidecar, total, DIM)
+    writer.write(rows)
+    writer.close()
+    search["content_hash"] = writer.content_hash
+    for tier in CODED_TIERS:
+        os.link(sidecar, _coded_args(search, tier).index)
+    search["pq_encode"] = pool.submit(_encode_codes, search, "pq")
+    tiers = {tier: _encode_codes(search, tier) for tier in CODED_TIERS[:-1]}
+    for job in beside:
+        job.result()
+    for tier in CODED_TIERS[:-1]:
+        _coded_tier(search, tier, tiers)
+    t0 = time.perf_counter()
+    bf16 = common.build_index_from_vectors(rows, _coded_args(search, "bf16"))
+    tiers["bf16"] = {"build_s": time.perf_counter() - t0}
+    D, I, p50 = _search_p50(bf16, queries, K)
+    tiers["bf16"].update(p50_ms=p50, **_tier_checks(
+        "bf16", D, I, search["ids"], search["picks"], total),
+        **_search_profile(bf16, queries, p50))
+    del bf16
     torch.cuda.empty_cache()
     info = {"phase": "coded", "rows": total, "dim": DIM, "k": K,
             "queries": NQ, "tiers": tiers,
             "capacity": _capacity_scan(device)}
+    emit(info)
+    return info
+
+
+def _encode_codes(search: dict, tier: str) -> dict:
+    from clipx_torch.search import codes_io
+    from clipx_torch.search.engine import corpus_rotation
+
+    index = _coded_args(search, tier).index
+    t0 = time.perf_counter()
+    codes_io.write_codes_file(index, search["rows"], tier,
+                              rot=corpus_rotation(DIM),
+                              content_hash=search["content_hash"])
+    return {"encode_s": time.perf_counter() - t0,
+            "codes_bytes": os.path.getsize(codes_io.codes_path(index))}
+
+
+def phase_coded_pq(search: dict, keep: str) -> dict:
+    """Phase coded's pq tier, once its encode (begun there) has ended: the
+    same loads, searches and checks as the int8 and int4 tiers. The pq
+    deployment (images.index and its codes) stays in ``keep`` for phase
+    tools' load_timing and drop-f32."""
+    from clipx_torch.search import codes_io
+
+    t0 = time.perf_counter()
+    tiers = {"pq": search.pop("pq_encode").result()}
+    tiers["pq"]["waited_s"] = time.perf_counter() - t0
+    index = _coded_args(search, "pq").index
+    kept = os.path.join(keep, "images.index")
+    os.link(index, kept)
+    os.link(codes_io.codes_path(index), codes_io.codes_path(kept))
+    _coded_tier(search, "pq", tiers)
+    shutil.rmtree(search.pop("coded_dir"))
+    info = {"phase": "coded_pq", "rows": search["rows"].shape[0],
+            "dim": DIM, "k": K, "queries": NQ, "tiers": tiers}
     emit(info)
     return info
 
@@ -1867,6 +1953,24 @@ def _ivf_probe_chunks(idx, queries, device) -> dict:
                     lambda: pqs.pq_scan_scores(flat, col))}
 
 
+def _residual_build(sub: np.ndarray, device, keep: str):
+    """Phase ivf's residual pq index (the default, CLIPX_PQ_RESIDUAL unset)
+    on ``sub``: k-means on the card, then the residual OPQ training and
+    encode on the host, its .ivf cache in ``keep``. Runs in a thread beside
+    phases coded to resnet: minutes of host work that time no search.
+    Returns (index, build seconds, cache path)."""
+    from clipx_torch.search import ivf as tivf
+
+    res_cache = os.path.join(keep, "residual.ivf")
+    t0 = time.perf_counter()
+    idx = tivf.IVFIndex.from_vectors(sub, dtype="pq", device=device,
+                                     cache_path=res_cache, stash_codes=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(idx._residual, "IVF pq_residual: codes are not residual")
+    return idx, build_s, res_cache
+
+
 def phase_ivf(search: dict, device, keep: str) -> dict:
     """IVF search (clipx_torch/search/ivf.py) on phase search's corpus:
     k-means on the card (twice: the same layout digest), the layout saved
@@ -1876,7 +1980,8 @@ def phase_ivf(search: dict, device, keep: str) -> dict:
     and non-residual pq from phase coded's codes files
     (IVFIndex.from_codes, the codes-file start). Residual pq, the default,
     on the last IVF_PQ_ROWS rows, against a flat exact search of those
-    rows. Each leg through _ivf_leg, with pq_scan_scores_plain refused.
+    rows (built by _residual_build beside phases coded to resnet). Each
+    leg through _ivf_leg, with pq_scan_scores_plain refused.
     Returns the info and the launch counts of these searches; the
     B11-versus-plain checks of _ivf_probe_chunks run after the counts are
     read. For phase sharded it keeps (in ``keep`` and ``search``) both .ivf
@@ -1885,7 +1990,6 @@ def phase_ivf(search: dict, device, keep: str) -> dict:
     from clipx_torch.ops import packed_sdpa as ps
     from clipx_torch.search import ivf as tivf
     from clipx_torch.search.engine import VectorIndex, content_hash
-    from clipx_torch.utils.env import restoring
 
     rows, queries = search["rows"], search["queries"]
     exact_D, exact_ids = search["scores"], search["ids"]
@@ -1940,15 +2044,7 @@ def phase_ivf(search: dict, device, keep: str) -> dict:
         flat.add(sub)
         _, sub_ids = flat.search(queries, K)
         del flat
-        res_cache = os.path.join(keep, "residual.ivf")
-        with restoring(CLIPX_PQ_RESIDUAL="on"):
-            t0 = time.perf_counter()
-            idx = tivf.IVFIndex.from_vectors(sub, dtype="pq", device=device,
-                                             cache_path=res_cache,
-                                             stash_codes=True)
-            torch.cuda.synchronize()
-            build_s = time.perf_counter() - t0
-        check(idx._residual, "IVF pq_residual: codes are not residual")
+        idx, build_s, res_cache = search.pop("residual_build")
         # the install's flat-order residual codes, as a codes-file payload
         search["ivf_residual"] = {
             "cache": res_cache, "ids": sub_ids,
@@ -1956,7 +2052,8 @@ def phase_ivf(search: dict, device, keep: str) -> dict:
                             ntotal=sub.shape[0], dim=DIM,
                             content_hash=content_hash(sub))}
         idx._pending_codes_payload = None
-        # k-means on these rows, the residual OPQ training and encode
+        # k-means on these rows, the residual OPQ training and encode, in
+        # a thread beside phases coded to resnet
         tiers["pq_residual"] = {"build_s": build_s,
                                 **_ivf_leg(idx, queries, sub_ids)}
         launches = dict(ps.LAUNCHES)
@@ -1973,10 +2070,11 @@ def phase_ivf(search: dict, device, keep: str) -> dict:
 # ---------------------------------------------------------------------------
 
 # closed-loop legs' lengths (cut from 5, 3 and 3 s when phases train and
-# tools joined, to keep the run well inside its time limit)
-SERVE_SECONDS = 3.0   # each closed-loop leg of /search_vector
-TEXT_SECONDS = 2.0    # each closed-loop leg of /search?q=
-INPROC_SECONDS = 2.0  # each leg of SearchService.search without HTTP
+# tools joined, then from 3, 2 and 2 s when a slow host ran the script past
+# its time limit, to keep the run well inside it)
+SERVE_SECONDS = 2.0   # each closed-loop leg of /search_vector
+TEXT_SECONDS = 1.0    # each closed-loop leg of /search?q=
+INPROC_SECONDS = 1.0  # each leg of SearchService.search without HTTP
 SERVE_CLIENTS = (1, 16)
 SERVE_IMAGES = 8      # /encode_image's batch: the bucket-8 chunk
 SERVE_APPEND = 1024   # rows /reload's incremental leg appends
@@ -4111,29 +4209,44 @@ TP_NCCL_STEPS = 2
 TP_REMAT_STEPS = 3   # of phase train's 10 batches: --remat's losses
 
 
-def _tp_encode_leg(mesh, images: np.ndarray, embs: np.ndarray,
-                   cpu_ref: np.ndarray) -> dict:
-    """ViT-B/32 through Encoder(mesh=..., tp="tp") on phase encode's images
-    at batch 128 (attn_impl "pallas" asked for, "plain" taken): cosine
-    against phase encode's single-device bf16 embeddings of every image and
-    the CPU's f32 encode of the first CPU_CHECK; img/s; a text encode."""
+# split heads: ViT-B/32's 12 vision heads over 8 tp positions (1.5 heads
+# a position) and its 8 text heads (1 a position), cuda:0 listed 8 times
+SPLIT_AXES = {"dp": 1, "tp": 8}
+SPLIT_IMAGES = 256         # of phase encode's images
+SPLIT_BATCH, SPLIT_STEPS = 16, 2
+# the split-head TP encode against phase encode's single-device bf16
+# embeddings: the same bf16 products in another order (the whole-heads
+# leg measured >= 0.99995)
+SPLIT_COS_MIN = 0.9999
+
+
+def _tp_encode_leg(mesh, tree, images: np.ndarray, embs: np.ndarray,
+                   cpu_ref: np.ndarray, n: int = N_IMAGES,
+                   cos_min: float = COS_MIN) -> dict:
+    """ViT-B/32 (phase train's tree: the seed's, as phase encode's) through
+    Encoder(mesh=..., tp="tp") on the first ``n`` of phase encode's images
+    at batch 128 (attn_impl "pallas" asked for, "plain" taken): cosine (at
+    least ``cos_min``) against phase encode's single-device bf16
+    embeddings of each and the CPU's f32 encode of the first CPU_CHECK
+    (COS_MIN); img/s; a text encode."""
+    from clipx_torch import config as config_lib
     from clipx_torch.runtime.encoder import Encoder
 
     t0 = time.perf_counter()
-    enc = Encoder.create("ViT-B/32", seed=SEED, mesh=mesh, tp="tp",
-                         attn_impl="pallas")
+    enc = Encoder(config_lib.get_config(TRAIN_MODEL), tree, mesh=mesh,
+                  tp="tp", attn_impl="pallas")
     check(enc.attn_impl == "plain", f"tp took attn_impl {enc.attn_impl}")
     enc.warmup(buckets=(BATCH,))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     out = np.concatenate([enc.encode_images(images[i: i + BATCH])
-                          for i in range(0, N_IMAGES, BATCH)])
+                          for i in range(0, n, BATCH)])
     secs = time.perf_counter() - t0
     _unit_rows(out, enc.embed_dim, "the TP encode")
-    cos = _cos_min(out, embs)
+    cos = _cos_min(out, embs[:n])
     cos_cpu = _cos_min(out[:CPU_CHECK], cpu_ref)
-    check(cos >= COS_MIN and cos_cpu >= COS_MIN,
+    check(cos >= cos_min and cos_cpu >= COS_MIN,
           f"TP encode cosine {cos} vs the single-device encode, {cos_cpu} "
           "vs the CPU's f32")
     _unit_rows(enc.encode_texts(["a photo of a cat"]), enc.embed_dim,
@@ -4141,10 +4254,10 @@ def _tp_encode_leg(mesh, images: np.ndarray, embs: np.ndarray,
     del enc
     torch.cuda.empty_cache()
     return {"mesh": dict(mesh.axes), "devices": len(set(mesh.devices)),
-            "images": N_IMAGES, "batch": BATCH, "setup_s": setup_s,
-            "seconds": secs, "img_per_s": N_IMAGES / secs,
+            "images": n, "batch": BATCH, "setup_s": setup_s,
+            "seconds": secs, "img_per_s": n / secs,
             "cos_min_vs_single_device": cos, "cos_min_vs_cpu_f32": cos_cpu,
-            "cos_tolerance": COS_MIN}
+            "cos_tolerance": cos_min, "cos_tolerance_cpu": COS_MIN}
 
 
 def _tp_train_leg(mesh, device, train: dict) -> dict:
@@ -4191,6 +4304,92 @@ def _tp_train_leg(mesh, device, train: dict) -> dict:
                remat={"losses": rlosses, "max_rel_loss_diff": worst,
                       "step_ms_median": statistics.median(rms[2:]),
                       "peak_allocated_bytes": rpeak}, leg_seconds=legs)
+    return out
+
+
+def _tp_split_leg(mesh, device, train: dict, encoded: dict) -> dict:
+    """ViT-B/32 over a tp size that splits the vision heads
+    (parallel/tensor.py's split-head attention): the TP encode of
+    SPLIT_IMAGES of phase encode's images (cosine >= SPLIT_COS_MIN against
+    its single-device embeddings); 3 f32 steps of phase train's batch of 8
+    against its CPU run (phase train's tolerances, every replica bitwise);
+    SPLIT_STEPS steps of the first SPLIT_BATCH rows of its batches against
+    the single-device step on the card (losses within TRAIN_LOSS_RTOL),
+    CUDA-event ms of each; then one more split step under a CUDA-only
+    profile, whose device ms over its own wall is the card's busy share."""
+    from clipx_torch import config as config_lib
+
+    tree = train["tree"]
+    out, legs = {}, {}
+    t0 = time.perf_counter()
+    out["encode"] = _tp_encode_leg(mesh, tree, encoded["images"],
+                                   encoded["embs"], encoded["cpu_ref"],
+                                   SPLIT_IMAGES, SPLIT_COS_MIN)
+    out["encode"]["single_device_img_per_s"] = encoded["img_per_s"]
+    legs["encode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["card_vs_cpu"] = _card_vs_cpu(
+        TRAIN_MODEL, tree, None, TRAIN_CPU_BATCH, TRAIN_CPU_STEPS, 1,
+        device, TRAIN_UPDATE_ATOL, TRAIN_UPDATE_RL2, mesh=mesh,
+        cpu_run=train["cpu_run"])
+    del out["card_vs_cpu"]["_cpu"]
+    legs["card_vs_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batches = [(px[:SPLIT_BATCH], ids[:SPLIT_BATCH])
+               for px, ids in train["batches"][:SPLIT_STEPS]]
+    runs = {}
+    for name, where in (("split", mesh), ("single", None)):
+        t1 = time.perf_counter()
+        state, step = _train_setup(TRAIN_MODEL, tree, device, 1e-5, 100,
+                                   1000, mesh=where)
+        legs[f"{name}_setup"] = time.perf_counter() - t1
+        losses, ms = [], []
+        for px, ids in batches:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step(state, px, ids)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(float(m["loss"]))
+        runs[name] = {"losses": losses, "step_ms": ms}
+        if where is not None:
+            runs[name]["replica_trees_bitwise"] = _replicas_bitwise(
+                state.params)
+            box = [state]
+
+            def one():
+                box[0], _ = step(box[0], *batches[-1])
+
+            t1 = time.perf_counter()
+            kernels, wall = _profiled(one, 1, host_ops=False)
+            legs["profile"] = time.perf_counter() - t1
+            busy = sum(t for _, t, _ in kernels)
+            check(busy > 0, "torch.profiler saw no device time")
+            runs[name].update(profiled_step_ms=wall, device_ms=busy)
+            del box
+        del state, step
+        torch.cuda.empty_cache()
+    split, single = runs["split"], runs["single"]
+    for a, b in zip(split["losses"], single["losses"]):
+        check(abs(a - b) <= TRAIN_LOSS_RTOL * abs(b),
+              f"split-head loss {a} vs the single device's {b}")
+    legs["steps"] = time.perf_counter() - t0
+    out["steps"] = {
+        "batch": SPLIT_BATCH, "steps": SPLIT_STEPS, **split,
+        "single_device": single,
+        "device_busy_share": split["device_ms"]
+        / split["profiled_step_ms"],
+        "step_ms_ratio_to_single_device":
+            split["step_ms"][-1] / single["step_ms"][-1]}
+    cfg = config_lib.get_config(TRAIN_MODEL)
+    check(cfg.vision.heads % mesh.axes["tp"] != 0,
+          f"{mesh.axes} gives each position whole vision heads")
+    out.update(mesh=dict(mesh.axes), devices=len(set(mesh.devices)),
+               vision_heads_per_position=cfg.vision.heads / mesh.axes["tp"],
+               text_heads_per_position=cfg.text.heads / mesh.axes["tp"],
+               leg_seconds=legs)
     return out
 
 
@@ -4244,7 +4443,9 @@ def phase_tp(device, train: dict, encoded: dict) -> dict:
     listed 4 times (one card plays every position: not multi-GPU numbers),
     and with more than one GPU visible over {"dp": n / 2, "tp": 2} of real
     GPUs too: the TP encode (_tp_encode_leg), the dp x tp train step
-    (_tp_train_leg), one NCCL rank (_tp_process_leg). No kernel of the
+    (_tp_train_leg), one NCCL rank (_tp_process_leg); then split heads over
+    SPLIT_AXES of cuda:0 listed 8 times, and of eight GPUs where eight are
+    visible (_tp_split_leg). No kernel of the
     port launches: clipx's TP paths reach no Pallas kernel (its sharded
     step and its tp Encoder take plain attention), and the port's follow
     (checked by the caller)."""
@@ -4261,12 +4462,16 @@ def phase_tp(device, train: dict, encoded: dict) -> dict:
         return out
 
     mesh = make_mesh(TP_AXES, [device] * 4)
-    info["encode"] = timed("encode", _tp_encode_leg, mesh, encoded["images"],
-                           encoded["embs"], encoded["cpu_ref"])
+    info["encode"] = timed("encode", _tp_encode_leg, mesh, train["tree"],
+                           encoded["images"], encoded["embs"],
+                           encoded["cpu_ref"])
     info["encode"]["single_device_img_per_s"] = encoded["img_per_s"]
     info["train"] = timed("train", _tp_train_leg, mesh, device, train)
     info["process"] = timed("process", _tp_process_leg, device, train,
                             info["train"]["losses"])
+    info["split_heads"] = timed("split_heads", _tp_split_leg,
+                                make_mesh(SPLIT_AXES, [device] * 8), device,
+                                train, encoded)
     n = torch.cuda.device_count()
     if n > 1 and n % 2 == 0:
         gpus = visible_devices("cuda")
@@ -4274,10 +4479,15 @@ def phase_tp(device, train: dict, encoded: dict) -> dict:
         info["every_gpu"] = {
             "gpus": n,
             "encode": timed("every_gpu_encode", _tp_encode_leg, real,
-                            encoded["images"], encoded["embs"],
-                            encoded["cpu_ref"]),
+                            train["tree"], encoded["images"],
+                            encoded["embs"], encoded["cpu_ref"]),
             "train": timed("every_gpu_train", _tp_train_leg, real, device,
                            train)}
+    if n >= 8:
+        info["split_heads_every_gpu"] = timed(
+            "split_heads_every_gpu", _tp_split_leg,
+            make_mesh(SPLIT_AXES, visible_devices("cuda")[:8]), device,
+            train, encoded)
     info["seconds"] = seconds
     emit(info)
     return info
@@ -4518,10 +4728,8 @@ def phase_cli(info_env: dict) -> dict:
     ViT-B/32 (then the same library as a pq index), --corpus-dtype pq
     --search-mode ivf (and a restart), --compute int8, ViT-L/14@336px,
     --preprocess device and RN50. The legs share nothing but the fixture
-    photos, so CLI_WORKERS of them run at once; the seconds each reports
-    are under that sharing."""
-    from concurrent.futures import ThreadPoolExecutor
-
+    photos, so CLI_WORKERS of them run at once (beside phase coded); the
+    seconds each reports are under that sharing."""
     pkgs = info_env["host_packages"]
     if not (pkgs["PIL"] or pkgs["cv2"]):
         info = {"phase": "cli", "skipped": "neither PIL nor cv2 imports"}
@@ -4760,7 +4968,43 @@ def _cli_build_and_query(flags, decode, photos: str, work: str, env,
     return build_s, query_s, rows, rates
 
 
-def main() -> int:
+# the work that runs in threads beside the phases from coded to resnet;
+# phase quality runs in a process of its own (``--phase quality``), its
+# launches counted there
+BESIDE = ("pq_encode", "ivf_residual_build", "cli", "quality")
+PHASES_APART = {"quality": phase_quality}
+
+
+def _wall(fn, *args):
+    """(fn(*args), its seconds)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def _phase_apart(name: str) -> dict:
+    """Phase ``name`` in a process of its own (this script with --phase
+    name), its launch counts set to 0 there just before the phase and read
+    just after. Its lines are printed here; returns its launch counts."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--phase", name],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    sys.stderr.write(proc.stderr)
+    check(proc.returncode == 0, f"phase {name} failed in its process "
+          f"(exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1]:
+        emit(line)
+    return json.loads(lines[-1])["launches"]
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv and (len(argv) != 2 or argv[0] != "--phase"
+                 or argv[1] not in PHASES_APART):
+        print("usage: python3 chip_smoke.py [--phase "
+              + "|".join(PHASES_APART) + "]", file=sys.stderr)
+        return 2
     if not os.path.isdir(os.path.join(ROOT, "clipx_torch", "csrc")):
         print("chip_smoke: clipx_torch/ is not beside this script; run it "
               "from a checkout of the repository", file=sys.stderr)
@@ -4772,6 +5016,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
+    if argv:
+        from clipx_torch.ops import packed_sdpa as ps
+
+        ps.reset_launches()
+        PHASES_APART[argv[1]]()
+        emit({"launches": dict(ps.LAUNCHES)})
+        return 0
     # phase search's store and phase coded's pq deployment, for phase tools
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as keep:
         return _run_phases(device, keep)
@@ -4800,26 +5051,88 @@ def _run_phases(device, keep: str) -> int:
     encoded = timed("encode", phase_encode, enc, images)
     timed("text", phase_text, enc)
     search = timed("search", phase_search, encoded["embs"], device, keep)
-    timed("coded", phase_coded, search, device, keep)
-    launches = dict(ps.LAUNCHES)
-    emit({"phase": "main_path_launches", "launches": launches})
-    check(launches["fused_attn_block"] > 0 and launches["packed_sdpa"] > 0
-          and launches["pq_scan_scores"] > 0,
-          "a kernel of the main path was never launched")
-    check(not any(launches[n] for n in OPT_IN_KERNELS),
-          "the default path launched an opt-in kernel")
-    timed("profile", phase_profile, enc, images, encoded["info"])
-    paths = [launches]
-    # the canvas path (--preprocess device): counts from 0 just before it,
-    # read just after
+    search["rows"] = search["index"].vectors()
+    # minutes of host work that time nothing on the card run beside the
+    # phases from coded to resnet (module docstring); each job's seconds
+    # are its own wall
+    beside = ThreadPoolExecutor(len(BESIDE), thread_name_prefix="beside")
+    try:
+        jobs = {
+            "ivf_residual_build": beside.submit(
+                _residual_build, search["rows"][-IVF_PQ_ROWS:], device,
+                keep),
+            "cli": beside.submit(_wall, phase_cli, info),
+            "quality": beside.submit(_wall, _phase_apart, "quality")}
+        timed("coded", phase_coded, search, device, keep, beside,
+              (jobs["cli"], jobs["quality"]))
+        launches = dict(ps.LAUNCHES)
+        emit({"phase": "main_path_launches", "launches": launches})
+        check(launches["fused_attn_block"] > 0
+              and launches["packed_sdpa"] > 0
+              and launches["pq_scan_scores"] > 0,
+              "a kernel of the main path was never launched")
+        check(not any(launches[n] for n in OPT_IN_KERNELS),
+              "the default path launched an opt-in kernel")
+        _, seconds["cli"] = jobs["cli"].result()
+        # the quality gate's path, in its process of its own: B11 (flat and
+        # IVF pq), B1 and B2 (the drift leg's build and one-image encodes)
+        quality, seconds["quality"] = jobs["quality"].result()
+        paths = [launches, quality]
+        emit({"phase": "quality_path_launches", "launches": quality})
+        check({name for name, n in quality.items() if n}
+              == {"fused_attn_block", "packed_sdpa", "pq_scan_scores"},
+              f"the quality gate launched {quality}, not B1, B2 and B11")
+        timed("profile", phase_profile, enc, images, encoded["info"])
+        # the canvas path (--preprocess device): counts from 0 just before
+        # it, read just after
+        ps.reset_launches()
+        timed("preprocess", phase_preprocess, enc, encoded)
+        paths.append(dict(ps.LAUNCHES))
+        emit({"phase": "preprocess_path_launches", "launches": paths[-1]})
+        check({name for name, n in paths[-1].items() if n}
+              == {"fused_attn_block", "packed_sdpa"},
+              f"the canvas path launched {paths[-1]}, not B1 and B2 alone")
+        del encoded["cpu"]
+        # the opt-in routes: counts from 0 just before each, read just
+        # after
+        ps.reset_launches()
+        timed("int8", phase_int8, device, images, encoded["embs"])
+        paths.append(dict(ps.LAUNCHES))
+        emit({"phase": "int8_path_launches", "launches": paths[-1]})
+        ps.reset_launches()
+        timed("fused", phase_fused, enc, images, encoded["cpu_ref"])
+        paths.append(dict(ps.LAUNCHES))
+        emit({"phase": "fused_path_launches", "launches": paths[-1]})
+        torch.cuda.empty_cache()
+        # the long towers' path: counts from 0 just before it, read just
+        # after
+        ps.reset_launches()
+        timed("long", phase_long, device)
+        paths.append(dict(ps.LAUNCHES))
+        emit({"phase": "long_path_launches", "launches": paths[-1]})
+        # the ResNet towers' path: no kernel of the port's
+        ps.reset_launches()
+        timed("resnet", phase_resnet, device)
+        paths.append(dict(ps.LAUNCHES))
+        emit({"phase": "resnet_path_launches", "launches": paths[-1]})
+        check(not any(paths[-1].values()),
+              f"the ResNet towers launched {paths[-1]}")
+        # the host work beside ends here: phase coded_pq searches the pq
+        # codes, phase ivf the residual index
+        t0 = time.perf_counter()
+        search["residual_build"] = jobs["ivf_residual_build"].result()
+        search["pq_encode"].result()
+        waited = time.perf_counter() - t0
+    finally:
+        beside.shutdown(cancel_futures=True)
+    # the pq tier's path: counts from 0 just before it, read just after
     ps.reset_launches()
-    timed("preprocess", phase_preprocess, enc, encoded)
+    timed("coded_pq", phase_coded_pq, search, keep)
     paths.append(dict(ps.LAUNCHES))
-    emit({"phase": "preprocess_path_launches", "launches": paths[-1]})
+    emit({"phase": "coded_pq_path_launches", "launches": paths[-1]})
     check({name for name, n in paths[-1].items() if n}
-          == {"fused_attn_block", "packed_sdpa"},
-          f"the canvas path launched {paths[-1]}, not B1 and B2 alone")
-    del encoded["cpu"]
+          == {"pq_scan_scores"},
+          f"the pq tier launched {paths[-1]}, not B11 alone")
     # the IVF path: counts from 0 just before it, read just after its
     # searches (before its kernel-versus-plain checks)
     ps.reset_launches()
@@ -4852,43 +5165,12 @@ def _run_phases(device, keep: str) -> int:
           == {"fused_attn_block", "pq_scan_scores"},
           f"the sharded path launched {paths[-1]}, not B1 (the dp encode) "
           "and B11 (the pq shards) alone")
-    del search, sharded
-    # the opt-in routes: counts from 0 just before each, read just after
-    ps.reset_launches()
-    timed("int8", phase_int8, device, images, encoded["embs"])
-    paths.append(dict(ps.LAUNCHES))
-    emit({"phase": "int8_path_launches", "launches": paths[-1]})
-    ps.reset_launches()
-    timed("fused", phase_fused, enc, images, encoded["cpu_ref"])
-    paths.append(dict(ps.LAUNCHES))
-    emit({"phase": "fused_path_launches", "launches": paths[-1]})
     # what phase tp compares its TP encode with
     tp_inputs = {"images": images, "embs": encoded["embs"],
                  "cpu_ref": encoded["cpu_ref"],
                  "img_per_s": encoded["info"]["img_per_s"]}
-    del enc, images, encoded
+    del search, sharded, enc, images, encoded
     torch.cuda.empty_cache()
-    # the long towers' path: counts from 0 just before it, read just after
-    ps.reset_launches()
-    timed("long", phase_long, device)
-    paths.append(dict(ps.LAUNCHES))
-    emit({"phase": "long_path_launches", "launches": paths[-1]})
-    # the ResNet towers' path: no kernel of the port's
-    ps.reset_launches()
-    timed("resnet", phase_resnet, device)
-    paths.append(dict(ps.LAUNCHES))
-    emit({"phase": "resnet_path_launches", "launches": paths[-1]})
-    check(not any(paths[-1].values()),
-          f"the ResNet towers launched {paths[-1]}")
-    # the quality gate's path: B11 (flat and IVF pq), B1 and B2 (the drift
-    # leg's build and one-image encodes)
-    ps.reset_launches()
-    timed("quality", phase_quality)
-    paths.append(dict(ps.LAUNCHES))
-    emit({"phase": "quality_path_launches", "launches": paths[-1]})
-    check({name for name, n in paths[-1].items() if n}
-          == {"fused_attn_block", "packed_sdpa", "pq_scan_scores"},
-          f"the quality gate launched {paths[-1]}, not B1, B2 and B11")
     # training's path: no kernel of the port's (clipx's step reaches none)
     ps.reset_launches()
     train = timed("train", phase_train, device)
@@ -4919,8 +5201,8 @@ def _run_phases(device, keep: str) -> int:
     for name, _, _ in KERNEL_TABLE:
         check(total[name] > 0,
               f"{name} was launched on no path, only in phase kernels")
-    timed("cli", phase_cli, info)
     emit({"phase": "seconds", "by_phase": seconds,
+          "beside": list(BESIDE), "beside_waited_s": waited,
           "total": time.perf_counter() - start,
           "empty_profiles_repeated": EMPTY_PROFILES})
     emit(kernels_line(results, total, kernels_ptxas()))

@@ -20,11 +20,13 @@ autograd-aware: ``tp_copy`` (identity forward, sum over the group
 backward: Megatron's *f*), ``tp_reduce`` (sum forward, identity backward:
 *g*), ``gather`` (concatenation along a dim forward, this position's slice
 backward: the embeddings' width and the dp gather of the global
-negatives). Each takes one tensor a local position of the group and
-returns one a local position. Within one process a collective is copies
-between the group's devices and adds in mesh order; across processes the
-local result is then combined over the group's process group
-(``all_reduce``, ``all_gather``), so every position gets the same bits.
+negatives) and ``tp_gather`` (the same forward, a reduce-scatter
+backward: the split-head attention's q, k and v). Each takes one tensor a
+local position of the group and returns one a local position. Within one
+process a collective is copies between the group's devices and adds in
+mesh order; across processes the local result is then combined over the
+group's process group (``all_reduce``, ``all_gather``), so every position
+gets the same bits.
 """
 
 from __future__ import annotations
@@ -200,9 +202,9 @@ class _Reduce(torch.autograd.Function):
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, group, dim, *xs):
+    def forward(ctx, group, dim, reduce, *xs):
         parts = _everyone(group, xs)
-        ctx.dim = dim
+        ctx.group, ctx.dim, ctx.reduce = group, dim, reduce
         ctx.bounds = []
         start = 0
         for pos, part in zip(group.positions, parts):
@@ -214,9 +216,12 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        return (None, None, *(g.narrow(ctx.dim, start, size).contiguous()
-                              for g, (start, size) in zip(grads,
-                                                          ctx.bounds)))
+        if ctx.reduce:
+            total = _sum(ctx.group, grads)
+            grads = [total.to(g.device) for g in grads]
+        return (None, None, None,
+                *(g.narrow(ctx.dim, start, size).contiguous()
+                  for g, (start, size) in zip(grads, ctx.bounds)))
 
 
 def tp_copy(xs: Sequence[torch.Tensor], group: Group) -> List[torch.Tensor]:
@@ -238,4 +243,15 @@ def gather(xs: Sequence[torch.Tensor], group: Group, dim: int
     every position; backward, each position's slice of its own gradient
     (no sum: every position computes the same downstream values, so each
     already holds the whole gradient)."""
-    return list(_Gather.apply(group, dim, *xs))
+    return list(_Gather.apply(group, dim, False, *xs))
+
+
+def tp_gather(xs: Sequence[torch.Tensor], group: Group, dim: int
+              ) -> List[torch.Tensor]:
+    """The forward of :func:`gather`; backward a reduce-scatter: the sum
+    of the group's gradients (in mesh order, as ``tp_copy``'s), then this
+    position's slice of it. For a tensor that the positions use in part
+    and differently: the split-head attention, where each position uses
+    only the heads that overlap its columns, so each holds only its share
+    of the gradient."""
+    return list(_Gather.apply(group, dim, True, *xs))

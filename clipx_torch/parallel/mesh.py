@@ -15,9 +15,9 @@ several GPUs overlap.
   (``parallel/tensor.py``): :func:`param_specs` column-shards wq/wk/wv,
   mlp.w1, their biases and the embeddings' width, row-shards wo and mlp.w2,
   and replicates the rest; :func:`shard_params` gives each position its
-  contiguous slice. The port slices whole heads, so heads, width and MLP
-  width must divide by the tp size where a spec shards them (clipx's GSPMD
-  may split a head).
+  contiguous slice. Width and MLP width must divide by the tp size where
+  a spec shards them; the heads need not (a position may hold part of a
+  head, as clipx's GSPMD allows).
 - **shard** — corpus-row sharding for search (``parallel/mips.py``,
   ``search/ivf.py::ShardedIVFIndex``).
 
@@ -247,33 +247,24 @@ def _split_dim(spec: Spec, tp: str) -> Optional[int]:
     return spec.index(tp) if tp in spec else None
 
 
-def _check_split(host: Dict, specs: Dict, tp: str, n: int, path: str,
-                 cfg) -> None:
+def _check_split(host: Dict, specs: Dict, tp: str, n: int, path: str
+                 ) -> None:
     """Raise a ValueError naming the leaf when a sharded dim does not
-    divide by ``n``, or (with ``cfg``) a tower's heads do not: the port
-    gives each tp position whole heads."""
+    divide by ``n`` (the heads need not: a position may hold part of
+    one, as in clipx)."""
     for key, val in host.items():
         name = f"{path}/{key}" if path else key
         if key not in specs:
             raise ValueError(f"{name}: no tensor-parallel rule for this "
                              "leaf")
         if isinstance(val, dict):
-            _check_split(val, specs[key], tp, n, name, cfg)
+            _check_split(val, specs[key], tp, n, name)
             continue
         dim = _split_dim(specs[key], tp)
-        if dim is None:
-            continue
-        if np.shape(val)[dim] % n:
+        if dim is not None and np.shape(val)[dim] % n:
             raise ValueError(f"{name}: dim {dim} of size "
                              f"{np.shape(val)[dim]} does not split over "
                              f"tp={n}")
-        tower = name.split("/")[0]
-        if cfg is not None and "/attn/" in name:
-            heads = (cfg.vision if tower == "visual" else cfg.text).heads
-            if heads % n:
-                raise ValueError(
-                    f"{name}: {heads} heads do not split over tp={n} (the "
-                    "port gives each tp position whole heads)")
 
 
 def _host_tree(tree: Dict) -> Dict:
@@ -377,15 +368,16 @@ class Sharded:
 
 
 def shard_params(params: Any, mesh: Mesh, tp: Optional[str] = "tp", *,
-                 dtype: torch.dtype = torch.float32, cfg=None) -> Sharded:
+                 dtype: torch.dtype = torch.float32) -> Sharded:
     """Place a param tree (clipx's numpy tree, or the port's tensors) onto
     ``mesh`` with the TP specs: each tp column's contiguous slice of every
     sharded leaf, once per distinct (device, column), converted as
     ``convert.from_jax_params`` does (matrices in ``dtype``). With
     ``tp=None`` (or a mesh without that axis) every leaf is replicated,
     once per distinct device, which works for any tree (the ResNet towers
-    take this path). A sharded dim, or with ``cfg`` a tower's heads, that
-    does not divide by the tp size raises a ValueError naming the leaf."""
+    take this path). A sharded dim that does not divide by the tp size
+    raises a ValueError naming the leaf; the heads need not divide (a
+    position may hold part of a head, ``parallel/tensor.py``)."""
     from clipx_torch.models import convert
 
     if tp is not None and tp not in mesh.axis_names:
@@ -394,7 +386,7 @@ def shard_params(params: Any, mesh: Mesh, tp: Optional[str] = "tp", *,
     specs = param_specs(tp) if tp is not None else None
     n = mesh.axes[tp] if tp else 1
     if specs is not None:
-        _check_split(host, specs, tp, n, "", cfg)
+        _check_split(host, specs, tp, n, "")
     out = Sharded(mesh, tp, specs, [None] * mesh.size)
     placed: Dict[tuple, Dict] = {}
     for pos in mesh.local_positions():

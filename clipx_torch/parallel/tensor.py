@@ -8,9 +8,12 @@ returns one a position. Inside a residual block:
 
 - LayerNorm on the whole width (every position holds the residual stream
   whole), then ``tp_copy`` into the column-parallel q/k/v of this
-  position's heads, or mlp.w1;
-- attention over the local heads through the port's plain attention
-  (``ops.attention.xla_attention``: no kernel of the port);
+  position's columns, or mlp.w1;
+- attention through the port's plain attention
+  (``ops.attention.xla_attention``: no kernel of the port): over the
+  position's own heads when the heads divide by the row's size, else over
+  the heads that overlap its columns, from q/k/v joined by ``tp_gather``
+  (a head may straddle two positions, as clipx's GSPMD allows);
 - the row-parallel wo/w2 partial product, ``tp_reduce`` over the row, then
   the replicated bias bo/b2 once, then the residual add.
 
@@ -23,9 +26,9 @@ the row's embeddings.
 
 The plain functions of ``models/layers.py`` (``layer_norm``,
 ``quick_gelu``, ``dense``) do the arithmetic; ``remat`` recomputes each
-block in the backward pass as ``layers.transformer`` does. The port gives
-each position whole heads: heads must divide by the row's size (checked by
-``mesh.shard_params`` with the config).
+block in the backward pass as ``layers.transformer`` does. Every sharded
+dim must divide by the row's size (checked by ``mesh.shard_params``); the
+heads need not.
 """
 
 from __future__ import annotations
@@ -40,26 +43,34 @@ from clipx_torch.models.layers import (_activation, dense, layer_norm,
                                        layer_slice)
 from clipx_torch.ops.attention import xla_attention
 from clipx_torch.parallel.distributed import (Group, gather, tp_copy,
-                                              tp_reduce)
+                                              tp_gather, tp_reduce)
 
 Params = Dict[str, Any]
 Tensors = List[torch.Tensor]
 
 
-def _local_heads(heads: int, group: Group) -> int:
-    if heads % group.size:
-        raise ValueError(f"{heads} heads do not split over tp={group.size} "
-                         "(the port gives each tp position whole heads)")
-    return heads // group.size
+def _span(group: Group, heads: int, width: int) -> List[tuple]:
+    """Each local position's columns [lo, hi) of the attention width and
+    the heads that overlap them, [h0, h1), in the group's local order."""
+    n, d = group.size, width // heads
+    out = []
+    for pos in group.local:
+        j = group.positions.index(pos)
+        lo, hi = j * width // n, (j + 1) * width // n
+        out.append((lo, hi, lo // d, -(-hi // d)))
+    return out
 
 
 def mha_block(xs: Sequence[torch.Tensor], ps: Sequence[Params], heads: int,
               group: Group, *, causal: bool) -> Tensors:
     """Self-attention of one row. xs: the LayerNorm's output (B, S, W), the
     same on every position; ps: each position's attention params (its
-    heads' columns of wq/wk/wv and rows of wo). Returns the attention
-    output, bo added, on every position."""
-    local = _local_heads(heads, group)
+    columns of wq/wk/wv and rows of wo). Returns the attention output, bo
+    added, on every position. Heads that divide by the row's size give
+    each position whole heads; otherwise :func:`_split_heads`."""
+    if heads % group.size:
+        return _split_heads(xs, ps, heads, group, causal=causal)
+    local = heads // group.size
     partials = []
     for h, p in zip(tp_copy(xs, group), ps):
         b, s, _ = h.shape
@@ -75,6 +86,35 @@ def mha_block(xs: Sequence[torch.Tensor], ps: Sequence[Params], heads: int,
         o = xla_attention(q, k, v, causal=causal)
         o = o.permute(0, 2, 1, 3).reshape(b, s, wl)
         partials.append(dense(o, p["wo"]))
+    return [y + p["bo"].to(y.dtype)
+            for y, p in zip(tp_reduce(partials, group), ps)]
+
+
+def _split_heads(xs: Sequence[torch.Tensor], ps: Sequence[Params],
+                 heads: int, group: Group, *, causal: bool) -> Tensors:
+    """The attention of a row whose positions split a head (clipx's GSPMD
+    runs any tp size that divides the width). Each position computes its
+    columns [lo, hi) of q, k and v; ``tp_gather`` joins every position's
+    (the whole width: 3 B S W elements a position a layer); each position
+    runs attention on the heads that overlap its columns, keeps its
+    columns of their output and applies its rows of wo. A head that
+    straddles two positions is computed on both; ``tp_gather``'s backward
+    sums the row's gradients before each position takes its slice, so
+    both shares of that head's gradient reach its columns."""
+    qkv = [torch.stack([dense(h, p[w], p[b]) for w, b in
+                        (("wq", "bq"), ("wk", "bk"), ("wv", "bv"))])
+           for h, p in zip(tp_copy(xs, group), ps)]
+    whole = tp_gather(qkv, group, -1)
+    width = whole[0].shape[-1]
+    d = width // heads
+    partials = []
+    for t, p, (lo, hi, h0, h1) in zip(whole, ps, _span(group, heads, width)):
+        _, b, s, _ = t.shape
+        q, k, v = (x[..., h0 * d:h1 * d].reshape(b, s, h1 - h0, d)
+                   .permute(0, 2, 1, 3) for x in t.unbind(0))
+        o = xla_attention(q, k, v, causal=causal)
+        o = o.permute(0, 2, 1, 3).reshape(b, s, (h1 - h0) * d)
+        partials.append(dense(o[..., lo - h0 * d:hi - h0 * d], p["wo"]))
     return [y + p["bo"].to(y.dtype)
             for y, p in zip(tp_reduce(partials, group), ps)]
 

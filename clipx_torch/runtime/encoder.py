@@ -158,7 +158,7 @@ class Encoder:
         if mesh is not None and tp in mesh.axis_names:
             # one tree a distinct (device, tp column); one group a dp row
             self.params = mesh_lib.shard_params(params, mesh, tp,
-                                                dtype=self.dtype, cfg=cfg)
+                                                dtype=self.dtype)
             self._rows = [Group(mesh, r) for r in mesh.groups(tp)]
         else:
             self.params = self._placed(params, self.device)

@@ -13,6 +13,7 @@ reference:query-index.py:25-27,92-95,117-118):
     fn_db = env.open_db(b"fn_db")
     with env.begin(db=fn_db, write=True) as txn:
         txn.get(key); txn.put(key, value); txn.stat()['entries']
+        txn.delete(key)
         for key, value in txn.cursor(): ...
 
 so the CLI layer reads like the reference contract. ``map_size`` and
@@ -95,6 +96,9 @@ def _load() -> ctypes.CDLL:
         lib.cxkv_txn_commit.restype = ctypes.c_int
         lib.cxkv_txn_commit.argtypes = [ctypes.c_void_p]
         lib.cxkv_txn_abort.argtypes = [ctypes.c_void_p]
+        lib.cxkv_del.restype = ctypes.c_int
+        lib.cxkv_del.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                 ctypes.c_char_p, ctypes.c_size_t]
         lib.cxkv_put.restype = ctypes.c_int
         lib.cxkv_put.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                  ctypes.c_char_p, ctypes.c_size_t,
@@ -107,9 +111,9 @@ def _load() -> ctypes.CDLL:
         lib.cxkv_cursor_open.argtypes = [ctypes.c_void_p, ctypes.c_int]
         ptr_t = ctypes.POINTER(ctypes.POINTER(ctypes.c_char))
         len_t = ctypes.POINTER(ctypes.c_size_t)
-        lib.cxkv_cursor_next.restype = ctypes.c_int
-        lib.cxkv_cursor_next.argtypes = [ctypes.c_void_p, ptr_t, len_t,
-                                         ptr_t, len_t]
+        for fn in (lib.cxkv_cursor_first, lib.cxkv_cursor_next):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p, ptr_t, len_t, ptr_t, len_t]
         lib.cxkv_cursor_close.argtypes = [ctypes.c_void_p]
         lib.cxkv_error.restype = ctypes.c_char_p
         lib.cxkv_error.argtypes = [ctypes.c_void_p]
@@ -117,8 +121,12 @@ def _load() -> ctypes.CDLL:
         lib.cxkv_refresh.argtypes = [ctypes.c_void_p]
         lib.cxkv_compact.restype = ctypes.c_int
         lib.cxkv_compact.argtypes = [ctypes.c_void_p]
+        lib.cxkv_sync.restype = ctypes.c_int
+        lib.cxkv_sync.argtypes = [ctypes.c_void_p]
         lib.cxkv_generation.restype = ctypes.c_uint64
         lib.cxkv_generation.argtypes = [ctypes.c_void_p]
+        lib.cxkv_overlay_bytes.restype = ctypes.c_uint64
+        lib.cxkv_overlay_bytes.argtypes = [ctypes.c_void_p]
         _lib = lib
         return lib
 
@@ -141,6 +149,7 @@ class Cursor:
     def __init__(self, lib, handle):
         self._lib = lib
         self._h = handle
+        self._pending = None  # the item first() positioned on
 
     def _step(self, fn) -> Optional[Tuple[bytes, bytes]]:
         if not self._h:
@@ -158,7 +167,19 @@ class Cursor:
         return (ctypes.string_at(k, klen.value),
                 ctypes.string_at(v, vlen.value))
 
+    def first(self) -> bool:
+        """Position on the first item; the next iteration starts with it.
+        False when the database is empty."""
+        item = self._step(self._lib.cxkv_cursor_first)
+        if item is None:
+            return False
+        self._pending = item
+        return True
+
     def __iter__(self) -> Iterator[Tuple[bytes, bytes]]:
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            yield pending
         while True:
             item = self._step(self._lib.cxkv_cursor_next)
             if item is None:
@@ -214,6 +235,18 @@ class Transaction:
             raise Error("put on read-only/finished transaction "
                         "or invalid db handle")
         return True
+
+    def delete(self, key, db: Optional[int] = None) -> bool:
+        """Remove ``key``; True if it was there (this transaction's own
+        writes included)."""
+        self._check()
+        key = _as_bytes(key)
+        existed = self.get(key, db=db) is not None
+        rc = self._lib.cxkv_del(self._h, self._db(db), key, len(key))
+        if rc != 0:
+            raise Error("delete on read-only/finished transaction "
+                        "or invalid db handle")
+        return existed
 
     def stat(self, db: Optional[int] = None) -> dict:
         self._check()
@@ -297,6 +330,10 @@ class Environment:
     def begin(self, db: Optional[int] = None, write: bool = False) -> Transaction:
         return Transaction(self, db, write)
 
+    def sync(self) -> None:
+        """Flush the write-ahead log to the disk (``fdatasync``)."""
+        self._lib.cxkv_sync(self._h)
+
     def refresh(self) -> None:
         """Fold in transactions committed by other processes (or other
         environments on the same path) since this one was opened or last
@@ -315,6 +352,12 @@ class Environment:
     def generation(self) -> int:
         """Current segment generation (bumps on every compaction)."""
         return int(self._lib.cxkv_generation(self._h))
+
+    def overlay_bytes(self) -> int:
+        """Approximate RAM held by the write overlay (the memtable);
+        bounded by $CLIPX_KV_MEMTABLE_MB: bulk ingests spill to a new
+        sorted-segment generation instead of accumulating."""
+        return int(self._lib.cxkv_overlay_bytes(self._h))
 
     def _txn_enter(self) -> None:
         with self._txn_cv:

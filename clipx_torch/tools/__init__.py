@@ -1,2 +1,4 @@
 """Command-line tools of the port (``python -m clipx_torch.tools.<name>``),
-counterparts of the root ``tools/`` scripts that run clipx's modules."""
+counterparts of the root ``tools/`` scripts that run clipx's modules:
+``build_codes_direct``, ``convert_checkpoint``, ``eval_quality``,
+``find_dupes``, ``kv_tool``, ``load_timing`` and ``make_synth_index``."""

@@ -373,7 +373,7 @@ def make_sharded_train_step(cfg: CLIPConfig, tx: AdamW, mesh, *,
         owner.setdefault(mesh.coord(pos, tp) if tp else 0, pos)
 
     def shard_state(state: TrainState) -> TrainState:
-        params = mesh_lib.shard_params(state.params, mesh, tp, cfg=cfg)
+        params = mesh_lib.shard_params(state.params, mesh, tp)
         for _, tree in params.placements():
             for leaf in tree_leaves(tree):
                 leaf.requires_grad_(True)

@@ -7,8 +7,12 @@ spans an 8-shard ``"shard"`` mesh, 4 CPU shards a process. Then two steps
 of ``make_sharded_train_step``: tiny-test on dp 4 x tp 2 with 4 positions
 a process (each process feeds its ``process_local_batch`` rows), tiny-test
 on dp 1 x tp 2 with one position a process (tp crosses the processes; each
-feeds the whole batch, its one dp row's), and tiny-rn-test on dp 4 x tp 2
-(replicated params). Each run's gathered params must equal those of the
+feeds the whole batch, its one dp row's), tiny-rn-test on dp 4 x tp 2
+(replicated params), tiny-test on dp 2 x tp 4, where each position holds
+half a head and each tp row lies in one process, and tiny-test widened to
+3 heads a tower on dp 1 x tp 2 with one position a process, where the
+middle head straddles the processes (the two split-head runs' losses
+equal, bit for bit, those of the same mesh in one process). Each run's gathered params must equal those of the
 same steps over 8 positions in one process within the ``STEP_ATOL`` the
 test passes (the gradient is that of one loss: an all-gather whose
 backward summed over the processes would double it), and replicated
@@ -51,9 +55,15 @@ def _digests(sharded, flags):
             "replicated": replicated.pop()}
 
 
-def _train(model, axes, devices, ranks, local_rows, atol):
+def _train(model, axes, devices, ranks, local_rows, atol, ref_axes=None,
+           bitwise=False):
     """Two steps over the mesh (this process's rows of each global batch),
-    checked against the same steps over 8 positions in this process."""
+    checked against the same steps over the positions of ``ref_axes``
+    (default dp 4 x tp 2) in this process: the gathered params within
+    ``atol``, the losses and grad norms within 1e-5 (with ``bitwise``, the
+    losses bit for bit)."""
+    import math
+
     import numpy as np
     import torch
 
@@ -62,7 +72,7 @@ def _train(model, axes, devices, ranks, local_rows, atol):
     from clipx_torch.models import convert
     from clipx_torch.parallel import mesh as mesh_lib
 
-    cfg = tcfg.get_config(model)
+    cfg = tcfg.get_config(model) if isinstance(model, str) else model
     tree = convert.init_params(cfg, 0)
     rng = np.random.RandomState(0)
     size = cfg.vision.image_size
@@ -73,23 +83,25 @@ def _train(model, axes, devices, ranks, local_rows, atol):
         ids[:, 0] = rng.randint(1, 1000, 8)
         ids[:, 1] = cfg.text.vocab_size - 1
         batches.append((pixels, ids))
+    ref_axes = ref_axes or {"dp": 4, "tp": 2}
     runs = []
     for mesh in (mesh_lib.make_mesh(axes, devices, ranks),
-                 mesh_lib.make_mesh({"dp": 4, "tp": 2},
-                                    [torch.device("cpu")] * 8)):
+                 mesh_lib.make_mesh(ref_axes, [torch.device("cpu")]
+                                    * math.prod(ref_axes.values()))):
         tx = ttrain.make_optimizer(1e-3, 0.02, 1, 10)
         state, _ = ttrain.create_train_state(cfg, tx=tx, device="cpu",
                                              params=tree)
         step, shard_state, split = ttrain.make_sharded_train_step(
             cfg, tx, mesh)
         state = shard_state(state)
-        losses = []
+        losses, norms = [], []
         for pixels, ids in batches:
             rows = local_rows if mesh.process_group else slice(None)
             state, m = step(state, *split(pixels[rows], ids[rows]))
             losses.append(float(m["loss"]))
-        runs.append((state, losses))
-    (state, losses), (ref, ref_losses) = runs
+            norms.append(float(m["grad_norm"]))
+        runs.append((state, losses, norms))
+    (state, losses, norms), (ref, ref_losses, ref_norms) = runs
     first = state.params.placements()[0][1]
     flags = ttrain._sharded_flags(first, state.params.specs,
                                   state.params.tp)
@@ -98,8 +110,22 @@ def _train(model, axes, devices, ranks, local_rows, atol):
     worst = max(float(np.abs(ours[k] - want[k]).max()) for k in want)
     assert worst <= atol, (model, axes, worst)
     assert np.allclose(losses, ref_losses, rtol=1e-5), (losses, ref_losses)
+    assert np.allclose(norms, ref_norms, rtol=1e-5), (norms, ref_norms)
+    assert not bitwise or losses == ref_losses, (losses, ref_losses)
     return {"losses": [f"{x:.6f}" for x in losses],
             "trees": _digests(state.params, flags)}
+
+
+def _three_heads():
+    """tiny-test with 3 heads in each tower (the same head widths)."""
+    import dataclasses
+
+    from clipx_torch import config as tcfg
+
+    cfg = tcfg.get_config("tiny-test")
+    return dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, width=96, heads=3),
+        text=dataclasses.replace(cfg.text, width=48, heads=3))
 
 
 def main() -> int:
@@ -146,10 +172,23 @@ def main() -> int:
             "dp4xtp2": _train("tiny-test", {"dp": 4, "tp": 2}, devices,
                               ranks, rows, atol),
             "rn_dp4xtp2": _train("tiny-rn-test", {"dp": 4, "tp": 2},
-                                 devices, ranks, rows, atol)}
+                                 devices, ranks, rows, atol),
+            # split heads: half a head a position, each tp row in one
+            # process, the dp columns across the two
+            "dp2xtp4": _train("tiny-test", {"dp": 2, "tp": 4}, devices,
+                              ranks, rows, atol, {"dp": 2, "tp": 4},
+                              bitwise=True)}
         one, one_ranks = distributed.global_devices([torch.device("cpu")])
         train["dp1xtp2"] = _train("tiny-test", {"dp": 1, "tp": 2}, one,
                                   one_ranks, slice(None), atol)
+        # split heads with a head across the processes: tiny-test widened
+        # to 3 heads a tower on dp 1 x tp 2, one position a process, 1.5
+        # heads each, so the middle head's gradient reaches its columns
+        # only through tp_gather's sum over the process group (with 2
+        # heads, the process boundary of any tp size falls between heads)
+        train["3heads_dp1xtp2"] = _train(
+            _three_heads(), {"dp": 1, "tp": 2}, one, one_ranks,
+            slice(None), atol, {"dp": 1, "tp": 2}, bitwise=True)
         print(f"RESULT top1=self ids={I.tolist()} train={train}", flush=True)
     finally:
         distributed.shutdown()

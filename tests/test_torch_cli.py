@@ -259,7 +259,7 @@ def test_port_imports_neither_jax_nor_clipx():
             "clipx_torch/cli/train.py", "clipx_torch/utils/env.py",
             *(f"clipx_torch/tools/{t}.py" for t in (
                 "make_synth_index", "load_timing", "find_dupes", "kv_tool",
-                "build_codes_direct"))} <= names
+                "build_codes_direct", "convert_checkpoint"))} <= names
     root_tools = {p.stem for p in (ROOT / "tools").glob("*.py")}
     assert {"eval_quality", "kv_tool", "build_codes_direct"} <= root_tools
     bad = [(str(f.relative_to(ROOT)), m) for f in files

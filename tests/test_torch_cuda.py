@@ -1546,3 +1546,80 @@ def test_dp_tp_train_step_on_the_card_matches_the_cpu(cuda_device):
     for key in init:
         np.testing.assert_allclose(got[key] - init[key], want[key] - init[key],
                                    rtol=0, atol=TRAIN_STEP_ATOL, err_msg=key)
+
+
+def test_split_head_tp_encode_on_the_card(cuda_device):
+    """tiny-test's 2 heads over dp 1 x tp 8 of cuda:0 listed 8 times (a
+    quarter of a head a position; bf16, plain attention) against the
+    single-device encode on the card and the CPU's f32 encode: cosine >=
+    0.99, texts too, no kernel of the port launched."""
+    from clipx_torch.parallel.mesh import make_mesh
+
+    cfg = tcfg.get_config("tiny-test")
+    params = tconvert.init_params(cfg, 0)
+    images = np.random.default_rng(5).integers(0, 256, (12, 32, 32, 3),
+                                               dtype=np.uint8)
+    texts = ["a red square", "blue sky over a city"]
+    tp = Encoder(cfg, params, mesh=make_mesh({"dp": 1, "tp": 8},
+                                             [cuda_device] * 8), tp="tp")
+    before = tps.launch_counts()
+    out, txt = tp.encode_images(images), tp.encode_texts(texts)
+    assert tps.launch_counts() == before
+    for enc in (Encoder(cfg, params, device=cuda_device),
+                Encoder(cfg, params, device="cpu")):
+        for a, b in ((out, enc.encode_images(images)),
+                     (txt, enc.encode_texts(texts))):
+            assert a.shape == b.shape
+            assert float((a * b).sum(axis=1).min()) >= 0.99
+
+
+def test_split_head_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """Three dp 2 x tp 4 steps of tiny-test (half a head a position) over
+    cuda:0 listed 8 times against the same steps over 8 CPU positions: the
+    losses within TRAIN_LOSS_RTOL, every parameter's update within
+    TRAIN_STEP_ATOL, no kernel of the port launched, the replicated leaves
+    of the four tp columns bitwise equal on the card."""
+    from clipx_torch import train as ttrain
+    from clipx_torch.parallel.mesh import make_mesh
+    from clipx_torch.text.tokenizer import ClipTokenizer
+
+    cfg = tcfg.get_config("tiny-test")
+    tree = tconvert.init_params(cfg, 0)
+    rng = np.random.default_rng(2)
+    ids = ClipTokenizer()([f"caption {i}" for i in range(8)],
+                          context_length=cfg.text.context_length)
+    batches = [(rng.standard_normal((8, 32, 32, 3)).astype(np.float32), ids)
+               for _ in range(3)]
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        mesh = make_mesh({"dp": 2, "tp": 4}, [dev] * 8)
+        tx = ttrain.make_optimizer(TRAIN_LR, 0.02, 1, 3)
+        state, _ = ttrain.create_train_state(cfg, tx=tx, device="cpu",
+                                             params=tree)
+        step, shard_state, split = ttrain.make_sharded_train_step(
+            cfg, tx, mesh)
+        state = shard_state(state)
+        before = tps.launch_counts()
+        losses = []
+        for px, i in batches:
+            state, m = step(state, *split(px, i))
+            losses.append(float(m["loss"]))
+        assert tps.launch_counts() == before
+        runs.append((state, losses))
+    (card, cl), (cpu, pl) = runs
+    np.testing.assert_allclose(cl, pl, rtol=TRAIN_LOSS_RTOL)
+    trees = [t for _, t in card.params.placements()]
+    assert len(trees) == 4
+    flags = ttrain._sharded_flags(trees[0], card.params.specs,
+                                  card.params.tp)
+    for other in trees[1:]:
+        for a, b, sharded in zip(ttrain.tree_leaves(trees[0]),
+                                 ttrain.tree_leaves(other), flags):
+            if not sharded:
+                assert torch.equal(a, b)
+    init = tconvert._flatten(tree)
+    got = tconvert._flatten(card.params.gather())
+    want = tconvert._flatten(cpu.params.gather())
+    for key in init:
+        np.testing.assert_allclose(got[key] - init[key], want[key] - init[key],
+                                   rtol=0, atol=TRAIN_STEP_ATOL, err_msg=key)

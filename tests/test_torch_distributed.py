@@ -4,9 +4,12 @@ counterpart of ``tests/test_distributed.py``: cross-process
 initialization, a corpus-sharded search spanning both processes' shards (4
 CPU shards each), and the dp x tp train step whose gradients couple the
 processes (``tests/_torch_dist_worker.py``: dp 4 x tp 2 with 4 positions a
-process, dp 1 x tp 2 with tp across the processes, and the ResNet tower),
-each held to the same steps in one process within
-``tests/test_torch_train.py``'s ``STEP_ATOL``.
+process, dp 1 x tp 2 with tp across the processes, the ResNet tower, dp 2
+x tp 4 with half a head a position and each tp row in one process, and a
+3-head tiny-test on dp 1 x tp 2 whose middle head straddles the
+processes), each held to the same steps in one process within
+``tests/test_torch_train.py``'s ``STEP_ATOL`` (the split-head losses bit
+for bit).
 """
 
 import os
@@ -68,3 +71,5 @@ def test_two_process_sharded_search():
     # losses are the global batch's, and the trees' digests gathered
     assert results[0] == results[1], results
     assert "dp4xtp2" in results[0] and "dp1xtp2" in results[0], results
+    assert "'dp2xtp4'" in results[0], results
+    assert "'3heads_dp1xtp2'" in results[0], results

@@ -10,7 +10,12 @@ against the root tools/ scripts that run clipx's modules.
   .ivf) printing clipx's stdout on the same store and files;
 - build_codes_direct: tests/test_direct_build.py's case, the generator
   bit-identical to clipx's, and each package booting the other's
-  codes-only deployment with equal (D, I).
+  codes-only deployment with equal (D, I);
+- convert_checkpoint: a tiny OpenAI-layout, HuggingFace-layout and
+  TorchScript checkpoint through both converters give the same stdout and
+  the same .npz arrays, the port's run as ``python -m`` with neither JAX
+  nor clipx imported; a HuggingFace file without --model is refused with
+  the root tool's error.
 """
 
 import argparse
@@ -18,6 +23,8 @@ import json
 import os
 import shutil
 import struct
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -25,14 +32,17 @@ import torch
 from PIL import Image
 
 from clipx.cli import common as jcommon
+from clipx_torch import config as tcfg
 from clipx_torch.cli import build_index as tbuild
 from clipx_torch.cli import common as tcommon
+from clipx_torch.models import convert as tconvert
 from clipx_torch.search import codes_io as tcodes
 from clipx_torch.search.engine import IndexWriter
 from clipx_torch.tools import (build_codes_direct, find_dupes, kv_tool,
                                load_timing, make_synth_index)
 from tests.test_torch_ivf import _assert_same_results
 from tools import build_codes_direct as jbcd
+from tools import convert_checkpoint as jconvert_checkpoint
 from tools import find_dupes as jfind_dupes
 from tools import kv_tool as jkv_tool
 from tools import load_timing as jload_timing
@@ -516,3 +526,140 @@ def test_tools_take_the_card_unless_the_cpu_is_asked_for(tmp_path,
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_codes_direct.main([str(tmp_path / "d"), "--rows", "1000",
                                  "--dim", "16"])
+
+
+# -- convert_checkpoint -------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _to_hf_state_dict(params, cfg):
+    """Inverse of from_hf_state_dict (ViT): a HuggingFace CLIPModel's keys
+    and layouts."""
+    v = cfg.vision
+    vis, txt = params["visual"], params["text"]
+    pk = vis["patch_embed"]["kernel"]
+    sd = {"vision_model.embeddings.patch_embedding.weight": pk.reshape(
+              v.patch_size, v.patch_size, 3, v.width).transpose(3, 2, 0, 1),
+          "vision_model.embeddings.class_embedding": vis["class_embedding"],
+          "vision_model.embeddings.position_embedding.weight":
+              vis["pos_embedding"],
+          "vision_model.pre_layrnorm.weight": vis["ln_pre"]["scale"],
+          "vision_model.pre_layrnorm.bias": vis["ln_pre"]["bias"],
+          "vision_model.post_layernorm.weight": vis["ln_post"]["scale"],
+          "vision_model.post_layernorm.bias": vis["ln_post"]["bias"],
+          "visual_projection.weight": vis["proj"].T,
+          "text_model.embeddings.token_embedding.weight":
+              txt["token_embedding"],
+          "text_model.embeddings.position_embedding.weight":
+              txt["pos_embedding"],
+          "text_model.final_layer_norm.weight": txt["ln_final"]["scale"],
+          "text_model.final_layer_norm.bias": txt["ln_final"]["bias"],
+          "text_projection.weight": txt["text_projection"].T,
+          "logit_scale": params["logit_scale"]}
+    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj",
+             "wv": "self_attn.v_proj", "wo": "self_attn.out_proj",
+             "w1": "mlp.fc1", "w2": "mlp.fc2"}
+    biases = {"bq": "self_attn.q_proj", "bk": "self_attn.k_proj",
+              "bv": "self_attn.v_proj", "bo": "self_attn.out_proj",
+              "b1": "mlp.fc1", "b2": "mlp.fc2"}
+    for prefix, blocks in (("vision_model.encoder", vis["blocks"]),
+                           ("text_model.encoder", txt["blocks"])):
+        leaves = {**blocks["attn"], **blocks["mlp"]}
+        for i in range(blocks["attn"]["wq"].shape[0]):
+            p = f"{prefix}.layers.{i}"
+            for key, name in names.items():
+                sd[f"{p}.{name}.weight"] = leaves[key][i].T
+            for key, name in biases.items():
+                sd[f"{p}.{name}.bias"] = leaves[key][i]
+            for ln, hf in (("ln_1", "layer_norm1"), ("ln_2", "layer_norm2")):
+                sd[f"{p}.{hf}.weight"] = blocks[ln]["scale"][i]
+                sd[f"{p}.{hf}.bias"] = blocks[ln]["bias"][i]
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in sd.items()}
+
+
+class _Holder(torch.nn.Module):
+    """Nested modules holding a state dict's tensors under its keys, for a
+    TorchScript archive as OpenAI ships them."""
+
+    def __init__(self, sd, prefix=""):
+        super().__init__()
+        children = {}
+        for key, val in sd.items():
+            head, _, rest = key.partition(".")
+            if rest:
+                children.setdefault(head, {})[rest] = val
+            else:
+                self.register_buffer(head, val)
+        for head, sub in children.items():
+            self.add_module(head, _Holder(sub))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+def _checkpoint(layout, path):
+    from tests.test_torch_models import _to_openai_state_dict
+
+    cfg = tcfg.get_config("tiny-test")
+    params = tconvert.init_params(cfg, 3)
+    if layout == "hf":
+        torch.save(_to_hf_state_dict(params, cfg), path)
+    elif layout == "openai":
+        torch.save(_to_openai_state_dict(params, cfg), path)
+    else:
+        torch.jit.save(torch.jit.script(
+            _Holder(_to_openai_state_dict(params, cfg))), path)
+
+
+_AS_MODULE = (
+    "import runpy, sys\n"
+    "try:\n"
+    "    runpy.run_module('clipx_torch.tools.convert_checkpoint',\n"
+    "                     run_name='__main__', alter_sys=True)\n"
+    "finally:\n"
+    "    assert not [m for m in sys.modules\n"
+    "                if m.split('.')[0] in ('jax', 'jaxlib', 'clipx')]\n")
+
+
+def _port_converter(args):
+    """python -m clipx_torch.tools.convert_checkpoint ARGS in a process of
+    its own, which fails if it imported JAX or clipx."""
+    return subprocess.run(
+        [sys.executable, "-c", _AS_MODULE, *args], cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "PYTHONPATH": ROOT})
+
+
+@pytest.mark.parametrize("layout", ["openai", "hf", "torchscript"])
+def test_convert_checkpoint_matches_the_root_tool(layout, tmp_path, capsys):
+    pt = str(tmp_path / "tiny.pt")
+    _checkpoint(layout, pt)
+    model = ["--model", "tiny-test"] if layout == "hf" else []
+    ref_out, out = str(tmp_path / "ref.npz"), str(tmp_path / "ours.npz")
+    assert jconvert_checkpoint.main([pt, "--out", ref_out, *model]) == 0
+    want = capsys.readouterr().out.replace(ref_out, "OUT")
+    ours = _port_converter([pt, "--out", out, *model])
+    assert ours.returncode == 0, ours.stderr[-3000:]
+    assert ours.stdout.replace(out, "OUT") == want
+    assert want.startswith(f"layout: {'hf' if layout == 'hf' else 'openai'}")
+    a, b = np.load(ref_out), np.load(out)
+    assert sorted(a.files) == sorted(b.files)
+    for key in a.files:
+        assert a[key].dtype == b[key].dtype, key
+        np.testing.assert_array_equal(b[key], a[key], err_msg=key)
+
+
+def test_convert_checkpoint_hf_without_model_is_refused(tmp_path, capsys):
+    pt = str(tmp_path / "hf.pt")
+    _checkpoint("hf", pt)
+    with pytest.raises(SystemExit) as ref:
+        jconvert_checkpoint.main([pt, "--out", str(tmp_path / "r.npz")])
+    want = capsys.readouterr().err.splitlines()[-1]
+    ours = _port_converter([pt, "--out", str(tmp_path / "o.npz")])
+    assert ours.returncode == ref.value.code == 2
+    assert ours.stderr.splitlines()[-1].split(": ", 1)[1] == \
+        want.split(": ", 1)[1]
+    assert "--model is required for HuggingFace" in want
+    assert not os.path.exists(tmp_path / "o.npz")

@@ -95,11 +95,12 @@ def test_mesh_positions_are_row_major_in_the_given_order():
 def test_shard_params_slices_whole_heads_and_round_trips():
     """Each tp column holds its contiguous slice of the sharded leaves
     (one tree a column on a repeated device), the replicated leaves whole;
-    gather() gives the tree back bitwise. A split head raises, naming the
-    leaf."""
+    gather() gives the tree back bitwise. At tp 4 each column holds half a
+    head (clipx's column slice); a sharded dim that does not divide raises,
+    naming the leaf."""
     cfg = tcfg.get_config("tiny-test")
     tree = tconvert.init_params(cfg, 0)
-    sh = tmesh.shard_params(tree, _tmesh(), cfg=cfg)
+    sh = tmesh.shard_params(tree, _tmesh())
     assert [pos for pos, _ in sh.placements()] == [0, 1]
     assert all(sh.trees[p] is sh.trees[p % 2] for p in range(8))
     wq = tree["visual"]["blocks"]["attn"]["wq"]
@@ -116,9 +117,15 @@ def test_shard_params_slices_whole_heads_and_round_trips():
     back = _flat(sh.gather())
     for key, val in tconvert._flatten(tree).items():
         np.testing.assert_array_equal(back[key], val, err_msg=key)
-    with pytest.raises(ValueError, match="visual/blocks/attn/wq: 2 heads"):
-        tmesh.shard_params(tree, tmesh.make_mesh({"dp": 1, "tp": 4},
-                                                 [CPU] * 4), cfg=cfg)
+    quarter = tmesh.shard_params(tree, tmesh.make_mesh({"dp": 1, "tp": 4},
+                                                       [CPU] * 4))
+    w, r = wq.shape[-1] // 4, wo.shape[1] // 4
+    np.testing.assert_array_equal(
+        quarter.trees[3]["visual"]["blocks"]["attn"]["wq"].numpy(),
+        wq[..., 3 * w:])
+    np.testing.assert_array_equal(
+        quarter.trees[1]["text"]["blocks"]["attn"]["wo"].numpy(),
+        wo[:, r:2 * r])
     with pytest.raises(ValueError, match="visual/patch_embed/kernel: dim 1 "
                        "of size 64 does not split"):
         tmesh.shard_params(tree, tmesh.make_mesh({"dp": 1, "tp": 3},
@@ -144,7 +151,7 @@ def test_tp_encode_matches_clipx():
     ref_txt = np.asarray(jax.jit(lambda p, x: jclip.encode_text(p, jc, x))(
         jparams, jax.device_put(ids, bsh)))
     mesh = _tmesh()
-    sh = tmesh.shard_params(tree, mesh, cfg=cfg)
+    sh = tmesh.shard_params(tree, mesh)
     img, txt = [], []
     for i, row in enumerate(mesh.groups("tp")):
         g = Group(mesh, row)
@@ -454,4 +461,247 @@ def test_checkpoints_cross_between_dp_tp_and_one_device(model, tmp_path):
     ttrain.save_params(out, state.params)
     saved = tconvert.load_params(out)
     for key, val in tconvert._flatten(saved).items():
+        np.testing.assert_array_equal(val, fw[key], err_msg=key)
+
+
+# -- split heads: a tp size that does not divide the heads ---------------------
+#
+# tiny-test has 2 heads of 32 in each tower: over {"dp": 2, "tp": 4} each
+# position holds half a head, over {"dp": 1, "tp": 8} a quarter. clipx's
+# GSPMD runs both from the same column and row specs; the port gathers q, k
+# and v over the row (tp_gather) and each position attends over the heads
+# its columns overlap. The tolerances are those of the whole-heads cases.
+
+SPLIT = [(2, 4), (1, 8)]
+SPLIT_IDS = ["dp2xtp4", "dp1xtp8"]
+
+
+@pytest.mark.parametrize("dp,tp", SPLIT, ids=SPLIT_IDS)
+def test_split_head_shards_round_trip(dp, tp):
+    """shard_params gives tp column j the columns j W/tp ... (j+1) W/tp of
+    wq/wk/wv/w1 and their biases and those rows of wo/w2 (clipx's specs,
+    part of a head each); gather() gives the tree back bitwise."""
+    cfg = tcfg.get_config("tiny-test")
+    tree = tconvert.init_params(cfg, 0)
+    sh = tmesh.shard_params(tree, _tmesh(dp, tp))
+    assert len(sh.placements()) == tp
+    flat = tconvert._flatten(tree)
+    for j in range(tp):
+        part = _flat(sh.trees[j])
+        for key, val in flat.items():
+            spec = sh.specs
+            for name in key.split("/"):
+                spec = spec[name]
+            if "tp" not in spec:
+                np.testing.assert_array_equal(part[key], val, err_msg=key)
+                continue
+            dim = spec.index("tp")
+            size = val.shape[dim] // tp
+            np.testing.assert_array_equal(
+                part[key], np.take(val, range(j * size, (j + 1) * size),
+                                   axis=dim), err_msg=key)
+    back = _flat(sh.gather())
+    for key, val in flat.items():
+        np.testing.assert_array_equal(back[key], val, err_msg=key)
+
+
+@pytest.mark.parametrize("dp,tp", SPLIT, ids=SPLIT_IDS)
+def test_split_head_tp_encode_matches_clipx(dp, tp):
+    """Each dp row's share through the split-head TP forward against
+    clipx's jit of encode_image/encode_text over its TP-sharded params on
+    the same mesh (2e-4, as test_tp_encode_matches_clipx); every position
+    of a row gets the same bits."""
+    cfg = tcfg.get_config("tiny-test")
+    jc = jcfg.get_config("tiny-test")
+    tree = tconvert.init_params(cfg, 0)
+    pixels, ids = _batch("tiny-test")
+    jm = _jmesh(dp, tp)
+    jparams = jmesh.shard_params(jax.tree_util.tree_map(jnp.asarray, tree),
+                                 jm)
+    bsh = jmesh.batch_sharding(jm)
+    ref_img = np.asarray(jax.jit(lambda p, x: jclip.encode_image(p, jc, x))(
+        jparams, jax.device_put(pixels, bsh)))
+    ref_txt = np.asarray(jax.jit(lambda p, x: jclip.encode_text(p, jc, x))(
+        jparams, jax.device_put(ids, bsh)))
+    mesh = _tmesh(dp, tp)
+    sh = tmesh.shard_params(tree, mesh)
+    share = BATCH // dp
+    img, txt = [], []
+    for i, row in enumerate(mesh.groups("tp")):
+        g = Group(mesh, row)
+        trees = [sh.trees[p] for p in row]
+        rows_of = slice(share * i, share * (i + 1))
+        px = [torch.from_numpy(pixels[rows_of])] * tp
+        ti = [torch.from_numpy(ids[rows_of])] * tp
+        a = ttensor.encode_image(trees, cfg, px, g)
+        b = ttensor.encode_text(trees, cfg, ti, g)
+        assert all(torch.equal(a[0], x) for x in a)
+        assert all(torch.equal(b[0], x) for x in b)
+        img.append(a[0].numpy())
+        txt.append(b[0].numpy())
+    np.testing.assert_allclose(np.concatenate(img), ref_img, rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(np.concatenate(txt), ref_txt, rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("dp,tp", SPLIT, ids=SPLIT_IDS)
+def test_split_head_encoder_matches_clipx_single_device(dp, tp):
+    """Encoder(mesh=..., tp="tp") at a tp size that splits the heads
+    against clipx's single-device Encoder (2e-5 / 2e-6, as
+    test_encoder_dp_tp_matches_clipx_single_device), images and texts."""
+    cfg = tcfg.get_config("tiny-test")
+    jc = jcfg.get_config("tiny-test")
+    tree = tconvert.init_params(cfg, 1)
+    single = JEncoder(jc, jax.tree_util.tree_map(jnp.asarray, tree))
+    enc = TEncoder(cfg, tree, mesh=_tmesh(dp, tp), tp="tp")
+    assert enc.attn_impl == "plain"
+    rng = np.random.RandomState(2)
+    s = cfg.vision.image_size
+    batch = rng.randint(0, 256, (5, s, s, 3), dtype=np.uint8)
+    np.testing.assert_allclose(enc.encode_images(batch),
+                               single.encode_images(batch),
+                               rtol=2e-5, atol=2e-6)
+    texts = ["a red square", "blue sky over a city"]
+    np.testing.assert_allclose(enc.encode_texts(texts),
+                               single.encode_texts(texts),
+                               rtol=2e-5, atol=2e-6)
+
+
+def _clipx_grads(tree, batch):
+    jc = jcfg.get_config("tiny-test")
+    (loss, _), grads = jax.jit(jax.value_and_grad(
+        lambda p: jtrain.contrastive_loss(
+            p, jc, jnp.asarray(batch[0]), jnp.asarray(batch[1]),
+            attn_impl="plain"),
+        has_aux=True))(jax.tree_util.tree_map(jnp.asarray, tree))
+    return float(loss), tconvert._flatten(
+        jax.tree_util.tree_map(np.asarray, grads))
+
+
+def _grad_error(ours, ref):
+    """Each leaf's largest |ours - ref| over its GRAD_TOL bound (the scale
+    of test_sharded_step_matches_clipx): at most 1 where they agree."""
+    top = max(float(np.abs(r).max()) for r in ref.values())
+    return {key: float(np.abs(ours[key] - r).max()) / (
+        GRAD_TOL * max(float(np.abs(r).max()), GRAD_FLOOR * top))
+        for key, r in ref.items()}
+
+
+@pytest.mark.parametrize("dp,tp", SPLIT, ids=SPLIT_IDS)
+def test_split_head_sharded_step_matches_clipx(dp, tp):
+    """The split-head step against clipx's make_sharded_train_step on the
+    same mesh: the first loss and each leaf's gradient (against jax.grad
+    of the whole batch's loss), every parameter's update after three
+    steps; replicated leaves and moments bitwise across replicas."""
+    cfg = tcfg.get_config("tiny-test")
+    jc = jcfg.get_config("tiny-test")
+    tree = tconvert.init_params(cfg, 0)
+    batches = [_batch("tiny-test", seed) for seed in (1, 2, 3)]
+    jloss, jflat = _clipx_grads(tree, batches[0])
+    jm = _jmesh(dp, tp)
+    jtx = jtrain.make_optimizer(LR, 0.02, 1, 3)
+    jstate = jtrain.TrainState(jax.tree_util.tree_map(jnp.asarray, tree),
+                               jtx.init(tree), jnp.zeros((), jnp.int32))
+    jstep, jshard, bsh = jtrain.make_sharded_train_step(jc, jtx, jm)
+    jlosses = []
+    for px, ids in batches:
+        jstate, m = jstep(jshard(jstate), jax.device_put(px, bsh),
+                          jax.device_put(ids, bsh))
+        jlosses.append(float(m["loss"]))
+    jparams = tconvert._flatten(jax.tree_util.tree_map(np.asarray,
+                                                       jstate.params))
+
+    state, step, split, tx = _sharded("tiny-test", tree, _tmesh(dp, tp),
+                                      tx_cls=_Recording)
+    losses = []
+    for i, (px, ids) in enumerate(batches):
+        state, m = step(state, *split(px, ids))
+        losses.append(float(m["loss"]))
+        if i == 0:
+            grads = _gathered_grads(state.params, tx.seen)
+    np.testing.assert_allclose(losses[0], jloss, rtol=LOSS_RTOL)
+    np.testing.assert_allclose(losses, jlosses, rtol=LOSS_RTOL)
+    assert set(jflat) == set(grads)
+    worst = _grad_error(grads, jflat)
+    assert max(worst.values()) <= 1.0, worst
+    init = tconvert._flatten(tree)
+    ours = _flat(state.params.gather())
+    for key in jparams:
+        np.testing.assert_allclose(ours[key] - init[key],
+                                   jparams[key] - init[key], rtol=0,
+                                   atol=STEP_ATOL, err_msg=key)
+    _replicas_equal(state.params)
+    _replicas_equal(state.opt_state.mu)
+
+
+def test_split_head_backward_sums_the_row_before_slicing(monkeypatch):
+    """At dp 1 x tp 4 head 0 spans positions 0 and 1, and each computes it
+    for its own half of the output columns. tp_gather's backward (the sum
+    over the row, then each position's slice) gives the q/k/v gradients
+    of jax.grad; gather's backward (each position's slice of its own
+    gradient only) loses the other position's share of that head, and the
+    gradients of wq/wk/wv leave GRAD_TOL by far."""
+    tree = tconvert.init_params(tcfg.get_config("tiny-test"), 0)
+    batch = _batch("tiny-test", 1)
+    _, ref = _clipx_grads(tree, batch)
+
+    def grads():
+        state, step, split, tx = _sharded("tiny-test", tree, _tmesh(1, 4),
+                                          tx_cls=_Recording)
+        state, _ = step(state, *split(*batch))
+        return _grad_error(_gathered_grads(state.params, tx.seen), ref)
+
+    good = grads()
+    assert max(good.values()) <= 1.0, good
+    monkeypatch.setattr(ttensor, "tp_gather", ttensor.gather)
+    bad = grads()
+    for tower in ("visual", "text"):
+        for w in ("wq", "wk", "wv"):
+            assert bad[f"{tower}/blocks/attn/{w}"] > 10.0, bad
+
+
+@pytest.mark.parametrize("dp,tp", SPLIT, ids=SPLIT_IDS)
+def test_split_head_remat_and_checkpoints(dp, tp, tmp_path):
+    """--remat under split heads gives the same losses and params bit for
+    bit; the trained state's checkpoint restores bitwise into one device
+    and back into the split layout, and params.npz is the whole tree."""
+    cfg = tcfg.get_config("tiny-test")
+    tree = tconvert.init_params(cfg, 0)
+    batches = [_batch("tiny-test", seed) for seed in (1, 2)]
+    runs = []
+    for remat in (False, True):
+        state, step, split, tx = _sharded("tiny-test", tree, _tmesh(dp, tp),
+                                          remat=remat, total=5)
+        losses = []
+        for px, ids in batches:
+            state, m = step(state, *split(px, ids))
+            losses.append(float(m["loss"]))
+        runs.append((losses, _flat(state.params.gather())))
+    assert runs[0][0] == runs[1][0]
+    for key, val in runs[0][1].items():
+        np.testing.assert_array_equal(runs[1][1][key], val, err_msg=key)
+
+    path = str(tmp_path / "latest")
+    ttrain.save_train_state(path, state)
+    whole = ttrain.unshard_state(state)
+    fresh, _ = ttrain.create_train_state(cfg, tx=tx, device="cpu",
+                                         params=tconvert.init_params(cfg, 5))
+    one = ttrain.restore_train_state(path, fresh)
+    assert one.step == 2 and one.opt_state.count == 2
+    for a, b in ((one.params, whole.params), (one.opt_state.mu,
+                                              whole.opt_state.mu),
+                 (one.opt_state.nu, whole.opt_state.nu)):
+        fa, fb = _flat(a), _flat(b)
+        for key in fb:
+            np.testing.assert_array_equal(fa[key], fb[key], err_msg=key)
+    _, shard_state, _ = ttrain.make_sharded_train_step(cfg, tx,
+                                                       _tmesh(dp, tp))
+    back = shard_state(one)
+    fb, fw = _flat(back.params.gather()), _flat(whole.params)
+    for key in fw:
+        np.testing.assert_array_equal(fb[key], fw[key], err_msg=key)
+    out = str(tmp_path / "params.npz")
+    ttrain.save_params(out, state.params)
+    for key, val in tconvert._flatten(tconvert.load_params(out)).items():
         np.testing.assert_array_equal(val, fw[key], err_msg=key)

@@ -156,6 +156,39 @@ def test_train_dp_tp_mesh_is_refused(pair_dir, flags, monkeypatch, capsys):
     assert "step 2/2" in out
 
 
+# meshes whose tp size splits tiny-test's 2 heads, and their mesh lines
+SPLIT_MESH = {("--tp", "4"): "dp=2 tp=4 on 8",
+              ("--dp", "2", "--tp", "4"): "dp=2 tp=4 on 8",
+              ("--dp", "1", "--tp", "8"): "dp=1 tp=8 on 8"}
+
+
+@pytest.mark.parametrize("flags", [list(f) for f in SPLIT_MESH])
+def test_train_split_head_mesh_trains_like_clipx(pair_dir, tmp_path, flags,
+                                                 monkeypatch, capsys):
+    """A tp size that does not divide the heads trains, as clipx's CLI does
+    on its 8 virtual devices: from one --init-checkpoint both CLIs print
+    the same mesh line and step lines (losses within LOSS_ATOL) over 8
+    positions (the one CPU listed 8 times, as a test-only device list)."""
+    init = str(tmp_path / "init.npz")
+    tconvert.save_params(init, tconvert.init_params(
+        tcfg.get_config("tiny-test"), 0))
+    argv = [pair_dir, "--model", "tiny-test", "--batch-size", "8", "--lr",
+            "1e-3", "--warmup-steps", "1", "--steps", "2", "--log-every",
+            "1", "--init-checkpoint", init, *flags]
+    assert jtrain_cli.main(argv) == 0
+    jout = capsys.readouterr().out
+    monkeypatch.setattr(train_cli.mesh_lib, "visible_devices",
+                        lambda kind="cuda": [torch.device("cpu")] * 8)
+    assert train_cli.main(argv + CPU) == 0
+    tout = capsys.readouterr().out
+    line = f"mesh: {SPLIT_MESH[tuple(flags)]} device(s)"
+    assert line in tout and line in jout
+    js, ts = _step_lines(jout), _step_lines(tout)
+    assert [s for s, _, _ in ts] == [s for s, _, _ in js] == ["1/2", "2/2"]
+    for (_, jl, _), (_, tl, _) in zip(js, ts):
+        assert abs(jl - tl) <= LOSS_ATOL
+
+
 def test_train_cuda_without_a_gpu_raises(pair_dir):
     import torch
 
