@@ -45,6 +45,17 @@ these phases, printing one JSON line per phase:
               search, the two encodes before phase coded_pq.
    coded_pq — (after phase resnet) the pq tier of phase coded, once its
               encode has ended: the same loads, searches and checks.
+   parity   — the real-weight parity gate (clipx_torch/tools/
+              parity_check.py). With $CLIPX_CHECKPOINT, the BPE merge table
+              and the golden file present, its golden case on the card at
+              cosine >= 0.999; without them (the line lists what is
+              missing), its machinery at ViT-B/32 full width on seeded
+              weights: the tree written as an .npz to a temporary
+              directory, a golden file from phase encode's CPU f32 encoder,
+              Encoder.create(checkpoint=) on the card against it (>= 0.99),
+              the tree against the preset's; the six golden images as one
+              batch (B1) and one at a time (B2), both counted; its seconds
+              beside a 30 s budget.
 7. profile  — torch.profiler over two 128-image encodes: device time by
               kernel name, and the card's busy share of the host's wall
               per batch without the profiler (and with it).
@@ -179,10 +190,11 @@ these phases, printing one JSON line per phase:
 
 They run in this order: env, kernels, encode, text, search, coded (cli
 and quality beside it), profile, preprocess, int8, fused, long, resnet,
-coded_pq, ivf, serve, sharded, train, tp, tools. Phases 3-6 are the main
-path of ViT-B/32 (which must launch none of the opt-in kernels B5-B7),
-phase coded_pq the pq tier's (B11 only), phase preprocess the canvas path
-(B1 and B2 only),
+coded_pq, parity, ivf, serve, sharded, train, tp, tools. Phases 3-6 are
+the main path of ViT-B/32 (which must launch none of the opt-in kernels
+B5-B7), phase coded_pq the pq tier's (B11 only), phase parity the parity
+gate's (B1 and B2 only), phase preprocess the canvas path (B1 and B2
+only),
 phase ivf the IVF path (B11 only), phase serve the HTTP service's path
 (B1, B2 and B11 only; each of its parts counted on its own), phase sharded
 the sharded path (B1 and B11 only), phases int8
@@ -305,6 +317,12 @@ PROFILE_TRIES = 5
 # lane-packed PQ scan (pq_scan_kernel<QW>), replaced by the one-hot scan
 RETIRED_KERNELS = ("short_sdpa", "long_sdpa_kernel", "gemm_s8_kernel",
                    "pq_scan_kernel<")
+# torch.cuda._sleep's kernel, launched first in every profiler session and
+# left out of its results: on the H100 every session of one run left out
+# one launch of the first kernel that fn launches (B9's attention step,
+# 19 of 20 calls in each of PROFILE_TRIES sessions), as one card test's
+# session left out the first of B6's two row quantizers
+PRIMER_KERNEL = "spin_kernel"
 
 
 def _profiled(fn, iters: int, host_ops: bool = True):
@@ -314,7 +332,8 @@ def _profiled(fn, iters: int, host_ops: bool = True):
     sessions, and counted in EMPTY_PROFILES: on the H100 one such session
     came back empty for a kernel that the same code had profiled in earlier
     runs. A kernel of a retired source (RETIRED_KERNELS) fails the run.
-    With ``host_ops=False`` the session records CUDA activity only: a dp x
+    Each session first launches a throwaway kernel (PRIMER_KERNEL), which
+    the results leave out. With ``host_ops=False`` the session records CUDA activity only: a dp x
     tp step launches tens of thousands of host ops, whose records make a
     CPU-side profile take tens of seconds and inflate the wall."""
     from torch.autograd import DeviceType
@@ -325,6 +344,8 @@ def _profiled(fn, iters: int, host_ops: bool = True):
         activities.append(ProfilerActivity.CPU)
     for attempt in range(PROFILE_TRIES):
         with profile(activities=activities) as prof:
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(iters):
                 fn()
@@ -333,7 +354,8 @@ def _profiled(fn, iters: int, host_ops: bool = True):
         kernels = sorted(((e.key, e.self_device_time_total / 1e3 / iters,
                            e.count / iters) for e in prof.key_averages()
                           if e.device_type == DeviceType.CUDA
-                          and e.self_device_time_total > 0),
+                          and e.self_device_time_total > 0
+                          and PRIMER_KERNEL not in e.key),
                          key=lambda r: -r[1])
         if kernels:
             break
@@ -1455,6 +1477,96 @@ def text_latency(enc) -> dict:
 
 def phase_text(enc) -> dict:
     info = {"phase": "text", **text_latency(enc)}
+    emit(info)
+    return info
+
+
+# ---------------------------------------------------------------------------
+# phase parity: the real-weight parity gate (clipx_torch/tools/parity_check)
+# ---------------------------------------------------------------------------
+
+# tools/make_golden.py's prompts and images (copied: this script imports
+# nothing of the root tools/ folder)
+GOLDEN_PROMPTS = [
+    "a photo of a cat",
+    "a diagram of the solar system",
+    "two people walking on a beach at sunset",
+    "macro shot of a dew drop on a leaf",
+    "screenshot of a terminal with green text",
+    "an oil painting of mountains in winter",
+]
+PARITY_MODEL = "ViT-B/32"   # unarmed: the preset of the seeded tree
+PARITY_BUDGET_S = 30.0
+
+
+def golden_images(size: int, n: int = 6) -> np.ndarray:
+    """tools/make_golden.py's synthetic_images: gradients and checkers."""
+    rng = np.random.RandomState(0)
+    out = np.zeros((n, size, size, 3), np.uint8)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    for i in range(n):
+        r = 127 + 127 * np.sin(2 * np.pi * (xx * (i + 1) + rng.rand()))
+        g = 255 * yy
+        b = 255 * (((xx * 8).astype(int) + (yy * 8).astype(int)) % 2)
+        out[i] = np.stack([r, g, b.astype(np.float32)], -1).astype(np.uint8)
+    return out
+
+
+def phase_parity(device, cpu) -> dict:
+    """The real-weight parity gate on the card. Armed ($CLIPX_CHECKPOINT,
+    the BPE merge table and the golden file all present): the golden case
+    at clipx's cosine 0.999. Not armed: the gate's machinery at ViT-B/32
+    full width on seeded weights, i.e. the seed-0 tree written as an .npz
+    into a temporary directory, a golden file in make_golden's layout from
+    ``cpu`` (phase encode's CPU f32 encoder of that tree), and the card's
+    bf16 Encoder.create(checkpoint=that .npz) held to it at COS_MIN. Either
+    way the checkpoint's tree must match its preset's, and the golden
+    images as one batch (bucket 8) must launch B1 once a layer and each
+    image alone (bucket 1) B2 once a layer."""
+    from clipx_torch import config as config_lib
+    from clipx_torch.models import convert
+    from clipx_torch.ops import packed_sdpa as ps
+    from clipx_torch.runtime.encoder import Encoder
+    from clipx_torch.text.tokenizer import ClipTokenizer
+    from clipx_torch.tools import parity_check as pc
+
+    t0 = time.perf_counter()
+    ckpt, golden = os.environ.get("CLIPX_CHECKPOINT"), pc.golden_path()
+    missing = pc.missing_artifacts(ckpt, golden, ClipTokenizer())
+    info = {"phase": "parity", "armed": not missing}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parity_") as tmp:
+        if missing:
+            emit({"phase": "parity", "armed": False, "missing": missing})
+            model, threshold = PARITY_MODEL, COS_MIN
+            ckpt = os.path.join(tmp, "vit_b32.npz")
+            golden = os.path.join(tmp, "clip_golden.npz")
+            convert.save_params(ckpt, convert.init_params(
+                config_lib.get_config(model), SEED))
+            images = golden_images(cpu.image_size)
+            np.savez(golden, model=model, texts=np.array(GOLDEN_PROMPTS),
+                     text_emb=cpu.encode_texts(GOLDEN_PROMPTS),
+                     images_uint8=images, image_emb=cpu.encode_images(images))
+            info["npz_bytes"] = os.path.getsize(ckpt)
+        else:
+            model, threshold = pc.golden_model(golden), pc.GOLDEN_COS_MIN
+        info.update(model=model, setup_s=time.perf_counter() - t0)
+        mismatch = pc.tree_mismatch(ckpt, model)
+        check(mismatch == {}, f"the checkpoint's tree is not {model}'s: "
+                              f"{mismatch}")
+        enc = Encoder.create(model, checkpoint=ckpt, device=device)
+        before = ps.launch_counts()
+        cos = pc.golden_cosines(enc, golden)
+        launched = {k: n - before[k] for k, n in ps.launch_counts().items()
+                    if n != before[k]}
+    failures = pc.golden_failures(cos, threshold)
+    check(not failures, f"parity gate ({model}): {failures}")
+    layers, n = enc.cfg.vision.layers, cos["image"].shape[0]
+    check(launched == {"fused_attn_block": layers, "packed_sdpa": n * layers},
+          f"the gate's encodes launched {launched}, not B1 {layers} and B2 "
+          f"{n * layers} times")
+    info.update({f"cos_{kind}_min": float(c.min()) for kind, c in cos.items()})
+    info.update(cos_tolerance=threshold, launches=launched,
+                seconds=time.perf_counter() - t0, budget_s=PARITY_BUDGET_S)
     emit(info)
     return info
 
@@ -5092,7 +5204,6 @@ def _run_phases(device, keep: str) -> int:
         check({name for name, n in paths[-1].items() if n}
               == {"fused_attn_block", "packed_sdpa"},
               f"the canvas path launched {paths[-1]}, not B1 and B2 alone")
-        del encoded["cpu"]
         # the opt-in routes: counts from 0 just before each, read just
         # after
         ps.reset_launches()
@@ -5133,6 +5244,15 @@ def _run_phases(device, keep: str) -> int:
     check({name for name, n in paths[-1].items() if n}
           == {"pq_scan_scores"},
           f"the pq tier launched {paths[-1]}, not B11 alone")
+    # the parity gate's path, with the host to itself: counts from 0 just
+    # before it, read just after
+    ps.reset_launches()
+    timed("parity", phase_parity, device, encoded.pop("cpu"))
+    paths.append(dict(ps.LAUNCHES))
+    emit({"phase": "parity_path_launches", "launches": paths[-1]})
+    check({name for name, n in paths[-1].items() if n}
+          == {"fused_attn_block", "packed_sdpa"},
+          f"the parity gate launched {paths[-1]}, not B1 and B2 alone")
     # the IVF path: counts from 0 just before it, read just after its
     # searches (before its kernel-versus-plain checks)
     ps.reset_launches()

@@ -244,10 +244,12 @@ def _imports(path: pathlib.Path):
 
 def test_port_imports_neither_jax_nor_clipx():
     """No module of the port, nor chip_smoke.py, nor the port's
-    multi-process test worker, imports JAX, clipx or a script of the root
-    tools/ folder (by package or by module name)."""
+    multi-process test worker, nor its real-weight parity gate, imports
+    JAX, clipx or a script of the root tools/ folder (by package or by
+    module name)."""
     files = sorted((ROOT / "clipx_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist_worker.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist_worker.py",
+        ROOT / "tests" / "test_torch_real_weight_parity.py"]
     names = {str(f.relative_to(ROOT)) for f in files}
     assert len(files) > 20
     assert {"clipx_torch/models/resnet.py",
@@ -255,13 +257,16 @@ def test_port_imports_neither_jax_nor_clipx():
             "clipx_torch/parallel/distributed.py",
             "clipx_torch/parallel/tensor.py",
             "tests/_torch_dist_worker.py",
+            "tests/test_torch_real_weight_parity.py",
             "clipx_torch/tools/eval_quality.py", "clipx_torch/train.py",
             "clipx_torch/cli/train.py", "clipx_torch/utils/env.py",
             *(f"clipx_torch/tools/{t}.py" for t in (
                 "make_synth_index", "load_timing", "find_dupes", "kv_tool",
-                "build_codes_direct", "convert_checkpoint"))} <= names
+                "build_codes_direct", "convert_checkpoint",
+                "parity_check"))} <= names
     root_tools = {p.stem for p in (ROOT / "tools").glob("*.py")}
-    assert {"eval_quality", "kv_tool", "build_codes_direct"} <= root_tools
+    assert {"eval_quality", "kv_tool", "build_codes_direct",
+            "parity_check", "make_golden"} <= root_tools
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imports(f) if m and m.split(".")[0] in (
                "jax", "jaxlib", "flax", "clipx", "tools", *root_tools)]
