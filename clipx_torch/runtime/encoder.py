@@ -72,6 +72,7 @@ from clipx_torch.parallel import tensor as tensor_lib
 from clipx_torch.parallel.distributed import Group
 from clipx_torch.runtime.device import resolve_device
 from clipx_torch.text.tokenizer import ClipTokenizer
+from clipx_torch.utils import profiling
 
 _DEFAULT_BUCKETS = (1, 8, 32, 128, 256)
 _TEXT_BUCKETS = (1, 4, 16, 64)
@@ -284,18 +285,23 @@ class Encoder:
     def encode_images_async(self, batch_uint8: np.ndarray):
         """Enqueue one batch without waiting; returns a handle for
         :meth:`finalize`. Holding two or more handles in flight overlaps
-        the GPU's encode with the host's decode and writeback."""
-        batch_uint8 = np.ascontiguousarray(batch_uint8, dtype=np.uint8)
-        n = batch_uint8.shape[0]
-        if n > self.buckets[-1]:
-            raise ValueError(f"async batch exceeds bucket cap "
-                             f"{self.buckets[-1]}")
-        require_square(*batch_uint8.shape[1:3])
-        rows = _pick_bucket(n, self.buckets)
-        host = torch.from_numpy(_pad_rows(batch_uint8, rows))
-        cuda = self.device.type == "cuda"
-        if cuda:
-            host = host.pin_memory()
+        the GPU's encode with the host's decode and writeback. Spans:
+        ``encoder.stage`` (the pinned copy and the pinned result buffer),
+        then ``encoder.launch`` (the copies, the tower and the events)."""
+        n = len(batch_uint8)
+        with profiling.span("encoder.stage", n):
+            batch_uint8 = np.ascontiguousarray(batch_uint8, dtype=np.uint8)
+            if n > self.buckets[-1]:
+                raise ValueError(f"async batch exceeds bucket cap "
+                                 f"{self.buckets[-1]}")
+            require_square(*batch_uint8.shape[1:3])
+            rows = _pick_bucket(n, self.buckets)
+            host = torch.from_numpy(_pad_rows(batch_uint8, rows))
+            cuda = self.device.type == "cuda"
+            if cuda:
+                host = host.pin_memory()
+            result = torch.empty((rows, self.embed_dim), dtype=torch.float32,
+                                 pin_memory=cuda)
         if self.mesh is None:
             shares = [(slice(0, rows), self.device)]
         elif self._rows is not None:  # one even share a dp row
@@ -304,10 +310,8 @@ class Encoder:
         else:  # one even share a dp position, each on its device
             shares = list(zip(mesh_lib.split_batch(rows, self.mesh),
                               self.mesh.devices))
-        result = torch.empty((rows, self.embed_dim), dtype=torch.float32,
-                             pin_memory=cuda)
         events = []
-        with torch.inference_mode():
+        with torch.inference_mode(), profiling.span("encoder.launch", n):
             for rows_of, where in shares:
                 if isinstance(where, Group):
                     out = self._tp_images(where, host[rows_of])
@@ -357,12 +361,13 @@ class Encoder:
         sliced away."""
         if isinstance(texts, str):
             texts = [texts]
-        ids = self.tokenizer(texts,
-                             context_length=self.cfg.text.context_length)
-        cap = _TEXT_BUCKETS[-1]
-        return np.concatenate([
-            self._encode_text_bucketed(ids[i: i + cap])
-            for i in range(0, ids.shape[0], cap)], axis=0)
+        with profiling.span("encoder.encode_texts", len(texts)):
+            ids = self.tokenizer(texts,
+                                 context_length=self.cfg.text.context_length)
+            cap = _TEXT_BUCKETS[-1]
+            return np.concatenate([
+                self._encode_text_bucketed(ids[i: i + cap])
+                for i in range(0, ids.shape[0], cap)], axis=0)
 
     def _encode_text_bucketed(self, ids: np.ndarray) -> np.ndarray:
         n = ids.shape[0]

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from clipx_torch.runtime.device import full_f32, resolve_device
+from clipx_torch.utils import profiling
 
 _MAGIC = b"CLIPXIDX1\n"
 _MIN_BUCKET = 4096
@@ -704,63 +705,64 @@ class VectorIndex:
         """faiss-shaped search: (D, I), D (Q, k) float32 descending, I
         (Q, k) int64; slots past ntotal get id -1."""
         k = clamp_k(k)
-        if self.ntotal == 0:
-            q = np.atleast_2d(np.asarray(queries))
-            return (np.full((q.shape[0], k), -np.inf, np.float32),
-                    np.full((q.shape[0], k), -1, np.int64))
-        queries = np.require(np.atleast_2d(queries), np.float32,
-                             ("C", "W"))
-        if queries.shape[1] != self.dim:
-            raise ValueError(
-                f"query dim {queries.shape[1]} != index dim {self.dim} "
-                "(is --model the one this index was built with?)")
-        if queries.shape[0] > _MAX_Q:
-            parts = [self.search(queries[i: i + _MAX_Q], k)
-                     for i in range(0, queries.shape[0], _MAX_Q)]
-            return (np.concatenate([p[0] for p in parts]),
-                    np.concatenate([p[1] for p in parts]))
-        queries = rotate_rows(queries, self._rot)  # match rotated codes
-        queries, nq = _pad_q(queries)
-        cap_rows = (self._codes if self.coded_storage
-                    else self._corpus).shape[0]
-        kk = min(_bucket_k(k), cap_rows)
-        with torch.inference_mode(), full_f32(self.device):
-            qt = torch.from_numpy(queries).to(self.device)
-            if self.pq_storage:
-                from clipx_torch.search.pq import _pq_topk
+        queries = np.atleast_2d(np.asarray(queries))
+        with profiling.span("index.search", queries.shape[0]):
+            if self.ntotal == 0:
+                return (np.full((queries.shape[0], k), -np.inf, np.float32),
+                        np.full((queries.shape[0], k), -1, np.int64))
+            queries = np.require(queries, np.float32, ("C", "W"))
+            if queries.shape[1] != self.dim:
+                raise ValueError(
+                    f"query dim {queries.shape[1]} != index dim {self.dim} "
+                    "(is --model the one this index was built with?)")
+            if queries.shape[0] > _MAX_Q:
+                parts = [self.search(queries[i: i + _MAX_Q], k)
+                         for i in range(0, queries.shape[0], _MAX_Q)]
+                return (np.concatenate([p[0] for p in parts]),
+                        np.concatenate([p[1] for p in parts]))
+            queries = rotate_rows(queries, self._rot)  # match rotated codes
+            queries, nq = _pad_q(queries)
+            cap_rows = (self._codes if self.coded_storage
+                        else self._corpus).shape[0]
+            kk = min(_bucket_k(k), cap_rows)
+            with torch.inference_mode(), full_f32(self.device):
+                qt = torch.from_numpy(queries).to(self.device)
+                if self.pq_storage:
+                    from clipx_torch.search.pq import _pq_topk
 
-                scores, ids = _pq_topk(self._codes,
-                                       self._pq.device(self.device),
-                                       self.ntotal, qt, kk)
-            elif self.int4_storage:
-                scores, ids = _int4_segscan(self._codes, self._scales,
-                                            self.ntotal, qt, kk)
-            elif self.int8_storage:
-                scores, ids = _int8_segscan(
-                    self._codes, self._scales, self.ntotal, qt, kk,
-                    _dequant_rows_of(self._codes, self._scales))
-            elif self.quantized:
-                refuse_int8_element()
-                self._ensure_codes()
-                scores, ids = _int8_segscan(
-                    self._codes, self._scales, self.ntotal, qt, kk,
-                    _float_rows_of(self._corpus))
-            else:
-                scores, ids = _search_exact(self._corpus, self.ntotal, qt,
-                                            kk)
-            scores = scores[:nq, :k].cpu().numpy()
-            ids = ids[:nq, :k].to(torch.int64).cpu().numpy()
-        if self._center is not None:
-            # centered codes score the residual: add the exact q·mean back
-            # (a per-query constant, so the ranking is already right)
-            scores = scores + (queries[:nq] @ self._center)[:, None]
-        ids[~np.isfinite(scores)] = -1
-        if scores.shape[1] < k:  # tiny corpus, huge (clamped) k
-            pad = k - scores.shape[1]
-            scores = np.pad(scores, ((0, 0), (0, pad)),
-                            constant_values=-np.inf)
-            ids = np.pad(ids, ((0, 0), (0, pad)), constant_values=-1)
-        return scores, ids
+                    scores, ids = _pq_topk(self._codes,
+                                           self._pq.device(self.device),
+                                           self.ntotal, qt, kk)
+                elif self.int4_storage:
+                    scores, ids = _int4_segscan(self._codes, self._scales,
+                                                self.ntotal, qt, kk)
+                elif self.int8_storage:
+                    scores, ids = _int8_segscan(
+                        self._codes, self._scales, self.ntotal, qt, kk,
+                        _dequant_rows_of(self._codes, self._scales))
+                elif self.quantized:
+                    refuse_int8_element()
+                    self._ensure_codes()
+                    scores, ids = _int8_segscan(
+                        self._codes, self._scales, self.ntotal, qt, kk,
+                        _float_rows_of(self._corpus))
+                else:
+                    scores, ids = _search_exact(self._corpus, self.ntotal,
+                                                qt, kk)
+                scores = scores[:nq, :k].cpu().numpy()
+                ids = ids[:nq, :k].to(torch.int64).cpu().numpy()
+            if self._center is not None:
+                # centered codes score the residual: add the exact q·mean
+                # back (a per-query constant, so the ranking is already
+                # right)
+                scores = scores + (queries[:nq] @ self._center)[:, None]
+            ids[~np.isfinite(scores)] = -1
+            if scores.shape[1] < k:  # tiny corpus, huge (clamped) k
+                pad = k - scores.shape[1]
+                scores = np.pad(scores, ((0, 0), (0, pad)),
+                                constant_values=-np.inf)
+                ids = np.pad(ids, ((0, 0), (0, pad)), constant_values=-1)
+            return scores, ids
 
     # -- reconstruction ---------------------------------------------------------
     def _user_space(self, v: np.ndarray) -> np.ndarray:

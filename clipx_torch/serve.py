@@ -66,6 +66,7 @@ import numpy as np
 
 from clipx_torch.cli import common
 from clipx_torch.store.kv import open_env
+from clipx_torch.utils import profiling
 
 
 class _Pending:
@@ -669,53 +670,64 @@ class SearchService:
 
     def search(self, features: np.ndarray, k: int, offset: int = 0,
                nprobe: int = None):
-        self._require_warm("search")
-        if self._warm_gate is not None:
-            idx = self.current_index()
-            np_eff = (nprobe if getattr(idx, "supports_nprobe", False)
-                      else None)
-            self._require_warm(
-                "search",
-                key=("search",) + tuple(idx.shape_key(k + offset,
-                                                      np_eff)),
-                spec=(k + offset, np_eff))
-        t0 = time.perf_counter()
-        features = np.atleast_2d(np.asarray(features))
-        # a per-request nprobe binds only under --search-mode ivf;
-        # otherwise it is accepted and ignored, like the REPL's 'p N'
-        ivf_override = (nprobe is not None
-                        and getattr(self.current_index(),
-                                    "supports_nprobe", False))
-        if (self._search_co is not None and features.shape[0] == 1
-                and not ivf_override):
-            # single-row queries ride the coalescer; multi-row callers and
-            # nprobe overrides (which cannot share a call with default-
-            # probe neighbours) dispatch inline
-            D, I = self._search_co.submit(
-                (np.ascontiguousarray(features, dtype=np.float32),
-                 k + offset))
-        else:
-            self._begin_read()
-            try:
+        """The top ``k`` rows after ``offset`` for the first query row, with
+        their paths. Spans: ``serve.search`` (the whole call, ``n`` the
+        query rows) and in it ``serve.answer`` (the store lookups, ``n``
+        the rows looked up)."""
+        with profiling.span("serve.search") as whole:
+            self._require_warm("search")
+            if self._warm_gate is not None:
                 idx = self.current_index()
-                if ivf_override:
-                    D, I = idx.search(features, k + offset, nprobe=nprobe)
-                else:
-                    D, I = idx.search(features, k + offset)
-            finally:
-                self._end_read()
-        dt = time.perf_counter() - t0
-        with self._stats_lock:
-            self._latency_sum += dt
-            self._latency_n += 1
-        results = []
-        for j in range(offset, min(k + offset, I.shape[1])):
-            i = int(I[0][j])
-            if i < 0:
-                break
-            results.append({"rank": j, "score": float(D[0][j]), "id": i,
-                            "path": self.lookup_path(i)})
-        return {"results": results, "search_time_s": round(dt, 6)}
+                np_eff = (nprobe if getattr(idx, "supports_nprobe", False)
+                          else None)
+                self._require_warm(
+                    "search",
+                    key=("search",) + tuple(idx.shape_key(k + offset,
+                                                          np_eff)),
+                    spec=(k + offset, np_eff))
+            t0 = time.perf_counter()
+            features = np.atleast_2d(np.asarray(features))
+            if whole is not None:
+                whole.n = features.shape[0]
+            # a per-request nprobe binds only under --search-mode ivf;
+            # otherwise it is accepted and ignored, like the REPL's 'p N'
+            ivf_override = (nprobe is not None
+                            and getattr(self.current_index(),
+                                        "supports_nprobe", False))
+            if (self._search_co is not None and features.shape[0] == 1
+                    and not ivf_override):
+                # single-row queries ride the coalescer; multi-row callers
+                # and nprobe overrides (which cannot share a call with
+                # default-probe neighbours) dispatch inline
+                D, I = self._search_co.submit(
+                    (np.ascontiguousarray(features, dtype=np.float32),
+                     k + offset))
+            else:
+                self._begin_read()
+                try:
+                    idx = self.current_index()
+                    if ivf_override:
+                        D, I = idx.search(features, k + offset,
+                                          nprobe=nprobe)
+                    else:
+                        D, I = idx.search(features, k + offset)
+                finally:
+                    self._end_read()
+            dt = time.perf_counter() - t0
+            with self._stats_lock:
+                self._latency_sum += dt
+                self._latency_n += 1
+            with profiling.span("serve.answer") as answer:
+                results = []
+                for j in range(offset, min(k + offset, I.shape[1])):
+                    i = int(I[0][j])
+                    if i < 0:
+                        break
+                    results.append({"rank": j, "score": float(D[0][j]),
+                                    "id": i, "path": self.lookup_path(i)})
+                if answer is not None:
+                    answer.n = len(results)
+            return {"results": results, "search_time_s": round(dt, 6)}
 
 
 # Upper bound on accepted POST bodies: the largest legitimate payload (a
