@@ -1525,7 +1525,6 @@ def phase_parity(device, cpu) -> dict:
     image alone (bucket 1) B2 once a layer."""
     from clipx_torch import config as config_lib
     from clipx_torch.models import convert
-    from clipx_torch.ops import packed_sdpa as ps
     from clipx_torch.runtime.encoder import Encoder
     from clipx_torch.text.tokenizer import ClipTokenizer
     from clipx_torch.tools import parity_check as pc
@@ -1554,9 +1553,9 @@ def phase_parity(device, cpu) -> dict:
         check(mismatch == {}, f"the checkpoint's tree is not {model}'s: "
                               f"{mismatch}")
         enc = Encoder.create(model, checkpoint=ckpt, device=device)
-        before = ps.launch_counts()
+        before = kernel_counts()
         cos = pc.golden_cosines(enc, golden)
-        launched = {k: n - before[k] for k, n in ps.launch_counts().items()
+        launched = {k: n - before[k] for k, n in kernel_counts().items()
                     if n != before[k]}
     failures = pc.golden_failures(cos, threshold)
     check(not failures, f"parity gate ({model}): {failures}")
@@ -2099,7 +2098,6 @@ def phase_ivf(search: dict, device, keep: str) -> dict:
     read. For phase sharded it keeps (in ``keep`` and ``search``) both .ivf
     caches, the unquantized f32 ranking at nprobe 100 and the residual pq
     leg's flat-order codes."""
-    from clipx_torch.ops import packed_sdpa as ps
     from clipx_torch.search import ivf as tivf
     from clipx_torch.search.engine import VectorIndex, content_hash
 
@@ -2168,7 +2166,7 @@ def phase_ivf(search: dict, device, keep: str) -> dict:
         # a thread beside phases coded to resnet
         tiers["pq_residual"] = {"build_s": build_s,
                                 **_ivf_leg(idx, queries, sub_ids)}
-        launches = dict(ps.LAUNCHES)
+        launches = kernel_counts()
     info["probe_chunks"] = _ivf_probe_chunks(idx, queries, device)
     info["tiers"] = tiers
     del idx
@@ -2452,7 +2450,6 @@ def _image_requests(run, enc, pngs) -> dict:
     import base64
 
     from clipx_torch.data.pipeline import decode_bytes_rgb
-    from clipx_torch.ops import packed_sdpa as ps
 
     layers = enc.cfg.vision.layers
     b64 = [base64.b64encode(p).decode() for p in pngs]
@@ -2466,9 +2463,9 @@ def _image_requests(run, enc, pngs) -> dict:
              "packed_sdpa", 1),
             ("encode_image_8", "/encode_image", {"images_b64": b64},
              "fused_attn_block", SERVE_IMAGES)):
-        before = ps.launch_counts()
+        before = kernel_counts()
         status, data, secs = run.post(path, payload)
-        counts = {k: c - before[k] for k, c in ps.launch_counts().items()
+        counts = {k: c - before[k] for k, c in kernel_counts().items()
                   if c != before[k]}
         check(status == 200, f"{path}: {status} {data}")
         check(counts == {want: layers}, f"{path} of {n} image(s) launched "
@@ -2702,7 +2699,7 @@ def phase_serve(enc, search: dict, images: np.ndarray, card: str) -> dict:
         ps.reset_launches()
         with _refuse_plain("HTTP service", plains):
             info = fn(*args)
-        counts = ps.launch_counts()
+        counts = kernel_counts()
         launches.append(counts)
         info = {"phase": "serve", "part": name, "card": card, **info,
                 "launches": {k: c for k, c in counts.items() if c}}
@@ -2747,7 +2744,7 @@ def phase_serve(enc, search: dict, images: np.ndarray, card: str) -> dict:
                 check(status == 200, "/search_vector of query 0 failed")
                 answers["default"] = _rows_of(answer["results"], K)
                 out.update(_image_requests(run, enc, pngs))
-                part_counts = ps.launch_counts()
+                part_counts = kernel_counts()
                 check(not any(c for name, c in part_counts.items()
                               if name not in ("fused_attn_block",
                                               "packed_sdpa")),
@@ -3149,7 +3146,6 @@ def phase_sharded(device, search: dict, images: np.ndarray,
     (_process_leg); then B11 against its plain version, bitwise, on one
     shard's codes. Returns the info and this path's launch counts, read
     before that check."""
-    from clipx_torch.ops import packed_sdpa as ps
     from clipx_torch.ops import pq_scan as pqs
     from clipx_torch.parallel.mesh import make_mesh, visible_devices
     from clipx_torch.parallel.mips import ShardedVectorIndex, shard_mesh
@@ -3186,7 +3182,7 @@ def phase_sharded(device, search: dict, images: np.ndarray,
         info["dp_encode"] = timed("dp_encode", _dp_encode_leg, device,
                                   images, embs)
         info["process"] = timed("process", _process_leg, device, search)
-    launches = ps.launch_counts()
+    launches = kernel_counts()
     # B11 at a shard's shape against its plain version (not counted)
     idx = ShardedVectorIndex.from_codes(search["payloads"]["pq"], mesh)
     with torch.inference_mode():
@@ -3444,13 +3440,20 @@ LONG_MODEL, LONG_IMAGES, LONG_CPU_CHECK, ROUTE_IMAGES = (
 LOGIT_ATOL = 0.05  # clip_forward logits vs the default route, x logit scale
 
 
-def _launched(fn):
-    """(fn(), {kernel: launches} of the kernels fn launched)."""
+def kernel_counts() -> dict:
+    """The kernels' launch counts (``ops/_launch.py``) without the
+    Encoder's ``text_tower_*``, which count text-tower forwards."""
     from clipx_torch.ops import packed_sdpa as ps
 
-    before = dict(ps.LAUNCHES)
+    return {k: n for k, n in ps.launch_counts().items()
+            if not k.startswith("text_tower_")}
+
+
+def _launched(fn):
+    """(fn(), {kernel: launches} of the kernels fn launched)."""
+    before = kernel_counts()
     out = fn()
-    return out, {k: n - before[k] for k, n in ps.LAUNCHES.items()
+    return out, {k: n - before[k] for k, n in kernel_counts().items()
                  if n != before[k]}
 
 
@@ -5133,7 +5136,7 @@ def main(argv=None) -> int:
 
         ps.reset_launches()
         PHASES_APART[argv[1]]()
-        emit({"launches": dict(ps.LAUNCHES)})
+        emit({"launches": kernel_counts()})
         return 0
     # phase search's store and phase coded's pq deployment, for phase tools
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as keep:
@@ -5177,7 +5180,7 @@ def _run_phases(device, keep: str) -> int:
             "quality": beside.submit(_wall, _phase_apart, "quality")}
         timed("coded", phase_coded, search, device, keep, beside,
               (jobs["cli"], jobs["quality"]))
-        launches = dict(ps.LAUNCHES)
+        launches = kernel_counts()
         emit({"phase": "main_path_launches", "launches": launches})
         check(launches["fused_attn_block"] > 0
               and launches["packed_sdpa"] > 0
@@ -5199,7 +5202,7 @@ def _run_phases(device, keep: str) -> int:
         # it, read just after
         ps.reset_launches()
         timed("preprocess", phase_preprocess, enc, encoded)
-        paths.append(dict(ps.LAUNCHES))
+        paths.append(kernel_counts())
         emit({"phase": "preprocess_path_launches", "launches": paths[-1]})
         check({name for name, n in paths[-1].items() if n}
               == {"fused_attn_block", "packed_sdpa"},
@@ -5208,23 +5211,23 @@ def _run_phases(device, keep: str) -> int:
         # after
         ps.reset_launches()
         timed("int8", phase_int8, device, images, encoded["embs"])
-        paths.append(dict(ps.LAUNCHES))
+        paths.append(kernel_counts())
         emit({"phase": "int8_path_launches", "launches": paths[-1]})
         ps.reset_launches()
         timed("fused", phase_fused, enc, images, encoded["cpu_ref"])
-        paths.append(dict(ps.LAUNCHES))
+        paths.append(kernel_counts())
         emit({"phase": "fused_path_launches", "launches": paths[-1]})
         torch.cuda.empty_cache()
         # the long towers' path: counts from 0 just before it, read just
         # after
         ps.reset_launches()
         timed("long", phase_long, device)
-        paths.append(dict(ps.LAUNCHES))
+        paths.append(kernel_counts())
         emit({"phase": "long_path_launches", "launches": paths[-1]})
         # the ResNet towers' path: no kernel of the port's
         ps.reset_launches()
         timed("resnet", phase_resnet, device)
-        paths.append(dict(ps.LAUNCHES))
+        paths.append(kernel_counts())
         emit({"phase": "resnet_path_launches", "launches": paths[-1]})
         check(not any(paths[-1].values()),
               f"the ResNet towers launched {paths[-1]}")
@@ -5239,7 +5242,7 @@ def _run_phases(device, keep: str) -> int:
     # the pq tier's path: counts from 0 just before it, read just after
     ps.reset_launches()
     timed("coded_pq", phase_coded_pq, search, keep)
-    paths.append(dict(ps.LAUNCHES))
+    paths.append(kernel_counts())
     emit({"phase": "coded_pq_path_launches", "launches": paths[-1]})
     check({name for name, n in paths[-1].items() if n}
           == {"pq_scan_scores"},
@@ -5248,7 +5251,7 @@ def _run_phases(device, keep: str) -> int:
     # before it, read just after
     ps.reset_launches()
     timed("parity", phase_parity, device, encoded.pop("cpu"))
-    paths.append(dict(ps.LAUNCHES))
+    paths.append(kernel_counts())
     emit({"phase": "parity_path_launches", "launches": paths[-1]})
     check({name for name, n in paths[-1].items() if n}
           == {"fused_attn_block", "packed_sdpa"},
@@ -5294,7 +5297,7 @@ def _run_phases(device, keep: str) -> int:
     # training's path: no kernel of the port's (clipx's step reaches none)
     ps.reset_launches()
     train = timed("train", phase_train, device)
-    paths.append(dict(ps.LAUNCHES))
+    paths.append(kernel_counts())
     emit({"phase": "train_path_launches", "launches": paths[-1]})
     check(not any(paths[-1].values()),
           f"the training path launched {paths[-1]}")
@@ -5302,7 +5305,7 @@ def _run_phases(device, keep: str) -> int:
     # TP encode and sharded step take plain attention)
     ps.reset_launches()
     timed("tp", phase_tp, device, train, tp_inputs)
-    paths.append(dict(ps.LAUNCHES))
+    paths.append(kernel_counts())
     emit({"phase": "tp_path_launches", "launches": paths[-1]})
     check(not any(paths[-1].values()),
           f"the tensor-parallel paths launched {paths[-1]}")
@@ -5311,7 +5314,7 @@ def _run_phases(device, keep: str) -> int:
     # the tools' path: B11 alone (pq loads and the direct build's search)
     ps.reset_launches()
     timed("tools", phase_tools, device, keep)
-    paths.append(dict(ps.LAUNCHES))
+    paths.append(kernel_counts())
     emit({"phase": "tools_path_launches", "launches": paths[-1]})
     check(paths[-1]["pq_scan_scores"] > 0
           and not any(n for name, n in paths[-1].items()

@@ -91,6 +91,14 @@ def sdpa_variant() -> str:
     return v if v in SDPA_VARIANTS else "auto"
 
 
+def routes() -> tuple:
+    """The environment's routing settings the dispatch below reads
+    (``CLIPX_PACKED_SDPA``, ``CLIPX_FUSED_MLP``, ``CLIPX_FUSED_MLP_INT8``):
+    a CUDA graph holds the route they chose when it was captured."""
+    return (sdpa_variant(), os.environ.get("CLIPX_FUSED_MLP", "off"),
+            os.environ.get("CLIPX_FUSED_MLP_INT8", "off"))
+
+
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 

@@ -2,18 +2,25 @@
 ctypes plumbing to its CUDA library.
 
 ``LAUNCHES`` holds one count per wrapper (one per call that launched its
-kernel), so a run can show that its main path went through the kernels.
-Kernels launch from many threads at once (the HTTP service's handlers and
-coalescer workers), so the counts change only under ``_counts_lock``:
-``launch`` increments, ``reset_launches`` zeroes and ``launch_counts``
-copies.
+kernel), so a run can show that its main path went through the kernels,
+and two of the Encoder's text tower: ``text_tower_graph``, one per replay
+of a captured CUDA graph, and ``text_tower_eager``, one per forward on a
+CUDA device that ran eagerly. Kernels launch from many threads at once
+(the HTTP service's handlers and coalescer workers), so the counts change
+only under ``_counts_lock``: ``launch`` and ``count`` increment,
+``reset_launches`` zeroes and ``launch_counts`` copies.
+
+A stream capture records kernels without running them: inside
+``capturing()`` a thread's launches go into the dict it yields instead,
+and each replay of the graph adds them to the counts (``count``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
-from typing import Dict
+from typing import Dict, Iterator
 
 import torch
 
@@ -22,7 +29,8 @@ LAUNCHES: Dict[str, int] = {"fused_attn_block": 0, "packed_sdpa": 0,
                             "fused_sdpa_long": 0, "fused_sdpa_long_qkv": 0,
                             "flash_attention": 0, "pq_scan_scores": 0,
                             "fused_attn_sublayer": 0, "fused_mlp": 0,
-                            "fused_mlp_w8a8": 0}
+                            "fused_mlp_w8a8": 0, "text_tower_graph": 0,
+                            "text_tower_eager": 0}
 
 P = ctypes.c_void_p
 I = ctypes.c_int  # noqa: E741 (ctypes' own name)
@@ -30,6 +38,7 @@ L = ctypes.c_longlong
 F = ctypes.c_float
 _fns: Dict[str, object] = {}
 _counts_lock = threading.Lock()
+_captured = threading.local()
 
 
 def reset_launches() -> None:
@@ -42,6 +51,24 @@ def launch_counts() -> Dict[str, int]:
     """A consistent copy of every count."""
     with _counts_lock:
         return dict(LAUNCHES)
+
+
+def count(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (name -> n) to ``LAUNCHES``."""
+    with _counts_lock:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def capturing() -> Iterator[Dict[str, int]]:
+    """The launches this thread makes inside, counted in the yielded dict
+    and not in ``LAUNCHES``: they are being captured into a graph."""
+    _captured.counts = {}
+    try:
+        yield _captured.counts
+    finally:
+        _captured.counts = None
 
 
 def c_fn(lib_name: str, sym: str, argtypes):
@@ -108,5 +135,8 @@ def launch(name: str, fn, device: torch.device, *args) -> None:
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {rc})")
-    with _counts_lock:
-        LAUNCHES[name] += 1
+    captured = getattr(_captured, "counts", None)
+    if captured is not None:
+        captured[name] = captured.get(name, 0) + 1
+    else:
+        count({name: 1})

@@ -75,8 +75,15 @@ def test_golden_embedding_parity(device):
     assert not failures, failures
     if device == "cuda":
         layers, n = enc.cfg.vision.layers, cos["image"].shape[0]
+        # the prompts' chunks of 64 each replay their text bucket's graph,
+        # captured after one eager pass at the bucket's first use
+        t = cos["text"].shape[0]
+        chunks = [min(64, t - i) for i in range(0, t, 64)]
+        buckets = {min(b for b in (1, 4, 16, 64) if b >= c) for c in chunks}
         assert launched == {"fused_attn_block": layers,
-                            "packed_sdpa": n * layers}, launched
+                            "packed_sdpa": n * layers,
+                            "text_tower_graph": len(chunks),
+                            "text_tower_eager": len(buckets)}, launched
     else:
         assert launched == {}
 

@@ -8,6 +8,9 @@ patch 16, width 128, 2 heads, S = 17), so bucket 1 reaches
 their plain versions.
 """
 
+import contextlib
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -90,6 +93,95 @@ def test_encode_texts_matches_clipx(encoders, n):
     assert out.shape == (n, 64)
     np.testing.assert_allclose(out, ref.encode_texts(texts), atol=TOL,
                                rtol=0)
+
+
+def test_launches_has_the_text_tower_counts():
+    """The Encoder's two text-tower counts sit beside the kernels' and
+    reset with them."""
+    from clipx_torch.ops import _launch
+
+    counts = tps.launch_counts()
+    assert {"text_tower_graph", "text_tower_eager"} <= set(counts)
+    _launch.count({"text_tower_graph": 2, "text_tower_eager": 1})
+    assert tps.launch_counts()["text_tower_graph"] == (
+        counts["text_tower_graph"] + 2)
+    tps.reset_launches()
+    assert not any(tps.launch_counts().values())
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 70])
+def test_cpu_text_encode_stays_eager_and_uncounted(encoders, n):
+    """On the CPU no text graph is captured and neither text-tower count
+    moves; the embeddings are the eager tower's on the padded ids, bitwise
+    (70 texts: a chunk of 64 and one of 6 in bucket 16)."""
+    _, ours = encoders
+    texts = [f"photo {i} of " + "a cat " * (i % 9) for i in range(n)]
+    launches = tps.launch_counts()
+    out = ours.encode_texts(texts)
+    assert tps.launch_counts() == launches
+    assert ours._text_graphs == {}
+    ids = ours.tokenizer(texts, context_length=77)
+    want = []
+    for i in range(0, n, 64):
+        chunk = ids[i: i + 64]
+        rows = min(b for b in (1, 4, 16, 64) if b >= chunk.shape[0])
+        padded = np.zeros((rows, 77), ids.dtype)
+        padded[:chunk.shape[0]] = chunk
+        with torch.inference_mode():
+            want.append(tclip.encode_text(
+                ours.params, ours.cfg, torch.from_numpy(padded),
+                normalize=True, attn_impl="xla")[:chunk.shape[0]].numpy())
+    np.testing.assert_array_equal(out, np.concatenate(want))
+
+
+def test_capturing_keeps_a_threads_launches_apart(monkeypatch):
+    """Inside ``capturing()`` a launch on this thread goes into the
+    yielded dict, not ``LAUNCHES``; another thread's still counts."""
+    from clipx_torch.ops import _launch
+
+    class _Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: _Stream())
+    fn = lambda *args: 0  # noqa: E731 — a C entry point that succeeds
+    dev = torch.device("cpu")
+    before = tps.launch_counts()
+    with _launch.capturing() as captured:
+        _launch.launch("fused_mlp", fn, dev)
+        _launch.launch("fused_mlp", fn, dev)
+        other = threading.Thread(
+            target=_launch.launch, args=("packed_sdpa", fn, dev))
+        other.start()
+        other.join()
+    assert captured == {"fused_mlp": 2}
+    _launch.launch("fused_mlp", fn, dev)
+    after = tps.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]
+            } == {"fused_mlp": 1, "packed_sdpa": 1}
+
+
+def test_routes_follow_the_environment(monkeypatch):
+    """``layers.routes()`` changes with each routing variable, so a text
+    graph captured under one route is not replayed under another."""
+    from clipx_torch.models import layers as tlayers
+
+    for name in ("CLIPX_PACKED_SDPA", "CLIPX_FUSED_MLP",
+                 "CLIPX_FUSED_MLP_INT8"):
+        monkeypatch.delenv(name, raising=False)
+    base = tlayers.routes()
+    seen = {base}
+    for name, value in (("CLIPX_PACKED_SDPA", "sublayer"),
+                        ("CLIPX_FUSED_MLP", "on"),
+                        ("CLIPX_FUSED_MLP_INT8", "on")):
+        monkeypatch.setenv(name, value)
+        seen.add(tlayers.routes())
+    assert len(seen) == 4
+    monkeypatch.setenv("CLIPX_PACKED_SDPA", "nonsense")  # read as auto
+    monkeypatch.setenv("CLIPX_FUSED_MLP", "off")
+    monkeypatch.setenv("CLIPX_FUSED_MLP_INT8", "off")
+    assert tlayers.routes() == base
 
 
 def test_encode_pixels_matches_clipx(encoders):
