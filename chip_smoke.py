@@ -124,6 +124,13 @@ these phases, printing one JSON line per phase:
               too), torch.profiler over one 128-image encode, then
               ViT-B/16 (S = 197) and ViT-B/32 under =qkv and =rows, each
               call with its launch counts checked.
+   siglip   — SigLIP so400m/14@384 at published widths and whole depth
+              (seeded random weights; S = 729, head dim 72, the MAP head):
+              256 seeded 384 x 384 frames through encode_images_async /
+              finalize, two batches of 128 in flight, then one batch of 1,
+              B8 (fused_sdpa_long at D = 72) once a layer a batch and no
+              other kernel of the port, checked against the port's CPU f32
+              encode; encode_texts refused (no SentencePiece model).
    resnet   — the ResNet towers at full width (seeded random weights):
               RN50 on 1,024 seeded 224 x 224 images in batches of 128 and
               one of 1 (img/s, no kernel of the port launched), against the
@@ -739,12 +746,14 @@ def _kernels_long(device, gen) -> dict:
     from clipx_torch.ops import packed_sdpa as ps
 
     res = {}
-    # B8 at ViT-L/14@336px (the main shape) and ViT-B/16, both at the
-    # indexing batch, and causal at the text tower's (4, 77, 768)
+    # B8 at ViT-L/14@336px (the main shape), ViT-B/16 and SigLIP
+    # so400m/14@384 (D = 72), all at the indexing batch, and causal at the
+    # text tower's (4, 77, 768)
     cases = {}
     for tag, (b, s, w, h, causal) in {
             "vit_l14_336": (128, 577, 1024, 16, False),
             "vit_b16": (128, 197, 768, 12, False),
+            "so400m": (128, 729, 1152, 16, False),
             "causal_text": (4, 77, 768, 12, True)}.items():
         q, k, v = (_bf16(gen, (b, s, w), 1.0, device) for _ in range(3))
         cases[tag] = _attn_check(
@@ -829,14 +838,15 @@ def _kernels_long(device, gen) -> dict:
 
 # The SDPA kernel's sweep: S of one key tile and its edges, of several, and
 # of the long towers (77 the text tower's, 197 ViT-B/16's, 257 ViT-L/14's,
-# 577 ViT-L/14@336px's); causal at the S in SWEEP_CAUSAL too
-SWEEP_S = (1, 50, 63, 64, 65, 77, 127, 128, 129, 197, 257, 577)
+# 577 ViT-L/14@336px's, 729 SigLIP so400m/14@384's); causal at the S in
+# SWEEP_CAUSAL too
+SWEEP_S = (1, 50, 63, 64, 65, 77, 127, 128, 129, 197, 257, 577, 729)
 SWEEP_CAUSAL = (1, 65, 77, 129, 257)
 SWEEP_HEADS = 4
 
 
 def _sdpa_sweep(device, gen) -> dict:
-    """csrc/sdpa_sm90.cuh over SWEEP_S x D in (32, 64, 128) x causal, batch
+    """csrc/sdpa_sm90.cuh over SWEEP_S x D in LONG_HEAD_DIMS x causal, batch
     3 and 2 in turn, in each layout its wrappers give it: B8's (B, S, H*D),
     the packed (B, S, 3W) projection of B4 and B9 (through B4's launcher,
     which takes any S and D) and B10's (B, H, S, D); every case against its
@@ -908,7 +918,7 @@ PTXAS_WARNINGS = ("C7508", "C7514", "C7515", "C7518")
 # the instances each source's ptxas log must name: B8-B10's SDPA kernel
 # (one a head dim), B11's scan (one or two n8 query blocks), B6's int8 GEMM
 # (three tile widths x three epilogues) and its row quantizer
-PTXAS_KERNELS = {"sdpa": (r"sdpa_sm90_kernel<", 3),
+PTXAS_KERNELS = {"sdpa": (r"sdpa_sm90_kernel<", 4),
                  "pq_scan": (r"pq_scan_onehot_kernel<", 2),
                  "mlp": (r"gemm_s8_sm90_kernel<|quant_rows_kernel<", 11)}
 
@@ -3625,6 +3635,94 @@ def phase_long(device) -> dict:
     return info
 
 
+SIGLIP_MODEL, SIGLIP_IMAGES, SIGLIP_CPU_CHECK = (
+    "SigLIP-so400m/14@384", 256, 2)
+
+
+def phase_siglip(device) -> dict:
+    """SigLIP so400m/14@384's indexing path at published widths and whole
+    depth with seeded random weights: SIGLIP_IMAGES frames at 384 px
+    through encode_images_async / finalize, two batches of BATCH in
+    flight (the indexer's and the index-so400m cell's path), then one
+    batch of 1. Each batch launches B8 (fused_sdpa_long, D = 72, S = 729)
+    once a layer and no other kernel of the port; a few embeddings against
+    the port's CPU f32 encode of the same weights."""
+    from clipx_torch import config as config_lib
+    from clipx_torch.models import convert
+    from clipx_torch.runtime.encoder import Encoder
+
+    cfg = config_lib.get_config(SIGLIP_MODEL)
+    v = cfg.vision
+    layers = v.layers
+    check(v.width // v.heads == 72 and v.seq_len == 729,
+          f"{SIGLIP_MODEL}: head dim {v.width // v.heads}, S {v.seq_len}")
+    t0 = time.perf_counter()
+    params = convert.init_params(cfg, SEED)
+    enc = Encoder(cfg, params, device=device)
+    enc.warmup(buckets=(1, BATCH))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    size = v.image_size
+    images = np.random.default_rng(SEED + 3).integers(
+        0, 256, (SIGLIP_IMAGES, size, size, 3), dtype=np.uint8)
+
+    # two in flight, as the indexer holds them: one batch's launches a
+    # finalize, each read while the next batch is already enqueued
+    before = kernel_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending, embs = [], []
+    for i in range(0, SIGLIP_IMAGES, BATCH):
+        pending.append(enc.encode_images_async(images[i: i + BATCH]))
+        if len(pending) == 2:
+            embs.append(enc.finalize(pending.pop(0)))
+    embs += [enc.finalize(h) for h in pending]
+    secs = time.perf_counter() - t0
+    n = {k: c - before[k] for k, c in kernel_counts().items()
+         if c != before[k]}
+    batches = SIGLIP_IMAGES // BATCH
+    check(n == {"fused_sdpa_long": layers * batches},
+          f"{SIGLIP_MODEL}: {batches} batches launched {n}, expected "
+          f"{layers} of fused_sdpa_long a batch")
+    t1 = time.perf_counter()
+    one, n_one = _launched(lambda: enc.encode_images(images[:1]))
+    one_s = time.perf_counter() - t1
+    check(n_one == {"fused_sdpa_long": layers},
+          f"{SIGLIP_MODEL} batch of 1 launched {n_one}, expected {layers} "
+          f"of fused_sdpa_long")
+    embs = np.concatenate(embs)
+    _unit_rows(embs, cfg.embed_dim, SIGLIP_MODEL)
+    cos_one = float(one[0] @ embs[0])
+    check(cos_one >= COS_MIN, f"{SIGLIP_MODEL} batch-1 vs batch-128 cosine "
+          f"{cos_one}")
+    try:
+        enc.encode_texts(["a photo of a cat"])
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, f"{SIGLIP_MODEL}: encode_texts ran without its "
+          "SentencePiece model")
+    del enc
+    torch.cuda.empty_cache()
+
+    cpu = Encoder(cfg, params, device="cpu",
+                  batch_buckets=(SIGLIP_CPU_CHECK,))
+    ref = cpu.encode_images(images[:SIGLIP_CPU_CHECK])
+    del cpu, params
+    cos_cpu = _cos_min(ref, embs[:SIGLIP_CPU_CHECK])
+    check(cos_cpu >= COS_MIN,
+          f"{SIGLIP_MODEL} card vs CPU f32 cosine {cos_cpu}")
+    info = {"phase": "siglip", "model": SIGLIP_MODEL,
+            "images": SIGLIP_IMAGES, "batch": BATCH, "in_flight": 2,
+            "setup_s": setup_s, "seconds": secs,
+            "img_per_s": SIGLIP_IMAGES / secs, "batch1_ms": one_s * 1e3,
+            "attn_launches_per_batch": layers, "launches": n,
+            "cos_vs_cpu_f32_min": cos_cpu, "cos_tolerance": COS_MIN,
+            "cos_batch1_vs_batch128": cos_one}
+    emit(info)
+    return info
+
+
 # ---------------------------------------------------------------------------
 # phases preprocess, resnet and quality
 # ---------------------------------------------------------------------------
@@ -5224,6 +5322,15 @@ def _run_phases(device, keep: str) -> int:
         timed("long", phase_long, device)
         paths.append(kernel_counts())
         emit({"phase": "long_path_launches", "launches": paths[-1]})
+        # SigLIP so400m's indexing path: counts from 0 just before it,
+        # read just after (B8 alone, at D = 72)
+        ps.reset_launches()
+        timed("siglip", phase_siglip, device)
+        paths.append(kernel_counts())
+        emit({"phase": "siglip_path_launches", "launches": paths[-1]})
+        check({name for name, n in paths[-1].items() if n}
+              == {"fused_sdpa_long"},
+              f"the SigLIP path launched {paths[-1]}, not B8 alone")
         # the ResNet towers' path: no kernel of the port's
         ps.reset_launches()
         timed("resnet", phase_resnet, device)

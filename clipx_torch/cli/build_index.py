@@ -151,7 +151,8 @@ def _encode_phase(args, encoder, env, fn_db, skip_db,
         stream = iter_decoded(todo, size, backend=args.decode_backend,
                               workers=args.decode_workers,
                               prefetch=max(args.batch_size * 2, 64),
-                              fast=args.fast_decode)
+                              fast=args.fast_decode,
+                              crop=encoder.cfg.center_crop)
         in_flight = []  # (good_items, async_handle)
 
         def drain_one():

@@ -41,8 +41,9 @@ def add_model_flags(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--model",
                         default=os.environ.get("CLIPX_MODEL", "ViT-B/32"),
                         help="model preset (ViT-B/32, ViT-B/16, ViT-L/14, "
-                             "ViT-L/14@336px, RN50, RN101, RN50x4, "
-                             "RN50x16, RN50x64, tiny-test, tiny-rn-test)")
+                             "ViT-L/14@336px, SigLIP-so400m/14@384, RN50, "
+                             "RN101, RN50x4, RN50x16, RN50x64, tiny-test, "
+                             "tiny-rn-test)")
     parser.add_argument("--checkpoint",
                         default=os.environ.get("CLIPX_CHECKPOINT"),
                         help="converted .npz params or torch .pt state "
@@ -392,7 +393,8 @@ def make_encoder(args, mesh=None):
         print("(no checkpoint given — using randomly initialized weights; "
               "pass --checkpoint or set $CLIPX_CHECKPOINT for real "
               "embeddings)")
-    elif args.checkpoint and not enc.tokenizer.has_learned_merges:
+    elif (args.checkpoint and enc.tokenizer is not None
+          and not enc.tokenizer.has_learned_merges):
         print(
             "WARNING: checkpoint loaded but the BPE merge table "
             "(bpe_simple_vocab_16e6.txt.gz) was not found — TEXT QUERIES "

@@ -43,6 +43,7 @@ import numpy as np
 
 from clipx_torch.cli import common
 from clipx_torch.cli.viewer import ImageViewer
+from clipx_torch.config import get_config
 from clipx_torch.store.kv import open_env
 
 HELP_TEXT = (
@@ -158,8 +159,7 @@ class QueryREPL:
             self.offset = self.last_j
             if self.texts is not None and self.features is not None:
                 self._search_and_display()
-        else:
-            self._cmd_text_query(in_text)
+        elif self._cmd_text_query(in_text):
             self._search_and_display()
         return True
 
@@ -225,11 +225,20 @@ class QueryREPL:
             print("Not found.")
             return False
 
-    def _cmd_text_query(self, in_text: str) -> None:
+    def _cmd_text_query(self, in_text: str) -> bool:
+        """Encode a text query; False, with a note, for a model whose
+        tokenizer is not available (SigLIP's), whose index answers image
+        ids only."""
+        cfg = self.encoder.cfg if self.encoder else get_config(self.args.model)
+        if cfg.tokenizer != "clip_bpe":
+            print(f"Text queries need {cfg.name}'s {cfg.tokenizer} model, "
+                  "which is not available; query by image id (i ID).")
+            return False
         self.offset = 0
         self.last_j = 0
         self.texts = in_text
         self.features = self._get_encoder().encode_texts([in_text])
+        return True
 
     # -- search + display (:110-154) -------------------------------------------
     def _search_and_display(self) -> None:

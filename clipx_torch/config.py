@@ -4,6 +4,17 @@ The reference hardcodes CLIP "ViT-B/32" (reference:build-index.py:18,
 reference:query-index.py:21) and a 512-d shared embedding space. We keep
 those as named presets and add ViT-L/14@336 as the high-resolution stress
 configuration (BASELINE.json config 3).
+
+SigLIP so400m/14@384 (Zhai et al., arXiv:2303.15343; the so400m shape of
+arXiv:2305.13035; ``google/siglip-so400m-patch14-384``'s config.json) is
+the other ViT family: no class token and no ``ln_pre``, a patch embedding
+with a bias, an MLP of 4304 rather than 4 x width, tanh GELU, LayerNorm eps
+1e-6, an attention-pooling ("MAP") head in place of the class token's
+projection, and a bidirectional text tower read at its last position through
+a linear head. Its settings are the fields of ``SigLIPVisionConfig``,
+``SigLIPTextConfig`` and ``SigLIPConfig``; the OpenAI CLIP classes carry the
+same names as class attributes holding OpenAI CLIP's values, so the model
+code reads one name for both and the CLIP configs keep exactly their fields.
 """
 
 from __future__ import annotations
@@ -23,15 +34,40 @@ class VisionConfig:
     embed_dim: int = 512
 
     tower = "vit"  # class attribute, not a field — used for dispatch
+    # OpenAI CLIP's ViT (SigLIPVisionConfig makes these fields): a class
+    # token, ln_pre, a patch embedding without a bias, the class token's
+    # feature projected by ``proj``
+    class_token = True
+    ln_pre = True
+    patch_bias = False
+    pool = "cls"  # or "map": the attention-pooling head
+
+    @property
+    def mlp_dim(self) -> int:
+        return 4 * self.width
 
     @property
     def grid(self) -> int:
+        # a "valid" patch convolution: a remainder of rows and columns
+        # (384 = 27 * 14 + 6) is never read
         return self.image_size // self.patch_size
 
     @property
     def seq_len(self) -> int:
-        # CLS token + patch tokens
-        return self.grid * self.grid + 1
+        # class token (where there is one) + patch tokens
+        return self.grid * self.grid + int(self.class_token)
+
+
+@dataclasses.dataclass(frozen=True)
+class SigLIPVisionConfig(VisionConfig):
+    """SigLIP's image tower: ``embed_dim`` is the width (the MAP head's
+    output is the embedding, with no projection)."""
+
+    mlp_dim: int = 4304
+    class_token: bool = False
+    ln_pre: bool = False
+    patch_bias: bool = True
+    pool: str = "map"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +112,23 @@ class TextConfig:
     heads: int = 8
     embed_dim: int = 512
 
+    # OpenAI CLIP's text tower (SigLIPTextConfig makes these fields):
+    # causal, read at the end-of-text token (the ids' argmax) and projected
+    # by ``text_projection``
+    causal = True
+    pool = "eot"  # or "last": the last position, through a linear head
+
+    @property
+    def mlp_dim(self) -> int:
+        return 4 * self.width
+
+
+@dataclasses.dataclass(frozen=True)
+class SigLIPTextConfig(TextConfig):
+    mlp_dim: int = 4304
+    causal: bool = False
+    pool: str = "last"
+
 
 @dataclasses.dataclass(frozen=True)
 class CLIPConfig:
@@ -91,9 +144,39 @@ class CLIPConfig:
     image_mean: Tuple[float, float, float] = (0.48145466, 0.4578275, 0.40821073)
     image_std: Tuple[float, float, float] = (0.26862954, 0.26130258, 0.27577711)
 
+    # OpenAI CLIP's (SigLIPConfig makes these fields): the shorter side
+    # resized to the input size, then a centre crop; no logit bias; the
+    # text tower reads CLIP's BPE ids
+    center_crop = True
+    logit_bias = False
+    tokenizer = "clip_bpe"
+
     @property
     def embed_dim(self) -> int:
         return self.vision.embed_dim
+
+    @property
+    def activation(self) -> str:
+        """The MLP's activation: ``quick_gelu``, ``gelu`` (exact, erf) or
+        ``gelu_tanh``."""
+        return "quick_gelu" if self.quick_gelu else "gelu"
+
+
+@dataclasses.dataclass(frozen=True)
+class SigLIPConfig(CLIPConfig):
+    """SigLIP: tanh GELU, a resize to the input size with no crop, mean and
+    std 0.5, eps 1e-6, the logits' learned bias, a SentencePiece vocabulary
+    of 32,000 (whose model the port does not ship: its text tower runs from
+    token ids)."""
+
+    quick_gelu: bool = False
+    layernorm_eps: float = 1e-6
+    image_mean: Tuple[float, float, float] = (0.5, 0.5, 0.5)
+    image_std: Tuple[float, float, float] = (0.5, 0.5, 0.5)
+    activation: str = "gelu_tanh"
+    center_crop: bool = False
+    logit_bias: bool = True
+    tokenizer: str = "sentencepiece"
 
 
 def vit_b32() -> CLIPConfig:
@@ -131,6 +214,21 @@ def vit_l14_336() -> CLIPConfig:
         vision=VisionConfig(image_size=336, patch_size=14, width=1024,
                             layers=24, heads=16, embed_dim=768),
         text=TextConfig(width=768, layers=12, heads=12, embed_dim=768),
+    )
+
+
+def siglip_so400m_384() -> SigLIPConfig:
+    """SigLIP so400m/14@384 (``google/siglip-so400m-patch14-384``): 27 + 27
+    blocks of width 1152, 16 heads (head dim 72), MLP 4304, 729 patch
+    tokens, the MAP head; 1152-d embeddings."""
+    return SigLIPConfig(
+        name="SigLIP-so400m/14@384",
+        vision=SigLIPVisionConfig(image_size=384, patch_size=14, width=1152,
+                                  layers=27, heads=16, embed_dim=1152,
+                                  mlp_dim=4304),
+        text=SigLIPTextConfig(context_length=64, vocab_size=32000,
+                              width=1152, layers=27, heads=16,
+                              embed_dim=1152, mlp_dim=4304),
     )
 
 
@@ -195,6 +293,7 @@ PRESETS = {
     "ViT-B/16": vit_b16,
     "ViT-L/14": vit_l14,
     "ViT-L/14@336px": vit_l14_336,
+    "SigLIP-so400m/14@384": siglip_so400m_384,
     "RN50": rn50,
     "RN101": rn101,
     "RN50x4": rn50x4,

@@ -18,7 +18,7 @@
 
 // q, k, v, o: bf16; element (b, h, s, d) at ptr[b * s_b + h * s_h + s * s_s + d]
 // (inputs share one set of strides, the output has its own). head_dim is 32,
-// 64 or 128; bases 16-byte aligned and input strides multiples of 8 (the
+// 64, 72 or 128; bases 16-byte aligned and input strides multiples of 8 (the
 // wrappers check; the tensor maps refuse anything else).
 extern "C" int clipx_sdpa(const void* q, const void* k, const void* v, void* o, int batch,
                           int heads, int seq, int head_dim, long long in_b, long long in_h,

@@ -10,7 +10,7 @@
 //   rows into one 128 x 128 MXU tile; that TPU tiling is not carried over.
 // - fused_sdpa_long (`_long_kernel`, :587; :649) and flash_attention
 //   (`_attn_kernel`, :29; :84): SDPA for any S on (B, S, H*D) or
-//   (B, H, S, D), D in {32, 64, 128}, optional causal mask;
+//   (B, H, S, D), D in {32, 64, 72, 128}, optional causal mask;
 // - the attention step of fused_sdpa_long_qkv (`_long_qkv_kernel`, :670;
 //   :742), whose out projection follows on gemm_sm90.cuh's GEMM.
 //
@@ -42,6 +42,12 @@
 // are TMA's zero fill inside the same (b, h), never the next batch row. A
 // tile's rows are 128-byte-swizzled 64-column boxes at D = 64 (two boxes
 // side by side at D = 128), one 64-byte-swizzled 32-column box at D = 32.
+// D = 72 (SigLIP so400m: 1152 wide, 16 heads) is not a multiple of the k16
+// step of a bf16 wgmma: its tiles are five 32-byte-swizzled 16-column boxes
+// side by side, 80 columns, and the tensor map's head dim stays 72, so TMA
+// zero-fills columns 72..79 of the last box. Q K^T runs five k16 steps
+// (the zero columns add nothing), P @ V one n80 wgmma whose columns 72..79
+// are never stored. Nothing is padded in memory.
 // Q is read once into registers (ldmatrix) as the A fragments of S = Q K^T
 // (wgmma, K read K-major); P @ V takes P from registers too (the score
 // accumulators, normalised and rounded, are its A fragments) and V
@@ -51,7 +57,7 @@
 //   blocks. B2, B3 and B4 run the same arithmetic: bitwise equal.
 // - S > 64: a block owns one (b, h) and 128 query rows. The producer loads
 //   each warpgroup's Q tile once, then streams key tiles of kLongKeys (128
-//   at D <= 64, 64 at D = 128, so that the registers fit) into a ring that
+//   at D <= 72, 64 at D = 128, so that the registers fit) into a ring that
 //   both warpgroups read: K alone for pass 1, K and V for pass 2. Pass 1
 //   keeps each row's max and sum online (the sum rescaled in f32); pass 2
 //   recomputes S and runs P @ V with p = bf16(exp(s - m) * (1/l)). In pass
@@ -81,21 +87,23 @@ constexpr double kLog2e = 1.4426950408889634;
 // The shared-memory geometry at head dim D.
 template <int D>
 struct SdpaTile {
-    static_assert(D == 32 || D == 64 || D == 128, "head dims 32, 64, 128");
-    static constexpr int kLongKeys = D > 64 ? 64 : 128;     // keys a tile, S > 64
-    static constexpr int kBoxCols = D < 64 ? D : 64;        // columns of a TMA box
-    static constexpr int kBoxes = D / kBoxCols;             // boxes side by side
+    static_assert(D == 32 || D == 64 || D == 72 || D == 128, "head dims 32, 64, 72, 128");
+    static constexpr int kPadD = (D + 15) / 16 * 16;        // columns in shared memory
+    static constexpr int kLongKeys = D == 128 ? 64 : 128;   // keys a tile, S > 64
+    static constexpr int kBoxCols = D == 72 ? 16 : (D < 64 ? D : 64);  // columns of a TMA box
+    static constexpr int kBoxes = kPadD / kBoxCols;         // boxes side by side
     static constexpr int kRowBytes = kBoxCols * 2;          // the swizzle span
     static constexpr int kQBoxBytes = kRows * kRowBytes;
     static constexpr int kQBytes = kBoxes * kQBoxBytes;     // a Q tile: 64 rows
     static constexpr int kKVBoxBytes = kLongKeys * kRowBytes;
     static constexpr int kKVBytes = kBoxes * kKVBoxBytes;   // a K or V tile
     static constexpr int kAtomBytes = 8 * kRowBytes;        // the swizzle repeats every 8 rows
-    static constexpr int kLayout = D < 64 ? 2 : 1;          // wgmma descriptor: 64B or 128B swizzle
-    static constexpr int kChunkCols = D < 64 ? 32 : 64;     // P @ V columns a wgmma
-    static constexpr int kChunks = D / kChunkCols;
+    // wgmma descriptor: 128B (1), 64B (2) or 32B (3) swizzle
+    static constexpr int kLayout = kRowBytes == 128 ? 1 : (kRowBytes == 64 ? 2 : 3);
+    static constexpr int kChunkCols = D == 72 ? 80 : (D < 64 ? 32 : 64);  // P @ V columns a wgmma
+    static constexpr int kChunks = kPadD / kChunkCols;
     static constexpr int kStageBytes = 2 * kKVBytes;        // K and V
-    static constexpr int kStages = D > 64 ? 5 : 4;          // ring stages
+    static constexpr int kStages = D == 128 ? 5 : 4;        // ring stages
     static constexpr int kSmem = 1024 + kConsumers * kQBytes + kStages * kStageBytes +
                                  (kConsumers + 2 * kStages) * 8;
 };
@@ -180,6 +188,8 @@ __device__ __forceinline__ uint64_t desc_mn_major(uint32_t tile, int kk, int c) 
     SDPA_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
              "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
              "%61, %62, %63"
+#define SDPA_R40                                                                      \
+    SDPA_R32 ", %32, %33, %34, %35, %36, %37, %38, %39"
 #define SDPA_D8(i)                                                                    \
     "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),       \
         "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -227,6 +237,17 @@ __device__ __forceinline__ void wgmma_rs<64, 1>(float (&d)[32], const uint32_t (
 }
 
 template <>
+__device__ __forceinline__ void wgmma_rs<80, 1>(float (&d)[40], const uint32_t (&a)[4],
+                                                uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+        "{" SDPA_R40 "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+        : SDPA_D32, SDPA_D8(32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs<128, 0>(float (&d)[64], const uint32_t (&a)[4],
                                                  uint64_t db, int accumulate) {
     asm volatile(
@@ -240,6 +261,7 @@ __device__ __forceinline__ void wgmma_rs<128, 0>(float (&d)[64], const uint32_t 
 #undef SDPA_D32
 #undef SDPA_D8
 #undef SDPA_R64
+#undef SDPA_R40
 #undef SDPA_R32
 #undef SDPA_R16
 
@@ -252,15 +274,16 @@ __device__ __forceinline__ void wgmma_rs<128, 0>(float (&d)[64], const uint32_t 
 // swizzled tile with ldmatrix: lane l addresses row l % 8 of 8 x 8 matrix
 // l / 8 (rows +8 for odd matrices, columns +8 for the last two)
 template <int D>
-__device__ __forceinline__ void load_q(uint32_t (&qa)[D / 16][4], uint32_t q, int warp,
-                                       int lane) {
+__device__ __forceinline__ void load_q(uint32_t (&qa)[SdpaTile<D>::kPadD / 16][4], uint32_t q,
+                                       int warp, int lane) {
     using T = SdpaTile<D>;
     constexpr int kSteps = T::kBoxCols / 16;
     const int mat = lane >> 3;
     const int row = warp * 16 + (lane & 7) + (mat & 1) * 8;
-    const int swz = T::kRowBytes == 128 ? (row & 7) : ((row >> 1) & 3);
+    const int swz = T::kRowBytes == 128 ? (row & 7)
+                                        : (T::kRowBytes == 64 ? ((row >> 1) & 3) : ((row >> 2) & 1));
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < T::kPadD / 16; ++kk) {
         const int chunk = (kk % kSteps) * 2 + (mat >> 1);  // 16-byte chunk of the row
         const uint32_t addr =
             q + (kk / kSteps) * T::kQBoxBytes + row * T::kRowBytes + ((chunk ^ swz) << 4);
@@ -273,11 +296,13 @@ __device__ __forceinline__ void load_q(uint32_t (&qa)[D / 16][4], uint32_t q, in
 // starts s = Q K^T for the warpgroup's 64 rows against the first N keys of
 // a K tile (raw f32) as one committed wgmma group
 template <int D, int N>
-__device__ __forceinline__ void qk_issue(float (&s)[N / 2], const uint32_t (&qa)[D / 16][4],
+__device__ __forceinline__ void qk_issue(float (&s)[N / 2],
+                                         const uint32_t (&qa)[SdpaTile<D>::kPadD / 16][4],
                                          uint32_t k) {
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wgmma_rs<N, 0>(s, qa[kk], desc_k_major<D>(k, kk), kk > 0);
+    for (int kk = 0; kk < SdpaTile<D>::kPadD / 16; ++kk)
+        wgmma_rs<N, 0>(s, qa[kk], desc_k_major<D>(k, kk), kk > 0);
     wgmma_commit();
 }
 
@@ -382,7 +407,8 @@ __device__ __forceinline__ void probs(const float (&s)[R], const float (&m)[2],
                               inv_l[r]);
 }
 
-// o's rows < seq into out (the (b, h) slice's first element), bf16
+// o's rows < seq and columns < D into out (the (b, h) slice's first
+// element), bf16
 template <int D>
 __device__ __forceinline__ void store_rows(
     const float (&o)[SdpaTile<D>::kChunks][SdpaTile<D>::kChunkCols / 2], bf16* out,
@@ -397,8 +423,9 @@ __device__ __forceinline__ void store_rows(
         for (int c = 0; c < T::kChunks; ++c)
 #pragma unroll
             for (int j = 0; j < T::kChunkCols / 8; ++j)
-                *reinterpret_cast<uint32_t*>(dst + c * T::kChunkCols + 8 * j) =
-                    pack_bf16(o[c][4 * j + 2 * r], o[c][4 * j + 2 * r + 1]);
+                if (c * T::kChunkCols + 8 * j < D)
+                    *reinterpret_cast<uint32_t*>(dst + c * T::kChunkCols + 8 * j) =
+                        pack_bf16(o[c][4 * j + 2 * r], o[c][4 * j + 2 * r + 1]);
     }
 }
 
@@ -519,7 +546,7 @@ sdpa_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     for (int i = 0; i < T::kChunks; ++i)
 #pragma unroll
         for (int j = 0; j < T::kChunkCols / 2; ++j) o[i][j] = 0.f;
-    uint32_t qa[D / 16][4];
+    uint32_t qa[T::kPadD / 16][4];
 
     if (one_tile) {
         // 64 keys: the first 64 rows of the K and V tiles
@@ -671,7 +698,9 @@ sdpa_sm90_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 // q, k or v as a 4-D (d, s, h, b) tensor map in tiles of box_rows rows: in[]
 // holds the element strides of s, h and b, sorted by stride into map
 // dimensions 1..3 (order[i] names the one in dimension i + 1). Needs a
-// 16-byte aligned base and strides that are multiples of 8 elements.
+// 16-byte aligned base and strides that are multiples of 8 elements. The
+// map's head dim is D: a box past it (columns 72..79 at D = 72) is TMA's
+// zero fill.
 template <int D>
 inline bool make_sdpa_tmap(CUtensorMap* map, const void* ptr, const long long (&in)[3],
                            const int (&n)[3], const int (&order)[3], int box_rows) {
@@ -690,7 +719,9 @@ inline bool make_sdpa_tmap(CUtensorMap* map, const void* ptr, const long long (&
     const cuuint32_t elem[4] = {1, 1, 1, 1};
     return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
               box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-              D < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+              T::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : (T::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                        : CU_TENSOR_MAP_SWIZZLE_32B),
               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -743,7 +774,7 @@ inline cudaError_t launch_sdpa_d(const bf16* q, const bf16* k, const bf16* v, bf
 
 // SDPA on the current stream. Element (b, h, s, d) of q, k and v at
 // ptr[b * in[2] + h * in[1] + s * in[0] + d], of o at the same with out[].
-// head_dim 32, 64 or 128; 16-byte aligned bases, in[] multiples of 8 and
+// head_dim 32, 64, 72 or 128; 16-byte aligned bases, in[] multiples of 8 and
 // out[] even (the wrappers check).
 inline cudaError_t launch_sdpa(const bf16* q, const bf16* k, const bf16* v, bf16* o, int batch,
                                int heads, int seq, int head_dim, const long long (&in)[3],
@@ -753,6 +784,8 @@ inline cudaError_t launch_sdpa(const bf16* q, const bf16* k, const bf16* v, bf16
             return launch_sdpa_d<32>(q, k, v, o, batch, heads, seq, in, out, causal, stream);
         case 64:
             return launch_sdpa_d<64>(q, k, v, o, batch, heads, seq, in, out, causal, stream);
+        case 72:
+            return launch_sdpa_d<72>(q, k, v, o, batch, heads, seq, in, out, causal, stream);
         case 128:
             return launch_sdpa_d<128>(q, k, v, o, batch, heads, seq, in, out, causal, stream);
         default:

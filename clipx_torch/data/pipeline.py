@@ -80,21 +80,22 @@ def _reduced_jpeg_flag(path: str, size: int):
     return cv2.IMREAD_COLOR
 
 
-def decode_bytes_rgb(data: np.ndarray, size: int, flag=None) -> np.ndarray:
+def decode_bytes_rgb(data: np.ndarray, size: int, flag=None,
+                     crop: bool = True) -> np.ndarray:
     """Compressed image bytes -> (size, size, 3) RGB uint8 through the
     cv2 decode path (imdecode, BGR->RGB, cv2_resize_crop): the indexer's
-    default preprocessing."""
+    default preprocessing (``crop=False``: resized, not cropped)."""
     import cv2
 
     img = cv2.imdecode(data, cv2.IMREAD_COLOR if flag is None else flag)
     if img is None:
         raise ValueError("cv2 could not decode")
     rgb = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
-    return cv2_resize_crop(rgb, size)
+    return cv2_resize_crop(rgb, size, crop)
 
 
 def _decode_one(path: str, size: int, backend: str,
-                fast: bool = False) -> DecodeItem:
+                fast: bool = False, crop: bool = True) -> DecodeItem:
     try:
         if backend == "cv2":
             import cv2
@@ -102,7 +103,7 @@ def _decode_one(path: str, size: int, backend: str,
             flag = (_reduced_jpeg_flag(path, size) if fast
                     else cv2.IMREAD_COLOR)
             data = np.fromfile(path, dtype=np.uint8)
-            return DecodeItem(path, decode_bytes_rgb(data, size, flag))
+            return DecodeItem(path, decode_bytes_rgb(data, size, flag, crop))
         else:
             from PIL import Image
 
@@ -111,15 +112,15 @@ def _decode_one(path: str, size: int, backend: str,
                     # JPEG draft mode: same DCT-domain shortcut as the
                     # cv2 path (no-op for other formats)
                     img.draft("RGB", (size, size))
-                return DecodeItem(path, pil_resize_crop(img, size))
+                return DecodeItem(path, pil_resize_crop(img, size, crop))
     except Exception as exc:  # noqa: BLE001 — per-file tolerance by design
         return DecodeItem(path, None, error=f"{type(exc).__name__}: {exc}")
 
 
 def iter_decoded(paths: Iterable[str], size: int = 224, *,
                  backend: str = "cv2", workers: int = 4,
-                 prefetch: int = 64,
-                 fast: bool = False) -> Iterator[DecodeItem]:
+                 prefetch: int = 64, fast: bool = False,
+                 crop: bool = True) -> Iterator[DecodeItem]:
     """Decode ``paths`` concurrently with at most ``prefetch`` decodes in
     flight. By default results yield as they complete (bounded
     out-of-order window): one pathological file never stalls finished
@@ -127,12 +128,15 @@ def iter_decoded(paths: Iterable[str], size: int = 224, *,
     because ids are assigned in phase 2 from sorted LMDB keys, so order
     only affects progress dots. ``fast`` enables
     reduced JPEG decode (measured ~3x decode throughput on full-size
-    photos; pixels differ slightly from a full decode, so it's opt-in)."""
+    photos; pixels differ slightly from a full decode, so it's opt-in).
+    ``crop=False`` resizes to ``size`` x ``size`` with no centre crop (the
+    model's ``center_crop``: SigLIP's transform)."""
     paths = iter(paths)
     with ThreadPoolExecutor(max_workers=workers) as pool:
         pending = set()
         for path in paths:
-            pending.add(pool.submit(_decode_one, path, size, backend, fast))
+            pending.add(pool.submit(_decode_one, path, size, backend, fast,
+                                    crop))
             if len(pending) >= prefetch:
                 done, pending = wait(pending, return_when=FIRST_COMPLETED)
                 for fut in done:

@@ -6,7 +6,9 @@ per-tower blocks, ``x @ W`` (in, out) weight layout; for the ResNet towers
 HWIO conv kernels with folded BatchNorm. This module
 
 - reads torch CLIP state dicts in the OpenAI (ViT and ModifiedResNet) and
-  HuggingFace layouts into that tree (``from_state_dict``);
+  HuggingFace layouts, and Hugging Face SigLIP state dicts (``SiglipModel``:
+  ``vision_model.*``, ``text_model.*``, ``logit_scale``, ``logit_bias``),
+  into that tree (``from_state_dict``);
 - reads and writes the flat-key ``.npz`` of ``clipx.models.convert.
   save_params`` (``load_params`` / ``save_params``), so a checkpoint saved
   by either package loads in the other;
@@ -298,17 +300,77 @@ def from_hf_state_dict(sd: Arrays, cfg: CLIPConfig) -> Params:
     }
 
 
+def _siglip_map_head(sd: Arrays, prefix: str) -> Params:
+    """The pooling head: its probe, the packed ``in_proj`` of
+    ``nn.MultiheadAttention`` split into q, k and v, LayerNorm and MLP."""
+    wq, wk, wv = np.split(_np(sd, f"{prefix}.attention.in_proj_weight"), 3,
+                          axis=0)
+    bq, bk, bv = np.split(_np(sd, f"{prefix}.attention.in_proj_bias"), 3,
+                          axis=0)
+    return {
+        "probe": _np(sd, f"{prefix}.probe"),
+        "attn": {"wq": wq.T, "wk": wk.T, "wv": wv.T,
+                 "wo": _np(sd, f"{prefix}.attention.out_proj.weight").T,
+                 "bq": bq, "bk": bk, "bv": bv,
+                 "bo": _np(sd, f"{prefix}.attention.out_proj.bias")},
+        "ln": {"scale": _np(sd, f"{prefix}.layernorm.weight"),
+               "bias": _np(sd, f"{prefix}.layernorm.bias")},
+        "mlp": {"w1": _np(sd, f"{prefix}.mlp.fc1.weight").T,
+                "b1": _np(sd, f"{prefix}.mlp.fc1.bias"),
+                "w2": _np(sd, f"{prefix}.mlp.fc2.weight").T,
+                "b2": _np(sd, f"{prefix}.mlp.fc2.bias")},
+    }
+
+
+def from_siglip_state_dict(sd: Arrays, cfg: CLIPConfig) -> Params:
+    """A Hugging Face ``SiglipModel`` state dict -> the port's SigLIP tree:
+    the patch convolution (and its bias) as the (p*p*3, W) patch matrix,
+    linear layers transposed to (in, out), each tower's blocks stacked."""
+    v, t = cfg.vision, cfg.text
+    emb = "vision_model.embeddings"
+    temb = "text_model.embeddings"
+    return {
+        "visual": {
+            "patch_embed": {
+                "kernel": _conv_to_patch_kernel(
+                    _np(sd, f"{emb}.patch_embedding.weight")),
+                "bias": _np(sd, f"{emb}.patch_embedding.bias")},
+            "pos_embedding": _np(sd, f"{emb}.position_embedding.weight"),
+            "blocks": _hf_blocks(sd, "vision_model.encoder", v.layers),
+            "ln_post": {"scale": _np(sd, "vision_model.post_layernorm.weight"),
+                        "bias": _np(sd, "vision_model.post_layernorm.bias")},
+            "map_head": _siglip_map_head(sd, "vision_model.head"),
+        },
+        "text": {
+            "token_embedding": _np(sd, f"{temb}.token_embedding.weight"),
+            "pos_embedding": _np(sd, f"{temb}.position_embedding.weight"),
+            "blocks": _hf_blocks(sd, "text_model.encoder", t.layers),
+            "ln_final": {"scale": _np(sd, "text_model.final_layer_norm.weight"),
+                         "bias": _np(sd, "text_model.final_layer_norm.bias")},
+            "head": {"kernel": _np(sd, "text_model.head.weight").T,
+                     "bias": _np(sd, "text_model.head.bias")},
+        },
+        "logit_scale": _np(sd, "logit_scale").reshape(()),
+        "logit_bias": _np(sd, "logit_bias").reshape(()),
+    }
+
+
 def detect_format(sd: Arrays) -> str:
     if "visual.conv1.weight" in sd:
         return "openai"
+    if "vision_model.head.probe" in sd:
+        return "siglip"
     if "vision_model.embeddings.patch_embedding.weight" in sd:
         return "hf"
     raise ValueError("unrecognized CLIP state dict layout")
 
 
 def from_state_dict(sd: Arrays, cfg: CLIPConfig) -> Params:
-    if detect_format(sd) == "openai":
+    fmt = detect_format(sd)
+    if fmt == "openai":
         return from_openai_state_dict(sd, cfg)
+    if fmt == "siglip":
+        return from_siglip_state_dict(sd, cfg)
     return from_hf_state_dict(sd, cfg)
 
 
@@ -361,13 +423,14 @@ def _ln_init(width: int, layers: int | None = None) -> Params:
 
 
 def _init_block_stack(rng: np.random.Generator, layers: int,
-                      width: int) -> Params:
+                      width: int, hidden: int | None = None) -> Params:
     """OpenAI-CLIP-style init for a stack of residual blocks (the stds of
-    clipx.models.layers.init_block_stack)."""
+    clipx.models.layers.init_block_stack); the MLP 4 x width unless
+    ``hidden`` says otherwise."""
     attn_std = width ** -0.5
     proj_std = (width ** -0.5) * ((2 * layers) ** -0.5)
     fc_std = (2 * width) ** -0.5
-    hidden = width * 4
+    hidden = width * 4 if hidden is None else hidden
 
     def nrm(shape, std):
         return (rng.standard_normal(shape, dtype=np.float32)
@@ -407,6 +470,8 @@ def init_params(cfg: CLIPConfig, seed: int = 0) -> Params:
         from clipx_torch.models.resnet import init_visual
 
         visual = init_visual(cfg, rng)
+    elif v.pool == "map":
+        return _init_siglip(cfg, rng, nrm)
     else:
         patch_dim = v.patch_size * v.patch_size * 3
         visual = {
@@ -429,6 +494,39 @@ def init_params(cfg: CLIPConfig, seed: int = 0) -> Params:
             "text_projection": nrm((t.width, t.embed_dim), t.width ** -0.5),
         },
         "logit_scale": np.asarray(np.log(1.0 / 0.07), np.float32),
+    }
+
+
+def _init_siglip(cfg: CLIPConfig, rng: np.random.Generator, nrm) -> Params:
+    """SigLIP's tree, the same stds as the CLIP towers' (the pooling head
+    one unstacked block of attention and MLP, its probe a token's std)."""
+    v, t = cfg.vision, cfg.text
+    patch_dim = v.patch_size * v.patch_size * 3
+    head = _init_block_stack(rng, 1, v.width, v.mlp_dim)
+    return {
+        "visual": {
+            "patch_embed": {"kernel": nrm((patch_dim, v.width),
+                                          v.width ** -0.5),
+                            "bias": np.zeros((v.width,), np.float32)},
+            "pos_embedding": nrm((v.seq_len, v.width), v.width ** -0.5),
+            "blocks": _init_block_stack(rng, v.layers, v.width, v.mlp_dim),
+            "ln_post": _ln_init(v.width),
+            "map_head": {
+                "probe": nrm((1, 1, v.width), v.width ** -0.5),
+                "attn": {k: a[0] for k, a in head["attn"].items()},
+                "ln": _ln_init(v.width),
+                "mlp": {k: a[0] for k, a in head["mlp"].items()}},
+        },
+        "text": {
+            "token_embedding": nrm((t.vocab_size, t.width), 0.02),
+            "pos_embedding": nrm((t.context_length, t.width), 0.01),
+            "blocks": _init_block_stack(rng, t.layers, t.width, t.mlp_dim),
+            "ln_final": _ln_init(t.width),
+            "head": {"kernel": nrm((t.width, t.embed_dim), t.width ** -0.5),
+                     "bias": np.zeros((t.embed_dim,), np.float32)},
+        },
+        "logit_scale": np.asarray(np.log(10.0), np.float32),
+        "logit_bias": np.asarray(-10.0, np.float32),
     }
 
 

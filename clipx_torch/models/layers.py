@@ -25,6 +25,12 @@ W8A8, through ``fused_mlp_w8a8`` under ``CLIPX_FUSED_MLP_INT8=on``. clipx
 takes the kernels only on a TPU; the port takes them on every device (CUDA
 tensors launch them, CPU tensors reach their plain versions).
 
+The activation is a name from ``ACTIVATIONS`` (``CLIPConfig.activation``):
+``quick_gelu``, the exact ``gelu``, or SigLIP's ``gelu_tanh``, which the
+fused MLP kernels' epilogues do not compute, so its MLP always takes the
+unfused route. ``map_head`` is SigLIP's
+attention-pooling head.
+
 ``remat`` (training) recomputes each residual block in the backward pass,
 as clipx's ``jax.checkpoint`` of the scan body does. Not carried over from
 clipx: ``CLIPX_ATTN_ROWS`` (a TPU tiling knob that does not change
@@ -56,6 +62,9 @@ def layer_norm(x: torch.Tensor, p: Params, eps: float) -> torch.Tensor:
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     # OpenAI CLIP's activation: x * sigmoid(1.702 x)
     return x * torch.sigmoid(1.702 * x)
+
+
+ACTIVATIONS = ("quick_gelu", "gelu", "gelu_tanh")
 
 
 def dense(x: torch.Tensor, w: torch.Tensor,
@@ -196,46 +205,76 @@ def mha_block(x: torch.Tensor, p: Params, heads: int, *, causal: bool,
     return dense(o, p["wo"], p["bo"])
 
 
-def _activation(h: torch.Tensor, use_quick_gelu: bool) -> torch.Tensor:
-    return (quick_gelu(h) if use_quick_gelu
-            else torch.nn.functional.gelu(h, approximate="none"))
+def _activation(h: torch.Tensor, activation: str) -> torch.Tensor:
+    if activation == "quick_gelu":
+        return quick_gelu(h)
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r} (one of "
+                         f"{ACTIVATIONS})")
+    return torch.nn.functional.gelu(
+        h, approximate="tanh" if activation == "gelu_tanh" else "none")
 
 
-def mlp_block(x: torch.Tensor, p: Params, use_quick_gelu: bool) -> torch.Tensor:
+def mlp_block(x: torch.Tensor, p: Params, activation: str) -> torch.Tensor:
     """The MLP, clipx's dispatch (``clipx/models/layers.py:197-238``):
     W8A8 when the params are quantized (``w1_q``), through
     ``fused_mlp_w8a8`` under ``CLIPX_FUSED_MLP_INT8=on`` where
     ``mlp_w8a8_fusible`` allows it (with the K-major weight copies
     ``quantize_mlp_stack`` made); otherwise ``fused_mlp`` under
     ``CLIPX_FUSED_MLP=on`` where ``mlp_fusible`` allows it for x's dtype;
-    else dense -> activation (in x's dtype) -> dense."""
+    else dense -> activation (in x's dtype) -> dense. The fusible rules
+    refuse an activation the kernels' epilogues do not compute
+    (``gelu_tanh``)."""
     from clipx_torch.ops import packed_sdpa as ps
 
+    quick = activation == "quick_gelu"
     if "w1_q" in p:
         from clipx_torch.models import quant
 
         w, hidden = p["w1_q"].shape
         if (os.environ.get("CLIPX_FUSED_MLP_INT8", "off") == "on"
-                and ps.mlp_w8a8_fusible(w, hidden)):
+                and ps.mlp_w8a8_fusible(w, hidden, activation)):
             return ps.fused_mlp_w8a8(x, p["w1_q"], p["s1"], p["b1"],
                                      p["w2_q"], p["s2"], p["b2"],
-                                     quick=use_quick_gelu,
+                                     quick=quick,
                                      w1_qt=p.get("w1_qt"),
                                      w2_qt=p.get("w2_qt"))
         h = _activation(quant.dense_w8a8(x, p["w1_q"], p["s1"], p["b1"]),
-                        use_quick_gelu)
+                        activation)
         return quant.dense_w8a8(h, p["w2_q"], p["s2"], p["b2"])
     w, hidden = p["w1"].shape
     if (os.environ.get("CLIPX_FUSED_MLP", "off") == "on"
-            and ps.mlp_fusible(w, hidden, x.dtype)):
+            and ps.mlp_fusible(w, hidden, x.dtype, activation)):
         return ps.fused_mlp(x, p["w1"], p["b1"], p["w2"], p["b2"],
-                            quick=use_quick_gelu)
-    h = _activation(dense(x, p["w1"], p["b1"]), use_quick_gelu)
+                            quick=quick)
+    h = _activation(dense(x, p["w1"], p["b1"]), activation)
     return dense(h, p["w2"], p["b2"])
 
 
+def map_head(x: torch.Tensor, p: Params, heads: int, *, eps: float,
+             activation: str) -> torch.Tensor:
+    """SigLIP's multihead attention-pooling head (big_vision's
+    ``MAPHead``, Hugging Face's ``SiglipMultiheadAttentionPoolingHead``):
+    one learned probe attends over every token of x (B, S, W), then
+    ``h + mlp(LN(h))``; returns (B, W). The probe's q projection is made
+    once for the batch; k and v are projected over all S tokens. The
+    attention is plain (Q = 1: B x heads x 1 x S scores), not a kernel of
+    ``ops``, which take self-attention."""
+    b, s, w = x.shape
+    d = w // heads
+    a = p["attn"]
+    probe = p["probe"].reshape(1, 1, w).to(x.dtype)
+    q = dense(probe, a["wq"], a["bq"]).reshape(1, heads, 1, d)
+    k = dense(x, a["wk"], a["bk"]).reshape(b, s, heads, d).permute(0, 2, 1, 3)
+    v = dense(x, a["wv"], a["bv"]).reshape(b, s, heads, d).permute(0, 2, 1, 3)
+    o = xla_attention(q.expand(b, heads, 1, d), k, v, causal=False)
+    h = dense(o.reshape(b, 1, w), a["wo"], a["bo"])
+    h = h + mlp_block(layer_norm(h, p["ln"], eps), p["mlp"], activation)
+    return h[:, 0]
+
+
 def residual_block(x: torch.Tensor, p: Params, heads: int, *, causal: bool,
-                   eps: float, use_quick_gelu: bool,
+                   eps: float, activation: str,
                    attn_impl: str = "xla") -> torch.Tensor:
     """Pre-LN transformer block (the CLIP/GPT-2 layout). Under
     ``CLIPX_PACKED_SDPA=sublayer`` an even-batch, S <= 64, D = 64 block
@@ -256,7 +295,7 @@ def residual_block(x: torch.Tensor, p: Params, heads: int, *, causal: bool,
     else:
         x = x + mha_block(layer_norm(x, p["ln_1"], eps), p["attn"], heads,
                           causal=causal, attn_impl=attn_impl)
-    x = x + mlp_block(layer_norm(x, p["ln_2"], eps), p["mlp"], use_quick_gelu)
+    x = x + mlp_block(layer_norm(x, p["ln_2"], eps), p["mlp"], activation)
     return x
 
 
@@ -267,7 +306,7 @@ def layer_slice(stacked: Params, i: int) -> Params:
 
 
 def transformer(x: torch.Tensor, stacked: Params, heads: int, *,
-                causal: bool, eps: float, use_quick_gelu: bool,
+                causal: bool, eps: float, activation: str,
                 attn_impl: str = "xla", remat: bool = False) -> torch.Tensor:
     """Run the stacked blocks in order over the leading layer axis. With
     ``remat`` (and grad mode on) each block keeps only its input for the
@@ -282,10 +321,10 @@ def transformer(x: torch.Tensor, stacked: Params, heads: int, *,
             from torch.utils.checkpoint import checkpoint
 
             x = checkpoint(residual_block, x, p, heads, causal=causal,
-                           eps=eps, use_quick_gelu=use_quick_gelu,
+                           eps=eps, activation=activation,
                            attn_impl=attn_impl, use_reentrant=False)
         else:
             x = residual_block(x, p, heads, causal=causal, eps=eps,
-                               use_quick_gelu=use_quick_gelu,
+                               activation=activation,
                                attn_impl=attn_impl)
     return x

@@ -88,9 +88,13 @@ def dense_w8a8(x: torch.Tensor, w_i8: torch.Tensor, w_scale: torch.Tensor,
 
 
 def quantize_patch_embed(pe: Params) -> Params:
-    """int8 patch-embedding GEMM (``CLIPX_INT8_PATCH``)."""
+    """int8 patch-embedding GEMM (``CLIPX_INT8_PATCH``); a bias (SigLIP's)
+    is kept as it is."""
     k_q, s = quantize_weight(pe["kernel"])
-    return {"kernel_q": k_q, "scale": s}
+    out = {"kernel_q": k_q, "scale": s}
+    if "bias" in pe:
+        out["bias"] = pe["bias"]
+    return out
 
 
 def quantize_attn_stack(attn: Params) -> Params:

@@ -4,8 +4,8 @@ in ``csrc/sdpa.cu`` (``csrc/sdpa_sm90.cuh``).
 Counterpart of ``clipx/ops/flash_attention.py::flash_attention``, reached
 through ``attn_impl="pallas"`` (every tower, the causal text tower
 included) and ``ops.attention.multihead_attention``. The Pallas kernel pads
-D to 128 for the TPU's lanes; the CUDA kernel keeps the real D (32, 64 or
-128) and reads the (B, H, S, D) layout through the strides of its tensor
+D to 128 for the TPU's lanes; the CUDA kernel keeps the real D (32, 64, 72
+or 128) and reads the (B, H, S, D) layout through the strides of its tensor
 maps, the same kernel that ``fused_sdpa_long`` runs on (B, S, H*D).
 
 ``flash_attention_plain`` has the kernel's rounding points (``attend_plain``
@@ -33,7 +33,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False) -> torch.Tensor:
     """SDPA on (B, H, S, D) q, k, v; returns (B, H, S, D) in q's dtype.
-    On CUDA the tensors are bf16 and D is 32, 64 or 128."""
+    On CUDA the tensors are bf16 and D is 32, 64, 72 or 128."""
     name = "flash_attention"
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"{name}: q, k, v must share one (B, H, S, D) "

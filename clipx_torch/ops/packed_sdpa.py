@@ -16,7 +16,7 @@ Counterpart of ``clipx/ops/packed_sdpa.py``:
   packed (B, S, 3W) projection, even batch (the same CUDA kernel, bitwise
   equal to ``packed_sdpa``);
 - ``fused_sdpa_long``     — SDPA for any S on (B, S, H*D), D in {32, 64,
-  128}, optional causal mask (the same kernel; bitwise ``packed_sdpa`` at
+  72, 128}, optional causal mask (the same kernel; bitwise ``packed_sdpa`` at
   S <= 64, D = 64);
 - ``fused_sdpa_long_qkv`` — ``fused_sdpa_long`` on a packed (B, S, 3W)
   projection, then the out projection and its bias (the same file);
@@ -65,7 +65,7 @@ __all__ = ["LAUNCHES", "launch_counts", "reset_launches", "fused_attn_block",
 _SP = 64  # padded sequence block
 _D = 64
 _NEG = -1e30
-LONG_HEAD_DIMS = (32, 64, 128)  # the SDPA kernel's template instances
+LONG_HEAD_DIMS = (32, 64, 72, 128)  # the SDPA kernel's template instances
 _MLP_ROWS = 128  # clipx's token rows a program, read by its VMEM rules
 # calls of fused_mlp_w8a8 on CUDA that had to transpose the weights
 # themselves (no w1_qt/w2_qt given); the Encoder's route makes none
@@ -75,10 +75,18 @@ W8A8_WEIGHT_COPIES = {"calls": 0}
 _MLP_VMEM_BUDGET = 12 * 2 ** 20
 
 
-def mlp_fusible(width: int, hidden: int, dtype) -> bool:
+# the activations the fused MLP kernels' epilogues compute (``quick``)
+FUSED_MLP_ACTIVATIONS = ("quick_gelu", "gelu")
+
+
+def mlp_fusible(width: int, hidden: int, dtype,
+                activation: str = "quick_gelu") -> bool:
     """clipx's rule for ``fused_mlp`` (``clipx/ops/packed_sdpa.py:400``):
     at ViT-B/32 it holds in bf16 and not in f32 (18.9 MB of weights), and
-    not at ViT-L."""
+    not at ViT-L. Never for an activation the kernel does not compute
+    (``gelu_tanh``)."""
+    if activation not in FUSED_MLP_ACTIVATIONS:
+        return False
     itemsize = torch.empty((), dtype=dtype).element_size()
     weights = 2 * width * hidden * itemsize
     tiles = (_MLP_ROWS * (2 * width + hidden) * itemsize
@@ -86,10 +94,13 @@ def mlp_fusible(width: int, hidden: int, dtype) -> bool:
     return weights + tiles < _MLP_VMEM_BUDGET
 
 
-def mlp_w8a8_fusible(width: int, hidden: int) -> bool:
+def mlp_w8a8_fusible(width: int, hidden: int,
+                     activation: str = "quick_gelu") -> bool:
     """clipx's rule for ``fused_mlp_w8a8`` (``:408``): int8 weights, bf16
     x/out tiles, int8 codes, f32 activations and int32 accumulators. Holds
-    at ViT-B/32, not at ViT-L."""
+    at ViT-B/32, not at ViT-L; never for ``gelu_tanh``."""
+    if activation not in FUSED_MLP_ACTIVATIONS:
+        return False
     weights = 2 * width * hidden
     r = _MLP_ROWS
     tiles = (r * width * 2 + r * width + r * hidden * 4 + r * hidden * 4
@@ -584,8 +595,8 @@ def _check_long_width(name: str, w: int, heads: int, device) -> int:
 def fused_sdpa_long(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     heads: int, causal: bool = False) -> torch.Tensor:
     """SDPA for any sequence length on (B, S, W) q, k, v, W = heads * D;
-    optional causal mask. On CUDA D is 32, 64 or 128 and the tensors are
-    bf16. Returns (B, S, W)."""
+    optional causal mask. On CUDA D is 32, 64, 72 or 128 and the tensors
+    are bf16. Returns (B, S, W)."""
     _check_qkv_shapes("fused_sdpa_long", q, k, v)
     _check_long_width("fused_sdpa_long", q.shape[-1], heads, q.device)
     refuse_grad("fused_sdpa_long", q, k, v)
@@ -600,7 +611,7 @@ def fused_sdpa_long_qkv(qkv: torch.Tensor, wo: torch.Tensor,
     """SDPA + out projection over a packed (B, S, 3W) projection output:
     returns (B, S, W) = attention(q, k, v) @ wo + bo. As clipx's wrapper,
     wo is cast to qkv's dtype and bo to f32. On CUDA W % 64 == 0 (the
-    GEMM's tile) and D is 32, 64 or 128."""
+    GEMM's tile) and D is 32, 64, 72 or 128."""
     if qkv.dim() != 3 or qkv.shape[-1] % 3:
         raise ValueError(f"fused_sdpa_long_qkv: qkv must be (B, S, 3W), got "
                          f"{tuple(qkv.shape)}")

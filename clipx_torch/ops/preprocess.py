@@ -4,11 +4,14 @@ Counterpart of ``clipx/ops/preprocess.py`` (own copies of the host paths):
 
 - ``pil_resize_crop``  — PIL antialiased bicubic shorter-side resize +
                          center crop, arithmetic-identical to the
-                         torchvision transform OpenAI CLIP uses;
+                         torchvision transform OpenAI CLIP uses (with
+                         ``crop=False`` both sides resized to the size,
+                         SigLIP's transform);
 - ``cv2_resize_crop``  — the fast host path (INTER_AREA down, INTER_CUBIC
-                         up), the indexer's default;
+                         up), the indexer's default (``crop`` the same);
 - ``normalize_batch``  — uint8 NHWC batch -> mean/std-normalized float on
-                         the batch's device;
+                         the batch's device (CLIP's constants unless the
+                         model's are given);
 - ``normalize_host``   — the same on the host in numpy (the training
                          loader's);
 - ``device_resize_normalize`` — the fully on-device variant for square
@@ -39,13 +42,14 @@ def _resize_shape(w: int, h: int, target: int) -> Tuple[int, int]:
     return max(target, int(target * w / h)), target
 
 
-def pil_resize_crop(img, size: int = 224) -> np.ndarray:
+def pil_resize_crop(img, size: int = 224, crop: bool = True) -> np.ndarray:
     """PIL path: Resize -> CenterCrop -> convert to RGB, in that order (as
-    CLIP's torchvision pipeline does). Returns (size, size, 3) uint8."""
+    CLIP's torchvision pipeline does). Returns (size, size, 3) uint8.
+    ``crop=False``: both sides resized to ``size`` and nothing cropped."""
     from PIL import Image
 
     w, h = img.size
-    nw, nh = _resize_shape(w, h, size)
+    nw, nh = _resize_shape(w, h, size) if crop else (size, size)
     img = img.resize((nw, nh), Image.BICUBIC)  # PIL bicubic is antialiased
     left = int(round((nw - size) / 2.0))
     top = int(round((nh - size) / 2.0))
@@ -55,12 +59,14 @@ def pil_resize_crop(img, size: int = 224) -> np.ndarray:
     return np.asarray(img, dtype=np.uint8)
 
 
-def cv2_resize_crop(rgb: np.ndarray, size: int = 224) -> np.ndarray:
-    """Fast host path over an RGB uint8 HWC array (e.g. from cv2.imdecode)."""
+def cv2_resize_crop(rgb: np.ndarray, size: int = 224,
+                    crop: bool = True) -> np.ndarray:
+    """Fast host path over an RGB uint8 HWC array (e.g. from cv2.imdecode).
+    ``crop=False``: both sides resized to ``size`` and nothing cropped."""
     import cv2
 
     h, w = rgb.shape[:2]
-    nw, nh = _resize_shape(w, h, size)
+    nw, nh = _resize_shape(w, h, size) if crop else (size, size)
     interp = cv2.INTER_AREA if (nw < w or nh < h) else cv2.INTER_CUBIC
     rgb = cv2.resize(rgb, (nw, nh), interpolation=interp)
     left = int(round((nw - size) / 2.0))
@@ -78,12 +84,13 @@ def normalize_host(images_uint8: np.ndarray) -> np.ndarray:
 
 
 def normalize_batch(batch_uint8: torch.Tensor,
-                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                    dtype: torch.dtype = torch.float32,
+                    mean=CLIP_MEAN, std=CLIP_STD) -> torch.Tensor:
     """(B, S, S, 3) uint8 -> normalized float NHWC on the same device:
     (x - 255 mean) * 1 / (255 std), in f32, then cast to ``dtype``."""
     dev = batch_uint8.device
-    mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=dev) * 255.0
-    inv = 1.0 / (torch.tensor(CLIP_STD, dtype=torch.float32,
+    mean = torch.tensor(mean, dtype=torch.float32, device=dev) * 255.0
+    inv = 1.0 / (torch.tensor(std, dtype=torch.float32,
                               device=dev) * 255.0)
     return ((batch_uint8.float() - mean) * inv).to(dtype)
 
@@ -138,8 +145,8 @@ def require_square(h: int, w: int) -> None:
 
 
 def device_resize_normalize(batch_uint8: torch.Tensor, size: int = 224,
-                            dtype: torch.dtype = torch.float32
-                            ) -> torch.Tensor:
+                            dtype: torch.dtype = torch.float32,
+                            mean=CLIP_MEAN, std=CLIP_STD) -> torch.Tensor:
     """(B, S, S, 3) uint8 square canvases -> (B, size, size, 3) normalized
     ``dtype`` on the batch's device: ``jax.image.resize``'s antialiased
     bicubic in f32 (its weight matrix, contracted over H, then W; a side
@@ -152,8 +159,8 @@ def device_resize_normalize(batch_uint8: torch.Tensor, size: int = 224,
     dev = batch_uint8.device
     # the constants' host-to-device copies block the host: make them before
     # this batch's work is queued, as normalize_batch does
-    mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=dev) * 255.0
-    inv = 1.0 / (torch.tensor(CLIP_STD, dtype=torch.float32,
+    mean = torch.tensor(mean, dtype=torch.float32, device=dev) * 255.0
+    inv = 1.0 / (torch.tensor(std, dtype=torch.float32,
                               device=dev) * 255.0)
     x = batch_uint8.float()
     if h != size:

@@ -120,11 +120,11 @@ def _split_heads(xs: Sequence[torch.Tensor], ps: Sequence[Params],
 
 
 def mlp_block(xs: Sequence[torch.Tensor], ps: Sequence[Params], group: Group,
-              use_quick_gelu: bool) -> Tensors:
+              activation: str) -> Tensors:
     """The MLP of one row: column-parallel w1 (+ b1) and the activation on
     this position's hidden columns, the row-parallel w2 partial, the sum
     over the row, then b2."""
-    partials = [dense(_activation(dense(h, p["w1"], p["b1"]), use_quick_gelu),
+    partials = [dense(_activation(dense(h, p["w1"], p["b1"]), activation),
                       p["w2"])
                 for h, p in zip(tp_copy(xs, group), ps)]
     return [y + p["b2"].to(y.dtype)
@@ -133,19 +133,19 @@ def mlp_block(xs: Sequence[torch.Tensor], ps: Sequence[Params], group: Group,
 
 def residual_block(xs: Sequence[torch.Tensor], ps: Sequence[Params],
                    heads: int, group: Group, *, causal: bool, eps: float,
-                   use_quick_gelu: bool) -> Tensors:
+                   activation: str) -> Tensors:
     """Pre-LN transformer block over one row."""
     a = mha_block([layer_norm(x, p["ln_1"], eps) for x, p in zip(xs, ps)],
                   [p["attn"] for p in ps], heads, group, causal=causal)
     xs = [x + y for x, y in zip(xs, a)]
     m = mlp_block([layer_norm(x, p["ln_2"], eps) for x, p in zip(xs, ps)],
-                  [p["mlp"] for p in ps], group, use_quick_gelu)
+                  [p["mlp"] for p in ps], group, activation)
     return [x + y for x, y in zip(xs, m)]
 
 
 def transformer(xs: Sequence[torch.Tensor], stacked: Sequence[Params],
                 heads: int, group: Group, *, causal: bool, eps: float,
-                use_quick_gelu: bool, remat: bool = False) -> Tensors:
+                activation: str, remat: bool = False) -> Tensors:
     """The stacked blocks in order. With ``remat`` (and grad mode on) each
     block keeps only its inputs for the backward pass and runs again
     there (``torch.utils.checkpoint``, non-reentrant), its collectives
@@ -159,7 +159,7 @@ def transformer(xs: Sequence[torch.Tensor], stacked: Sequence[Params],
         def block(*ins, ps=ps):
             return tuple(residual_block(list(ins), ps, heads, group,
                                         causal=causal, eps=eps,
-                                        use_quick_gelu=use_quick_gelu))
+                                        activation=activation))
 
         if remat:
             from torch.utils.checkpoint import checkpoint
@@ -188,7 +188,7 @@ def encode_image(trees: Sequence[Params], cfg: CLIPConfig,
         out.append(layer_norm(x, p["ln_pre"], cfg.layernorm_eps))
     out = transformer(out, [t["visual"]["blocks"] for t in trees], v.heads,
                       group, causal=False, eps=cfg.layernorm_eps,
-                      use_quick_gelu=cfg.quick_gelu, remat=remat)
+                      activation=cfg.activation, remat=remat)
     embs = []
     for x, t in zip(out, trees):
         p = t["visual"]
@@ -214,7 +214,7 @@ def encode_text(trees: Sequence[Params], cfg: CLIPConfig,
           for x, t in zip(gather(xs, group, -1), trees)]
     xs = transformer(xs, [t["text"]["blocks"] for t in trees], t_cfg.heads,
                      group, causal=True, eps=cfg.layernorm_eps,
-                     use_quick_gelu=cfg.quick_gelu, remat=remat)
+                     activation=cfg.activation, remat=remat)
     embs = []
     for x, i, t in zip(xs, ids, trees):
         p = t["text"]

@@ -36,6 +36,13 @@ memory, then a CUDA event) and returns at once; ``finalize`` waits on the
 event. That takes the place of JAX's asynchronous dispatch in the
 indexer's pipeline: the host decodes the next batch while the GPU encodes.
 
+SigLIP so400m/14@384 takes the same buckets and paths (its image tower's
+attention is ``fused_sdpa_long`` at head dim 72) with its own normalisation
+constants. Its text tower needs a SentencePiece model the port does not
+ship, so ``encode_texts`` refuses it (its tower runs from token ids through
+``models.clip.encode_text``) and ``warmup`` skips it; tensor parallelism is
+refused for it.
+
 A batch whose side is not the model's input size is a square decode
 canvas (``build_index --preprocess device``): ``device_resize_normalize``
 resamples it on the device into the same tower. The ResNet towers (RN50
@@ -130,6 +137,11 @@ class Encoder:
                 "tensor parallelism is not defined for the ResNet towers "
                 "(no TP sharding rules for convs; RN50 fits one chip "
                 "comfortably) — use a dp-only mesh")
+        if tp is not None and cfg.vision.pool != "cls":
+            raise ValueError(
+                f"tensor parallelism is defined for OpenAI CLIP's towers, "
+                f"not {cfg.name}'s (no TP rules for its pooling head; it "
+                "fits one card) — use a dp-only mesh")
         if mesh is not None:
             if "dp" not in mesh.axis_names:
                 raise ValueError("encoder mesh must have a 'dp' axis")
@@ -174,7 +186,11 @@ class Encoder:
         self.device = resolve_device(device)
         self.dtype = (torch.bfloat16 if self.device.type == "cuda"
                       else torch.float32)
-        self.tokenizer = tokenizer or ClipTokenizer()
+        # None where the model's vocabulary is not CLIP's BPE (SigLIP's
+        # SentencePiece model is not shipped): encode_texts refuses it
+        self.tokenizer = tokenizer or (ClipTokenizer()
+                                       if cfg.tokenizer == "clip_bpe"
+                                       else None)
         self.buckets = tuple(sorted(batch_buckets))
         if self.compute_quant:
             params = self._quantized(params)
@@ -268,10 +284,13 @@ class Encoder:
     def _pixels(self, batch: torch.Tensor) -> torch.Tensor:
         # batches at the model input size go straight to encode; other
         # square canvases are resampled on the device first
+        c = self.cfg
         if batch.shape[1] == self.image_size:
-            return normalize_batch(batch, dtype=self.dtype)
+            return normalize_batch(batch, dtype=self.dtype,
+                                   mean=c.image_mean, std=c.image_std)
         return device_resize_normalize(batch, self.image_size,
-                                       dtype=self.dtype)
+                                       dtype=self.dtype, mean=c.image_mean,
+                                       std=c.image_std)
 
     def _images(self, batch: torch.Tensor, params) -> torch.Tensor:
         return model_lib.encode_image(params, self.cfg, self._pixels(batch),
@@ -389,6 +408,13 @@ class Encoder:
         sliced away."""
         if isinstance(texts, str):
             texts = [texts]
+        if self.tokenizer is None:
+            raise ValueError(
+                f"{self.cfg.name} reads {self.cfg.tokenizer} token ids "
+                f"({self.cfg.text.vocab_size} of them), and no tokenizer "
+                "for them is available: its SentencePiece model "
+                "(spiece.model) is not shipped. Pass Encoder(tokenizer=...) "
+                "or query by image id")
         with profiling.span("encoder.encode_texts", len(texts)):
             ids = self.tokenizer(texts,
                                  context_length=self.cfg.text.context_length)
@@ -485,8 +511,10 @@ class Encoder:
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
         """Run each bucket once (builds the CUDA kernels, warms the
-        allocator and cuBLAS) so the first real batch is not slow."""
+        allocator and cuBLAS) so the first real batch is not slow; the
+        text tower too where there is a tokenizer."""
         s = self.image_size
         for b in (buckets or self.buckets):
             self.encode_images(np.zeros((b, s, s, 3), np.uint8))
-        self.encode_texts(["warmup"])
+        if self.tokenizer is not None:
+            self.encode_texts(["warmup"])

@@ -10,6 +10,7 @@ PyTorch and a card:
 """
 
 import base64
+import dataclasses
 import json
 import sys
 import threading
@@ -21,6 +22,7 @@ import pytest
 import torch
 
 from clipx_torch import config as tcfg
+from clipx_torch.models import clip as tclip
 from clipx_torch.models import convert as tconvert
 from clipx_torch.models import quant as tquant
 from clipx_torch.ops import flash_attention as tfa
@@ -200,7 +202,7 @@ SWEEP = [(s, False) for s in (1, 50, 63, 64, 65, 77, 127, 128, 129, 197, 257,
                               577)] + [(s, True) for s in (1, 65, 77, 129, 257)]
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 72, 128])
 @pytest.mark.parametrize("s,causal", SWEEP)
 def test_sdpa_kernel_sweep_matches_plain(cuda_device, s, causal, d):
     """csrc/sdpa_sm90.cuh in each layout its wrappers give it: B8's
@@ -232,6 +234,90 @@ def test_sdpa_kernel_sweep_matches_plain(cuda_device, s, causal, d):
                                    msg=lambda m: f"{layout}: {m}")
         torch.testing.assert_close(out.float(), truth, rtol=3e-2, atol=3e-2,
                                    msg=lambda m: f"{layout} vs f32: {m}")
+
+
+# SigLIP so400m's attention: W = 1152, 16 heads, D = 72 (five 16-column
+# boxes, the last zero-filled past column 72), at its S = 729 and at an S
+# that is not a multiple of a tile
+@pytest.mark.parametrize("b,s", [(2, 729), (3, 300)])
+def test_sdpa_head_dim_72_matches_plain(cuda_device, b, s):
+    """B8 on (B, S, H*D) and B10 on (B, H, S, D) at D = 72: 1e-2 + 2e-2
+    |y| against plain bf16."""
+    h, d = 16, 72
+    w = h * d
+    gen = torch.Generator().manual_seed(b * s)
+    q, k, v = (_bf(gen, cuda_device, b, s, w) for _ in range(3))
+    ref = tps.fused_sdpa_long_plain(q, k, v, heads=h).float()
+    before = dict(tps.LAUNCHES)
+    b8 = tps.fused_sdpa_long(q, k, v, heads=h)
+
+    def bhsd(t):
+        return t.view(b, s, h, d).transpose(1, 2).contiguous()
+
+    b10 = tfa.flash_attention(bhsd(q), bhsd(k), bhsd(v)).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in tps.LAUNCHES.items()
+            if c != before[n]} == {"fused_sdpa_long": 1, "flash_attention": 1}
+    for out in (b8, b10.reshape(b, s, w)):
+        torch.testing.assert_close(out.float(), ref, rtol=RTOL, atol=ATOL)
+
+
+# the text tower's worst L2 gap to the f32 reference (no cell runs it, so
+# no limit of the benchmark applies): on an H100 in bf16 it reads
+# 0.0126-0.0139 at weight seeds 5-8 (0.0139 at this test's 5), and
+# 0.0183-0.0209 with QuickGELU in place of the tanh GELU. It reads one
+# position through 27 bidirectional blocks, where the image embedding pools
+# 729 tokens (0.0063-0.0074, QuickGELU 0.0133-0.0144)
+SIGLIP_TEXT_GAP = 0.016
+
+
+def test_siglip_encoder_on_the_card_matches_the_reference(cuda_device,
+                                                         monkeypatch):
+    """SigLIP so400m/14@384 at published widths and whole depth through the
+    Encoder: B8 launched 27 times a batch, plain attention only in the
+    pooling head (one call a batch), within the index-so400m cell's
+    emb_gap limit (worst L2 distance) of the f32 reference on the same
+    seeded weights; the text tower from ids within SIGLIP_TEXT_GAP."""
+    import os
+
+    from benchmark import weights_siglip
+    from benchmark.checks import embedding_gap
+    from benchmark.reference import siglip as ref
+    from clipx_torch.models import layers
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "limits",
+                           "index-so400m.json")) as f:
+        limit = json.load(f)["emb_gap"]
+
+    cfg = tcfg.get_config("SigLIP-so400m/14@384")
+    config = {"vision": dataclasses.asdict(cfg.vision),
+              "text": dataclasses.asdict(cfg.text),
+              "layernorm_eps": cfg.layernorm_eps,
+              "image_mean": cfg.image_mean, "image_std": cfg.image_std}
+    params = weights_siglip.make_params(config, 5, cuda_device)
+    enc = Encoder(cfg, params, device=cuda_device, batch_buckets=(4,))
+    plain = []
+    real = layers.xla_attention
+    monkeypatch.setattr(layers, "xla_attention",
+                        lambda q, *a, **kw: plain.append(q.shape) or
+                        real(q, *a, **kw))
+    frames = torch.randint(0, 256, (7, 384, 384, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(5))
+    tps.reset_launches()
+    got = enc.encode_images(frames.numpy())
+    assert tps.LAUNCHES["fused_sdpa_long"] == 2 * 27
+    assert plain == [(4, 16, 1, 72)] * 2
+    want = ref.encode_images(params, config, frames.to(cuda_device)).cpu()
+    assert embedding_gap(got, want.numpy()) <= limit
+    ids = torch.randint(0, 32000, (3, 64), device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(5))
+    with torch.inference_mode():
+        txt = tclip.encode_text(enc.params, cfg, ids, normalize=True,
+                                dtype=torch.bfloat16)
+    want = ref.encode_texts(params, config, ids)
+    assert (embedding_gap(txt.cpu().numpy(), want.cpu().numpy())
+            <= SIGLIP_TEXT_GAP)
 
 
 def test_sdpa_refuses_layouts_tma_cannot_take(cuda_device):

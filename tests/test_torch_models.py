@@ -174,10 +174,11 @@ def test_long_blocks_match_clipx(b, s, w, heads, causal, attn_impl, variant,
     out = tlayers.mha_block(xt, tp0["attn"], heads, causal=causal,
                             attn_impl=attn_impl).numpy()
     np.testing.assert_allclose(out, ref, atol=TOL, rtol=0)
-    kw = dict(causal=causal, eps=1e-5, use_quick_gelu=True,
-              attn_impl=attn_impl)
-    ref = np.asarray(jlayers.residual_block(x, p0, heads, **kw))
-    out = tlayers.residual_block(xt, tp0, heads, **kw).numpy()
+    kw = dict(causal=causal, eps=1e-5, attn_impl=attn_impl)
+    ref = np.asarray(jlayers.residual_block(x, p0, heads, use_quick_gelu=True,
+                                            **kw))
+    out = tlayers.residual_block(xt, tp0, heads, activation="quick_gelu",
+                                 **kw).numpy()
     np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
 
 
@@ -206,7 +207,8 @@ def test_blocks_match_clipx(b, s, w, heads, causal):
     np.testing.assert_allclose(out, ref, atol=TOL, rtol=0)
     for use_quick in (True, False):
         ref = np.asarray(jlayers.mlp_block(x, p0["mlp"], use_quick))
-        out = tlayers.mlp_block(xt, tp0["mlp"], use_quick).numpy()
+        out = tlayers.mlp_block(xt, tp0["mlp"], "quick_gelu" if use_quick
+                                else "gelu").numpy()
         np.testing.assert_allclose(out, ref, atol=TOL, rtol=0)
     ref = np.asarray(jlayers.layer_norm(x, p0["ln_1"], 1e-5))
     out = tlayers.layer_norm(xt, tp0["ln_1"], 1e-5).numpy()
@@ -214,7 +216,7 @@ def test_blocks_match_clipx(b, s, w, heads, causal):
     ref = np.asarray(jlayers.transformer(x, stack, heads, causal=causal,
                                          eps=1e-5, use_quick_gelu=True))
     out = tlayers.transformer(xt, tstack, heads, causal=causal, eps=1e-5,
-                              use_quick_gelu=True).numpy()
+                              activation="quick_gelu").numpy()
     np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
 
 
@@ -310,10 +312,10 @@ def test_mha_dispatch(monkeypatch, variant, attn_impl):
                 jcalls.clear()
                 tcalls.clear()
                 x = np.zeros((b, s, w), np.float32)
-                kw = dict(causal=causal, eps=1e-5, use_quick_gelu=True,
-                          attn_impl=attn_impl)
-                jlayers.residual_block(x, jp, heads, **kw)
-                tlayers.residual_block(torch.from_numpy(x), tp, heads, **kw)
+                kw = dict(causal=causal, eps=1e-5, attn_impl=attn_impl)
+                jlayers.residual_block(x, jp, heads, use_quick_gelu=True, **kw)
+                tlayers.residual_block(torch.from_numpy(x), tp, heads,
+                                       activation="quick_gelu", **kw)
                 assert tcalls == jcalls, (s, w, heads, b, causal)
                 seen.add(jcalls[0])
     want = {"auto": {"fused_attn_block", "packed_sdpa", "fused_sdpa_long",
@@ -400,7 +402,7 @@ def test_mlp_dispatch(monkeypatch, fused, fused_int8, quantized):
             tcalls.clear()
             x = np.zeros((2, 3, w), np.float32)
             jlayers.mlp_block(x.astype(jdt), jp, True)
-            tlayers.mlp_block(torch.from_numpy(x).to(tdt), tp, True)
+            tlayers.mlp_block(torch.from_numpy(x).to(tdt), tp, "quick_gelu")
             assert tcalls == jcalls, (w, hidden, tdt)
             seen.add(jcalls[0])
     if quantized:
@@ -430,9 +432,10 @@ def test_w8a8_attention_dispatch(monkeypatch, b, s, w, heads):
                                                 ("s", "", "s2"),
                                                 ("b", "", "b2"))}
     x = np.zeros((b, s, w), np.float32)
-    kw = dict(causal=False, eps=1e-5, use_quick_gelu=True)
-    jlayers.residual_block(x, jp, heads, **kw)
-    tlayers.residual_block(torch.from_numpy(x), tp, heads, **kw)
+    kw = dict(causal=False, eps=1e-5)
+    jlayers.residual_block(x, jp, heads, use_quick_gelu=True, **kw)
+    tlayers.residual_block(torch.from_numpy(x), tp, heads,
+                           activation="quick_gelu", **kw)
     assert tcalls == jcalls
     fits = s <= 64 and w // heads == 64
     want = ("packed_sdpa_rows" if fits and b % 2 == 0 else

@@ -185,10 +185,10 @@ def test_mlp_block_passes_the_kmajor_copies(monkeypatch):
         "b1": torch.zeros(H), "w2": torch.from_numpy(
             rng.normal(size=(H, W)).astype(np.float32)), "b2": torch.zeros(W)})
     x = torch.zeros((2, 3, W))
-    tlayers.mlp_block(x, p, True)
+    tlayers.mlp_block(x, p, "quick_gelu")
     assert seen[-1]["w1_qt"] is p["w1_qt"] and seen[-1]["w2_qt"] is p["w2_qt"]
     tlayers.mlp_block(x, {k: v for k, v in p.items()
-                          if not k.endswith("_qt")}, True)
+                          if not k.endswith("_qt")}, "quick_gelu")
     assert seen[-1]["w1_qt"] is None and seen[-1]["w2_qt"] is None
 
 
