@@ -3,9 +3,13 @@ ctypes plumbing to its CUDA library.
 
 ``LAUNCHES`` holds one count per wrapper (one per call that launched its
 kernel), so a run can show that its main path went through the kernels,
-and two of the Encoder's text tower: ``text_tower_graph``, one per replay
-of a captured CUDA graph, and ``text_tower_eager``, one per forward on a
-CUDA device that ran eagerly. Kernels launch from many threads at once
+two of the Encoder's text tower: ``text_tower_graph``, one per replay of a
+captured CUDA graph, and ``text_tower_eager``, one per forward on a CUDA
+device that ran eagerly, and two of the flat pq search
+(``VectorIndex.search``): ``pq_search_graph``, one per replay of a captured
+graph, and ``pq_search_eager``, one per eager ``_pq_topk`` on a CUDA
+device (a capture's warm pass and a failed capture's fallback included).
+Kernels launch from many threads at once
 (the HTTP service's handlers and coalescer workers), so the counts change
 only under ``_counts_lock``: ``launch`` and ``count`` increment,
 ``reset_launches`` zeroes and ``launch_counts`` copies.
@@ -30,7 +34,8 @@ LAUNCHES: Dict[str, int] = {"fused_attn_block": 0, "packed_sdpa": 0,
                             "flash_attention": 0, "pq_scan_scores": 0,
                             "fused_attn_sublayer": 0, "fused_mlp": 0,
                             "fused_mlp_w8a8": 0, "text_tower_graph": 0,
-                            "text_tower_eager": 0}
+                            "text_tower_eager": 0, "pq_search_graph": 0,
+                            "pq_search_eager": 0}
 
 P = ctypes.c_void_p
 I = ctypes.c_int  # noqa: E741 (ctypes' own name)

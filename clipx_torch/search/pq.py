@@ -18,7 +18,8 @@ PQ kernel (``ops/pq_scan.py``) against the int8 LUT, keeps each chunk's top
 LUT, so returned scores are the full-precision PQ scores. Chunking is
 clipx's: one scan up to ``_PQ_PALLAS_ONESHOT`` rows, ``_PQ_PALLAS_CHUNK``-
 row chunks past it. Every top-k breaks ties lowest index first, so the
-candidates equal those of clipx's XLA path.
+candidates equal those of clipx's XLA path. A flat index on the card replays
+``_pq_topk`` from a captured CUDA graph (``VectorIndex.search``).
 
 Layout: clipx lane-pairs the device code array (``pack_factor``,
 ``pair_rows_host``) because a TPU pads int8 rows to 128 lanes. That is a

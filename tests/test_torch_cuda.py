@@ -1209,9 +1209,10 @@ def test_concurrent_requests_count_every_launch(cuda_device, tmp_path,
 
 def test_pq_service_launches_b11_once_a_search(cuda_device, tmp_path,
                                                monkeypatch):
-    """--corpus-dtype pq: warm-up loads the PQ scan's library, and each
-    /search_vector launches pq_scan_scores once (one scan of the whole
-    corpus), with the ids of a direct search of the served index."""
+    """--corpus-dtype pq: warm-up loads the PQ scan's library and captures
+    the search's graph at k = 10's bucket, and each /search_vector replays
+    it: one pq_scan_scores launch (one scan of the whole corpus), with the
+    ids of a direct search of the served index."""
     enc, _, argv = _serve_fixture(tmp_path, cuda_device, rows=6000)
     served = _Served(argv + ["--corpus-dtype", "pq"], enc, monkeypatch)
     try:
@@ -1225,7 +1226,7 @@ def test_pq_service_launches_b11_once_a_search(cuda_device, tmp_path,
                                        {"vector": q.tolist(), "k": 5})
             assert status == 200
             assert {n: c for n, c in tps.launch_counts().items() if c} == {
-                "pq_scan_scores": 1}
+                "pq_scan_scores": 1, "pq_search_graph": 1}
             _, I = index.search(q[None], 5)
             assert [r["id"] for r in data["results"]] == I[0].tolist()
         assert late == []
@@ -1906,3 +1907,185 @@ def test_text_graph_follows_the_mlp_route(cuda_device, monkeypatch):
     assert len(enc._text_graphs) == 2
     ref = cpu.encode_texts(["a cat"])
     assert float(fused[0] @ ref[0]) >= 0.999
+
+
+# -- the flat pq search's CUDA graphs (search/engine.py::VectorIndex) ---------
+
+_PQ_DIM = 512  # the query cell's rows: 256 subspaces, 128 code bytes a row
+_pq_indexes = {}
+
+
+def _pq_card_index(device, rows):
+    """A flat pq index on the card straight from seeded codes and
+    centroids, ``rows`` below its capacity: 2^20 - 1,000 rows scan in one
+    B11 launch, 2^22 - 3,000 in eight chunks of 2^19. Built once a size;
+    a test that changes it asks for a fresh one (``fresh=True``)."""
+    from clipx_torch.search import pq as tpq
+
+    rng = np.random.default_rng(rows)
+    m = _PQ_DIM // 2
+    return teng.VectorIndex.from_codes({
+        "tier": "pq", "dim": _PQ_DIM, "code_dim": m // 2, "ntotal": rows,
+        "centroids": (0.1 * rng.standard_normal((m, tpq.PQ_K, 2))).astype(
+            np.float32),
+        "codes": rng.integers(-128, 128, (rows, m // 2), dtype=np.int8)},
+        device=device)
+
+
+def _pq_shared(device, rows):
+    if rows not in _pq_indexes:
+        _pq_indexes[rows] = _pq_card_index(device, rows)
+    return _pq_indexes[rows]
+
+
+def _pq_queries(nq, seed):
+    q = np.random.default_rng(seed).standard_normal((nq, _PQ_DIM))
+    return (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+
+
+def _pq_eager(idx, monkeypatch, queries, k):
+    with monkeypatch.context() as m:
+        m.setattr(idx, "_replayed_pq", lambda *args: None)
+        return idx.search(queries, k)
+
+
+def _pq_counts():
+    return {k: n for k, n in tps.launch_counts().items()
+            if k.startswith("pq_search_")}
+
+
+@pytest.mark.parametrize("k", [1, 50, 1000])
+@pytest.mark.parametrize("nq", [1, 3, 16])
+@pytest.mark.parametrize("rows", [(1 << 20) - 1000, (1 << 22) - 3000],
+                         ids=["oneshot", "chunked"])
+def test_pq_graph_replays_equal_the_eager_search(cuda_device, monkeypatch,
+                                                 rows, nq, k):
+    """The flat pq search replayed from its key's graph against the same
+    index's eager search on the same queries: (D, I) bitwise equal, on the
+    capture's first replay and on a later one; one eager pass, before the
+    capture, a key."""
+    idx = _pq_shared(cuda_device, rows)
+    queries = _pq_queries(nq, seed=nq * 1000 + k)
+    key = idx._pq_key(teng._bucket_q(nq), teng._bucket_k(k))
+    fresh = key not in idx._pq_graphs
+    tps.reset_launches()
+    graphed = idx.search(queries, k)
+    again = idx.search(queries, k)
+    assert _pq_counts() == {"pq_search_graph": 2,
+                            "pq_search_eager": int(fresh)}
+    assert idx._pq_graphs[key] is not None
+    eager = _pq_eager(idx, monkeypatch, queries, k)
+    assert graphed[0].shape == (nq, k) and graphed[1].dtype == np.int64
+    for got in (graphed, again):
+        np.testing.assert_array_equal(got[0], eager[0])
+        np.testing.assert_array_equal(got[1], eager[1])
+    assert (graphed[1] >= 0).all() and (graphed[1] < rows).all()
+
+
+def test_pq_graph_recaptures_after_an_add(cuda_device, monkeypatch):
+    """An in-place append drops the index's graphs: the next search
+    captures anew (one eager pass), finds the new rows and equals the
+    eager search over them."""
+    idx = _pq_card_index(cuda_device, (1 << 20) - 1000)
+    queries = _pq_queries(3, seed=7)
+    idx.search(queries, 50)
+    assert len(idx._pq_graphs) == 1
+    codes, before = idx._codes, idx.ntotal
+    # long rows take each subspace's centroid furthest along the query:
+    # each query's own new row scores far above the random rows
+    idx.add(20 * queries)
+    assert idx._codes is codes and idx.ntotal == before + 3
+    assert idx._pq_graphs == {}
+    tps.reset_launches()
+    D, I = idx.search(queries, 50)
+    assert _pq_counts() == {"pq_search_graph": 1, "pq_search_eager": 1}
+    assert set(range(before, before + 3)) <= set(I.ravel().tolist())
+    eager = _pq_eager(idx, monkeypatch, queries, 50)
+    np.testing.assert_array_equal(D, eager[0])
+    np.testing.assert_array_equal(I, eager[1])
+
+
+@pytest.mark.parametrize("rows", [(1 << 20) - 1000, (1 << 22) - 3000],
+                         ids=["oneshot", "chunked"])
+def test_pq_graph_replay_counts_each_chunk_scan(cuda_device, rows):
+    """A replay adds the launches its graph captured: capacity / chunk B11
+    scans (1 one-shot, 8 chunked) and one pq_search_graph, nothing else."""
+    from clipx_torch.search import pq as tpq
+
+    idx = _pq_shared(cuda_device, rows)
+    queries = _pq_queries(1, seed=11)
+    idx.search(queries, 50)
+    tps.reset_launches()
+    idx.search(queries, 50)
+    cap = idx._codes.shape[0]
+    chunk = cap if cap <= tpq._PQ_PALLAS_ONESHOT else tpq._PQ_PALLAS_CHUNK
+    assert {k: n for k, n in tps.launch_counts().items() if n} == {
+        "pq_scan_scores": cap // chunk, "pq_search_graph": 1}
+
+
+def test_pq_graphs_serve_threads_at_once(cuda_device, monkeypatch):
+    """Four threads on one chunked index, each with its own queries (Q = 1
+    or 3), 20 searches each, all at once: every search gets the eager
+    search's (D, I) for its own queries, and every one is a replay."""
+    idx = _pq_shared(cuda_device, (1 << 22) - 3000)
+    work = [_pq_queries(1 + 2 * (t % 2), seed=200 + t) for t in range(4)]
+    for w in work:
+        idx.search(w, 50)
+    alone = [_pq_eager(idx, monkeypatch, w, 50) for w in work]
+    errors, calls = [], 20
+
+    def client(t):
+        try:
+            for _ in range(calls):
+                D, I = idx.search(work[t], 50)
+                np.testing.assert_array_equal(D, alone[t][0])
+                np.testing.assert_array_equal(I, alone[t][1])
+        except Exception as exc:  # noqa: BLE001
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        tps.reset_launches()
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads) and not errors, errors
+        assert _pq_counts() == {"pq_search_graph": 4 * calls,
+                                "pq_search_eager": 0}
+    finally:
+        sys.setswitchinterval(interval)
+
+
+def test_a_failed_pq_capture_runs_its_key_eagerly(cuda_device, monkeypatch,
+                                                  capsys):
+    """A capture that raises leaves its key eager for good, with a note on
+    stderr: the first search counts the pass before the capture and the
+    eager search, each later one an eager search; the results are the
+    eager search's, and another key still replays a graph."""
+    idx = _pq_card_index(cuda_device, (1 << 20) - 1000)
+    real = idx._pq_search
+
+    def search(qt, kk):
+        if torch.cuda.is_current_stream_capturing() and qt.shape[0] == 4:
+            raise RuntimeError("forced capture failure")
+        return real(qt, kk)
+
+    monkeypatch.setattr(idx, "_pq_search", search)
+    queries = _pq_queries(3, seed=9)
+    tps.reset_launches()
+    out = idx.search(queries, 50)
+    assert "runs eagerly: its CUDA graph capture failed" in (
+        capsys.readouterr().err)
+    assert _pq_counts() == {"pq_search_graph": 0, "pq_search_eager": 2}
+    again = idx.search(queries, 50)
+    assert _pq_counts() == {"pq_search_graph": 0, "pq_search_eager": 3}
+    eager = _pq_eager(idx, monkeypatch, queries, 50)
+    for got in (again, eager):
+        np.testing.assert_array_equal(out[0], got[0])
+        np.testing.assert_array_equal(out[1], got[1])
+    idx.search(queries[:1], 50)
+    assert _pq_counts() == {"pq_search_graph": 1, "pq_search_eager": 5}
