@@ -3451,13 +3451,12 @@ LOGIT_ATOL = 0.05  # clip_forward logits vs the default route, x logit scale
 
 
 def kernel_counts() -> dict:
-    """The kernels' launch counts (``ops/_launch.py``) without the
-    Encoder's ``text_tower_*`` and the flat pq search's ``pq_search_*``,
-    which count text-tower forwards and searches."""
-    from clipx_torch.ops import packed_sdpa as ps
+    """The kernels' launch counts (``ops/_launch.py``) without its
+    ``FORWARD_COUNTS``, which count forwards, not kernels."""
+    from clipx_torch.ops import _launch
 
-    return {k: n for k, n in ps.launch_counts().items()
-            if not k.startswith(("text_tower_", "pq_search_"))}
+    return {k: n for k, n in _launch.launch_counts().items()
+            if k not in _launch.FORWARD_COUNTS}
 
 
 def _launched(fn):

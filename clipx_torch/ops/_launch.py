@@ -3,15 +3,14 @@ ctypes plumbing to its CUDA library.
 
 ``LAUNCHES`` holds one count per wrapper (one per call that launched its
 kernel), so a run can show that its main path went through the kernels,
-two of the Encoder's text tower: ``text_tower_graph``, one per replay of a
-captured CUDA graph, and ``text_tower_eager``, one per forward on a CUDA
-device that ran eagerly, and two of the flat pq search
-(``VectorIndex.search``): ``pq_search_graph``, one per replay of a captured
-graph, and ``pq_search_eager``, one per eager ``_pq_topk`` on a CUDA
-device (a capture's warm pass and a failed capture's fallback included).
-Kernels launch from many threads at once
-(the HTTP service's handlers and coalescer workers), so the counts change
-only under ``_counts_lock``: ``launch`` and ``count`` increment,
+and the ``FORWARD_COUNTS``, which count forwards, not kernels: two a
+family of ``runtime/graphs.py``'s CUDA graphs, ``<family>_graph``, one per
+replay of a captured graph, and ``<family>_eager``, one per forward on a
+CUDA device that ran eagerly. The families are the Encoder's text tower
+(``text_tower_*``) and the flat pq search (``pq_search_*``, one per
+``_pq_topk`` of ``VectorIndex.search``). Kernels launch from many threads
+at once (the HTTP service's handlers and coalescer workers), so the counts
+change only under ``_counts_lock``: ``launch`` and ``count`` increment,
 ``reset_launches`` zeroes and ``launch_counts`` copies.
 
 A stream capture records kernels without running them: inside
@@ -28,14 +27,13 @@ from typing import Dict, Iterator
 
 import torch
 
-LAUNCHES: Dict[str, int] = {"fused_attn_block": 0, "packed_sdpa": 0,
-                            "packed_sdpa_rows": 0, "packed_sdpa_qkv": 0,
-                            "fused_sdpa_long": 0, "fused_sdpa_long_qkv": 0,
-                            "flash_attention": 0, "pq_scan_scores": 0,
-                            "fused_attn_sublayer": 0, "fused_mlp": 0,
-                            "fused_mlp_w8a8": 0, "text_tower_graph": 0,
-                            "text_tower_eager": 0, "pq_search_graph": 0,
-                            "pq_search_eager": 0}
+FORWARD_COUNTS = ("text_tower_graph", "text_tower_eager",
+                  "pq_search_graph", "pq_search_eager")
+LAUNCHES: Dict[str, int] = dict.fromkeys(
+    ("fused_attn_block", "packed_sdpa", "packed_sdpa_rows", "packed_sdpa_qkv",
+     "fused_sdpa_long", "fused_sdpa_long_qkv", "flash_attention",
+     "pq_scan_scores", "fused_attn_sublayer", "fused_mlp", "fused_mlp_w8a8")
+    + FORWARD_COUNTS, 0)
 
 P = ctypes.c_void_p
 I = ctypes.c_int  # noqa: E741 (ctypes' own name)

@@ -14,14 +14,9 @@ f32. On the CPU everything is f32. Embeddings come back float32 and
 L2-normalized.
 
 On one CUDA device the text tower replays a CUDA graph, one a text bucket
-(and routing environment, ``layers.routes``), captured at the bucket's
-first use after one eager pass; its launches would otherwise leave the
-card idle through most of a batch-1 query. The captures share one memory
-pool, and one lock serialises the id copy-in, the replay and the copy of
-the rows out, so threads may encode at once. The CPU and the
-tensor-parallel text path run eagerly, and so does a bucket whose capture
-failed (with a note on stderr). ``LAUNCHES`` counts both
-(``text_tower_graph``, ``text_tower_eager``).
+(and routing environment, ``layers.routes``), through ``runtime/graphs.py``;
+its launches would otherwise leave the card idle through most of a batch-1
+query. The CPU and the tensor-parallel text path run eagerly.
 
 ``compute_quant="int8"`` (or ``CLIPX_COMPUTE=int8``) runs the image
 tower's MLP in W8A8 (``models.quant``; ``fused_mlp_w8a8`` under
@@ -72,9 +67,7 @@ compile cache has no counterpart.
 from __future__ import annotations
 
 import os
-import sys
-import threading
-from typing import NamedTuple, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -91,6 +84,7 @@ from clipx_torch.parallel import mesh as mesh_lib
 from clipx_torch.parallel import tensor as tensor_lib
 from clipx_torch.parallel.distributed import Group
 from clipx_torch.runtime.device import resolve_device
+from clipx_torch.runtime.graphs import CudaGraphs
 from clipx_torch.text.tokenizer import ClipTokenizer
 from clipx_torch.utils import profiling
 
@@ -110,16 +104,6 @@ def _pad_rows(a: np.ndarray, rows: int) -> np.ndarray:
         return a
     pad = np.zeros((rows - a.shape[0],) + a.shape[1:], a.dtype)
     return np.concatenate([a, pad], axis=0)
-
-
-class _TextGraph(NamedTuple):
-    """One text bucket's captured tower: its static ids and output, and
-    the kernel launches one replay makes (``_launch.capturing``)."""
-
-    graph: "torch.cuda.CUDAGraph"
-    ids: torch.Tensor
-    out: torch.Tensor
-    launches: dict
 
 
 class Encoder:
@@ -208,11 +192,9 @@ class Encoder:
                 self._params_on = mesh_lib.replicas(
                     mesh, lambda dev: self._placed(params, dev),
                     self._params_on)
-        # (bucket, routes) -> _TextGraph, or None where the capture failed;
-        # the captures' memory pool and side stream, made at the first
-        self._text_graphs = {}
-        self._text_pool = self._text_stream = None
-        self._text_lock = threading.Lock()
+        # one graph a (bucket, routes)
+        self._text_graphs = CudaGraphs(
+            self.device, "text_tower", lambda key: f"text bucket {key[0]}")
 
     def _placed(self, params, device):
         """The param tree on ``device`` in the compute dtype, with the
@@ -429,20 +411,22 @@ class Encoder:
         cuda = self.device.type == "cuda"
         with torch.inference_mode():
             if cuda and self._rows is None:
-                with torch.cuda.device(self.device):
-                    out = self._replayed_text(ids, n)
-                if out is not None:
-                    return out.cpu().numpy()
+                # the rows leave the graph's static output under its lock
+                out = self._text_graphs.run(
+                    (ids.shape[0], routes()),
+                    torch.from_numpy(ids).pin_memory(), self._text_tower,
+                    lambda rows: rows[:n].clone())
+                return out.cpu().numpy()
             if self._rows is not None:
                 batches, trees = self._on_row(self._rows[0],
                                               torch.from_numpy(ids))
                 out = tensor_lib.encode_text(
                     trees, self.cfg, batches, self._rows[0], normalize=True,
                     dtype=self.dtype)[0]
+                if cuda:
+                    _launch.count({self._text_graphs.eager_count: 1})
             else:
                 out = self._text_tower(torch.from_numpy(ids).to(self.device))
-            if cuda:
-                _launch.count({"text_tower_eager": 1})
             return out[:n].float().cpu().numpy()
 
     def _text_tower(self, ids: torch.Tensor) -> torch.Tensor:
@@ -450,64 +434,6 @@ class Encoder:
         return model_lib.encode_text(self.params, self.cfg, ids,
                                      normalize=True, dtype=self.dtype,
                                      attn_impl="xla")
-
-    def _replayed_text(self, ids: np.ndarray,
-                       n: int) -> Optional[torch.Tensor]:
-        """Rows [:n] of the text tower on the padded ``ids``, from a replay
-        of their bucket's graph (captured here at first use), copied out
-        under the lock; None where the bucket's capture failed."""
-        host = torch.from_numpy(ids).pin_memory()
-        key = (ids.shape[0], routes())
-        with self._text_lock:
-            if key not in self._text_graphs:
-                self._text_graphs[key] = self._captured_text(host)
-            g = self._text_graphs[key]
-            if g is None:
-                return None
-            g.ids.copy_(host, non_blocking=True)
-            g.graph.replay()
-            out = g.out[:n].clone()
-        _launch.count(dict(g.launches, text_tower_graph=1))
-        return out
-
-    def _captured_text(self, host: torch.Tensor) -> Optional[_TextGraph]:
-        """The text tower at ``host``'s bucket captured into a CUDA graph,
-        after one eager pass on the captures' side stream (which builds
-        cuBLAS's workspace for it and warms the allocator). Other threads'
-        launches do not abort it (``thread_local``). None, with a note on
-        stderr, where the capture raises."""
-        if self._text_stream is None:
-            self._text_stream = torch.cuda.Stream(self.device)
-        stream = self._text_stream
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        try:
-            with torch.cuda.stream(stream):
-                ids = torch.empty(host.shape, dtype=host.dtype,
-                                  device=self.device)
-                ids.copy_(host, non_blocking=True)
-                self._text_tower(ids)
-                _launch.count({"text_tower_eager": 1})
-                if self._text_pool is None:
-                    self._text_pool = torch.cuda.graph_pool_handle()
-                graph = torch.cuda.CUDAGraph()
-                with _launch.capturing() as launches:
-                    graph.capture_begin(pool=self._text_pool,
-                                        capture_error_mode="thread_local")
-                    try:
-                        out = self._text_tower(ids)
-                    finally:
-                        graph.capture_end()
-            return _TextGraph(graph, ids, out, launches)
-        except Exception as exc:  # noqa: BLE001 — the bucket runs eagerly
-            print(f"(text bucket {host.shape[0]} runs eagerly: its CUDA "
-                  f"graph capture failed: {exc})", file=sys.stderr)
-            if not any(self._text_graphs.values()):
-                # the failed graph was the pool's only user: freeing it
-                # retires the pool, so the next capture takes a new one
-                self._text_pool = None
-            return None
-        finally:
-            torch.cuda.current_stream(self.device).wait_stream(stream)
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
         """Run each bucket once (builds the CUDA kernels, warms the

@@ -39,11 +39,11 @@ CUDA ``torch._int_mm`` (int8 x int8 -> int32); on the CPU an f32 matmul of
 the codes, exact because every partial sum is an integer below
 127 * 127 * D < 2**24 for D <= 1040.
 
-A flat pq search on CUDA replays one captured CUDA graph of
-``pq._pq_topk`` for each (Q bucket, k bucket, ntotal, capacity), in place
-of the eager dispatches of its chunk scans, top-ks, merge and rescore (~700
-at 2^24 rows): the same kernels in the same order, so the same (D, I) bit
-for bit. Any change to the codes drops the index's graphs.
+A flat pq search on CUDA replays one CUDA graph of ``pq._pq_topk`` for
+each (Q bucket, k bucket, ntotal, capacity), through ``runtime/graphs.py``,
+in place of the eager dispatches of its chunk scans, top-ks, merge and
+rescore (~700 at 2^24 rows): the same kernels in the same order, so the
+same (D, I) bit for bit. Any change to the codes drops the index's graphs.
 
 IVF (``--search-mode ivf``) is ``search/ivf.py``; the corpus-sharded index
 over several devices is ``parallel/mips.py``.
@@ -54,15 +54,14 @@ from __future__ import annotations
 import functools
 import os
 import struct
-import sys
 import threading
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from clipx_torch.ops import _launch
 from clipx_torch.runtime.device import full_f32, resolve_device
+from clipx_torch.runtime.graphs import CudaGraphs
 from clipx_torch.utils import profiling
 
 _MAGIC = b"CLIPXIDX1\n"
@@ -530,17 +529,6 @@ def _to_device_rows(dst: torch.Tensor, src: np.ndarray,
         dst[i: i + part.shape[0]] = torch.from_numpy(part).to(dst.device)
 
 
-class _PQGraph(NamedTuple):
-    """A flat pq search captured at one key: the static query buffer it
-    reads, the (scores, ids) it writes, and the kernel launches each
-    replay makes."""
-    graph: "torch.cuda.CUDAGraph"
-    queries: torch.Tensor
-    scores: torch.Tensor
-    ids: torch.Tensor
-    launches: Dict[str, int]
-
-
 class VectorIndex:
     """Flat inner-product index over device-resident vectors or codes.
     Row i is external id i (the byte-sorted path rank the indexer assigns).
@@ -582,11 +570,12 @@ class VectorIndex:
         self._center: Optional[np.ndarray] = None
         # concurrent first searches quantize the scan copy once
         self._codes_lock = threading.Lock()
-        # flat pq on CUDA: (Q bucket, kk, ntotal, capacity) -> _PQGraph, or
-        # None where the capture failed; emptied whenever the codes change
-        self._pq_graphs: Dict[tuple, Optional[_PQGraph]] = {}
-        self._pq_pool = self._pq_stream = None
-        self._pq_lock = threading.Lock()
+        # flat pq on CUDA: one graph a _pq_key; each reads the codes'
+        # address, ntotal and the centroids as they were, so any change to
+        # the codes clears them
+        self._pq_graphs = CudaGraphs(
+            self.device, "pq_search",
+            lambda key: f"pq search at Q bucket {key[0]}, k bucket {key[1]}")
 
     @property
     def coded_storage(self) -> bool:
@@ -645,7 +634,7 @@ class VectorIndex:
                 from clipx_torch.search.pq import _pq_append
 
                 _pq_append(self, vectors)
-                self._drop_pq_graphs()  # ntotal moved, codes written
+                self._pq_graphs.clear()  # ntotal moved, codes written
             else:
                 _int8_append(self, vectors)
             return
@@ -682,7 +671,7 @@ class VectorIndex:
     def _place_pq(self, codes: np.ndarray) -> None:
         """Codes live as logical (N_pad, M/2) rows: clipx's lane pairing
         (``pq.pack_factor``) is a TPU layout and has no counterpart."""
-        self._drop_pq_graphs()
+        self._pq_graphs.clear()
         self._codes = torch.zeros((_bucket_rows(codes.shape[0]),
                                    self._code_dim), dtype=torch.int8,
                                   device=self.device)
@@ -691,7 +680,7 @@ class VectorIndex:
     def _grow(self, need: int) -> None:
         """Re-pad to the bucket of ``need`` rows on the device."""
         new_cap = _bucket_rows(need)
-        self._drop_pq_graphs()
+        self._pq_graphs.clear()
         if self.coded_storage:
             codes = torch.zeros((new_cap, self._code_dim), dtype=torch.int8,
                                 device=self.device)
@@ -709,14 +698,6 @@ class VectorIndex:
         self._corpus = grown
         self._codes = None
         self._scales = None
-
-    def _drop_pq_graphs(self) -> None:
-        """Forget every captured pq search: each read the codes' address,
-        ntotal and the centroids as they were. The next search of a key
-        captures anew, in a new pool."""
-        with self._pq_lock:
-            self._pq_graphs.clear()
-            self._pq_pool = None
 
     def _ensure_codes(self) -> None:
         if self._codes is not None:
@@ -761,15 +742,19 @@ class VectorIndex:
                         else self._corpus).shape[0]
             kk = min(_bucket_k(k), cap_rows)
             with torch.inference_mode(), full_f32(self.device):
-                got = (self._replayed_pq(queries, nq, k, kk)
-                       if self.pq_storage and self.device.type == "cuda"
-                       else None)
-                if got is None:
+                if self.pq_storage and self.device.type == "cuda":
+                    # (D, I) leave the graph's static output under its lock
+                    scores, ids = self._pq_graphs.run(
+                        self._pq_key(queries.shape[0], kk),
+                        torch.from_numpy(queries).pin_memory(),
+                        lambda qt: self._pq_search(qt, kk),
+                        lambda out: (out[0][:nq, :k].cpu().numpy(),
+                                     out[1][:nq, :k].cpu().numpy()))
+                else:
                     scores, ids = self._scan(
                         torch.from_numpy(queries).to(self.device), kk)
-                    got = (scores[:nq, :k].cpu().numpy(),
-                           ids[:nq, :k].to(torch.int64).cpu().numpy())
-            scores, ids = got
+                    scores = scores[:nq, :k].cpu().numpy()
+                    ids = ids[:nq, :k].to(torch.int64).cpu().numpy()
             if self._center is not None:
                 # centered codes score the residual: add the exact q·mean
                 # back (a per-query constant, so the ranking is already
@@ -787,8 +772,6 @@ class VectorIndex:
         """The device search of the padded, rotated queries ``qt``: (Q, kk)
         scores and ids, in this index's tier."""
         if self.pq_storage:
-            if qt.device.type == "cuda":
-                _launch.count({"pq_search_eager": 1})
             return self._pq_search(qt, kk)
         if self.int4_storage:
             return _int4_segscan(self._codes, self._scales, self.ntotal, qt,
@@ -815,68 +798,6 @@ class VectorIndex:
         and the centroids: the Q bucket, the k bucket, ntotal (the valid
         masks) and the capacity (the chunking)."""
         return (q_bucket, kk, self.ntotal, self._codes.shape[0])
-
-    def _replayed_pq(self, queries: np.ndarray, nq: int, k: int,
-                     kk: int) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-        """Rows [:nq, :k] of the flat pq search of the padded, rotated
-        ``queries`` at ``kk``, from a replay of their key's graph (captured
-        here at first use), read back under the lock; None where the key's
-        capture failed."""
-        host = torch.from_numpy(queries).pin_memory()
-        key = self._pq_key(queries.shape[0], kk)
-        with self._pq_lock, torch.cuda.device(self.device):
-            if key not in self._pq_graphs:
-                self._pq_graphs[key] = self._captured_pq(host, kk)
-            g = self._pq_graphs[key]
-            if g is None:
-                return None
-            g.queries.copy_(host, non_blocking=True)
-            g.graph.replay()
-            scores = g.scores[:nq, :k].cpu().numpy()
-            ids = g.ids[:nq, :k].cpu().numpy()
-        _launch.count(dict(g.launches, pq_search_graph=1))
-        return scores, ids
-
-    def _captured_pq(self, host: torch.Tensor,
-                     kk: int) -> Optional[_PQGraph]:
-        """The flat pq search of ``host``'s Q bucket at ``kk`` captured into
-        a CUDA graph, after one eager pass on the captures' side stream
-        (which builds cuBLAS's workspace for the LUT product and warms the
-        allocator). Other threads' launches do not abort it
-        (``thread_local``). None, with a note on stderr, where the capture
-        raises."""
-        if self._pq_stream is None:
-            self._pq_stream = torch.cuda.Stream(self.device)
-        stream = self._pq_stream
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        try:
-            with torch.cuda.stream(stream):
-                queries = torch.empty(host.shape, dtype=host.dtype,
-                                      device=self.device)
-                queries.copy_(host, non_blocking=True)
-                self._scan(queries, kk)
-                if self._pq_pool is None:
-                    self._pq_pool = torch.cuda.graph_pool_handle()
-                graph = torch.cuda.CUDAGraph()
-                with _launch.capturing() as launches:
-                    graph.capture_begin(pool=self._pq_pool,
-                                        capture_error_mode="thread_local")
-                    try:
-                        scores, ids = self._pq_search(queries, kk)
-                    finally:
-                        graph.capture_end()
-            return _PQGraph(graph, queries, scores, ids, launches)
-        except Exception as exc:  # noqa: BLE001 — the key runs eagerly
-            print(f"(pq search at Q bucket {host.shape[0]}, k bucket {kk} "
-                  f"runs eagerly: its CUDA graph capture failed: {exc})",
-                  file=sys.stderr)
-            if not any(self._pq_graphs.values()):
-                # the failed graph was the pool's only user: freeing it
-                # retires the pool, so the next capture takes a new one
-                self._pq_pool = None
-            return None
-        finally:
-            torch.cuda.current_stream(self.device).wait_stream(stream)
 
     # -- reconstruction ---------------------------------------------------------
     def _user_space(self, v: np.ndarray) -> np.ndarray:

@@ -1763,15 +1763,31 @@ def _prompts(n: int, seed: int) -> list:
             for i in range(n)]
 
 
+def _forced_eager(graphs, m):
+    """Every run of ``graphs`` (a ``runtime.graphs.CudaGraphs``) takes its
+    eager path while ``m`` holds."""
+    m.setattr(graphs, "run",
+              lambda key, host, fn, read: graphs.eager(host, fn, read))
+
+
+def _forward_counts(family):
+    """The two ``FORWARD_COUNTS`` of one family of CUDA graphs."""
+    from clipx_torch.ops import _launch
+
+    names = (f"{family}_graph", f"{family}_eager")
+    assert set(names) <= set(_launch.FORWARD_COUNTS)
+    counts = tps.launch_counts()
+    return {k: counts[k] for k in names}
+
+
 def _eager(enc, monkeypatch, texts):
     with monkeypatch.context() as m:
-        m.setattr(enc, "_replayed_text", lambda ids, n: None)
+        _forced_eager(enc._text_graphs, m)
         return enc.encode_texts(texts)
 
 
 def _text_counts():
-    return {k: n for k, n in tps.launch_counts().items()
-            if k.startswith("text_tower_")}
+    return _forward_counts("text_tower")
 
 
 # every text bucket, full and partly filled, and two chunks (64 + 6 in 16)
@@ -1808,7 +1824,7 @@ def test_text_graph_counts_one_replay_a_bucketed_call(cuda_device):
     for n in (1, 3, 4, 16, 64, 70):
         enc.encode_texts(_prompts(n, 2))
     assert _text_counts() == {"text_tower_graph": 11, "text_tower_eager": 4}
-    assert sorted(b for b, _ in enc._text_graphs) == [1, 4, 16, 64]
+    assert sorted(b for b, _ in enc._text_graphs.graphs) == [1, 4, 16, 64]
     assert {k: c for k, c in tps.launch_counts().items() if c} == (
         _text_counts())  # the d64 text tower launches no kernel of the port
     dp = Encoder(cfg, params, mesh=_card_mesh("dp", 2, cuda_device))
@@ -1904,7 +1920,7 @@ def test_text_graph_follows_the_mlp_route(cuda_device, monkeypatch):
     np.testing.assert_array_equal(enc.encode_texts(["a cat"]), plain)
     assert {k: n for k, n in tps.launch_counts().items() if n} == {
         "text_tower_graph": 1}
-    assert len(enc._text_graphs) == 2
+    assert len(enc._text_graphs.graphs) == 2
     ref = cpu.encode_texts(["a cat"])
     assert float(fused[0] @ ref[0]) >= 0.999
 
@@ -1945,13 +1961,12 @@ def _pq_queries(nq, seed):
 
 def _pq_eager(idx, monkeypatch, queries, k):
     with monkeypatch.context() as m:
-        m.setattr(idx, "_replayed_pq", lambda *args: None)
+        _forced_eager(idx._pq_graphs, m)
         return idx.search(queries, k)
 
 
 def _pq_counts():
-    return {k: n for k, n in tps.launch_counts().items()
-            if k.startswith("pq_search_")}
+    return _forward_counts("pq_search")
 
 
 @pytest.mark.parametrize("k", [1, 50, 1000])
@@ -1967,13 +1982,13 @@ def test_pq_graph_replays_equal_the_eager_search(cuda_device, monkeypatch,
     idx = _pq_shared(cuda_device, rows)
     queries = _pq_queries(nq, seed=nq * 1000 + k)
     key = idx._pq_key(teng._bucket_q(nq), teng._bucket_k(k))
-    fresh = key not in idx._pq_graphs
+    fresh = key not in idx._pq_graphs.graphs
     tps.reset_launches()
     graphed = idx.search(queries, k)
     again = idx.search(queries, k)
     assert _pq_counts() == {"pq_search_graph": 2,
                             "pq_search_eager": int(fresh)}
-    assert idx._pq_graphs[key] is not None
+    assert idx._pq_graphs.graphs[key] is not None
     eager = _pq_eager(idx, monkeypatch, queries, k)
     assert graphed[0].shape == (nq, k) and graphed[1].dtype == np.int64
     for got in (graphed, again):
@@ -1989,13 +2004,13 @@ def test_pq_graph_recaptures_after_an_add(cuda_device, monkeypatch):
     idx = _pq_card_index(cuda_device, (1 << 20) - 1000)
     queries = _pq_queries(3, seed=7)
     idx.search(queries, 50)
-    assert len(idx._pq_graphs) == 1
+    assert len(idx._pq_graphs.graphs) == 1
     codes, before = idx._codes, idx.ntotal
     # long rows take each subspace's centroid furthest along the query:
     # each query's own new row scores far above the random rows
     idx.add(20 * queries)
     assert idx._codes is codes and idx.ntotal == before + 3
-    assert idx._pq_graphs == {}
+    assert idx._pq_graphs.graphs == {}
     tps.reset_launches()
     D, I = idx.search(queries, 50)
     assert _pq_counts() == {"pq_search_graph": 1, "pq_search_eager": 1}

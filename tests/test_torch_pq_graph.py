@@ -51,7 +51,7 @@ def test_cpu_pq_search_stays_eager_and_uncounted(nq, k):
     before = _search_counts()
     D, I = idx.search(queries, k)
     assert _search_counts() == before
-    assert idx._pq_graphs == {} and idx._pq_pool is None
+    assert idx._pq_graphs.graphs == {} and idx._pq_graphs._pool is None
     padded, n = teng._pad_q(teng.rotate_rows(queries, idx._rot))
     kk = min(teng._bucket_k(k), idx._codes.shape[0])
     with torch.inference_mode():
@@ -61,19 +61,6 @@ def test_cpu_pq_search_stays_eager_and_uncounted(nq, k):
     assert n == nq and idx._center is None
     np.testing.assert_array_equal(D, want_d[:nq, :k].numpy())
     np.testing.assert_array_equal(I, want_i[:nq, :k].numpy())
-
-
-def test_launches_has_the_pq_search_counts():
-    """The search's two counts sit beside the kernels' and reset with
-    them."""
-    counts = _launch.launch_counts()
-    assert set(COUNTS) <= set(counts)
-    _launch.count({"pq_search_graph": 3, "pq_search_eager": 1})
-    assert _search_counts() == {
-        "pq_search_graph": counts["pq_search_graph"] + 3,
-        "pq_search_eager": counts["pq_search_eager"] + 1}
-    _launch.reset_launches()
-    assert _search_counts() == {"pq_search_graph": 0, "pq_search_eager": 0}
 
 
 def _append_in_place(idx):
@@ -97,10 +84,10 @@ def test_a_change_to_the_codes_drops_the_graphs(change):
     append, a growth and a placement each empty the graph dict and retire
     its pool."""
     idx = _index()
-    idx._pq_graphs[("sentinel",)] = None
-    idx._pq_pool = (0, 1)
+    idx._pq_graphs._graphs[("sentinel",)] = None
+    idx._pq_graphs._pool = (0, 1)
     change(idx)
-    assert idx._pq_graphs == {} and idx._pq_pool is None
+    assert idx._pq_graphs.graphs == {} and idx._pq_graphs._pool is None
 
 
 @pytest.mark.parametrize("moved", ["q_bucket", "k_bucket", "ntotal"])
