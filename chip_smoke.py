@@ -38,7 +38,8 @@ these phases, printing one JSON line per phase:
               int8 and int4 (encode seconds, bytes), each loaded with
               the sidecar and codes-only, and bf16: search p50, recall@50
               and top-1 against phase 5's exact ids; then a pq capacity
-              scan over 2^24 seeded random codes (the chunked scan).
+              scan over 2^24 seeded random codes (one B11 launch at
+              Q = 1, eight 2^21-row chunks at Q = 16).
               Beside it run, in threads: the pq tier's encode, phase ivf's
               residual pq build, phase cli and phase quality (in a process
               of its own); cli and quality end before it times its first
@@ -1774,8 +1775,8 @@ def phase_coded(search: dict, device, keep: str, pool, beside=()) -> dict:
     deleted; bf16 through build_index_from_vectors. Search p50 of phase
     search's 16 queries at k = 50 per tier, recall@50 and top-1 against
     its exact ids (no floor). Then a capacity scan: a seeded random-code pq
-    payload of 2^24 rows placed through VectorIndex.from_codes (the chunked
-    scan branch), Q = 1 and 16.
+    payload of 2^24 rows placed through VectorIndex.from_codes, Q = 1 (one
+    scan of the whole capacity) and 16 (chunks of 2^21 rows).
 
     The pq tier's encode (dsub 2, trained OPQ: minutes on the host) is
     submitted to ``pool`` first and runs beside this phase and the ones
@@ -1879,9 +1880,11 @@ def _capacity_scan(device) -> dict:
     idx = VectorIndex.from_codes(payload, device=device)
     torch.cuda.synchronize()
     place_s = time.perf_counter() - t0
-    check(idx._codes.shape[0] % pq_lib._PQ_PALLAS_CHUNK == 0
-          and idx._codes.shape[0] > pq_lib._PQ_PALLAS_ONESHOT,
-          "the capacity scan does not take the chunked branch")
+    cap = idx._codes.shape[0]
+    check(pq_lib._scan_chunk(cap, 1) == cap
+          and pq_lib._scan_chunk(cap, NQ) < cap,
+          "the capacity scan does not take one scan at Q = 1 and chunks "
+          f"at Q = {NQ}")
     out = {"rows": CAPACITY_ROWS, "codes_gib": CAPACITY_ROWS * half / 2**30,
            "make_s": make_s, "place_s": place_s}
     q_all = rng.standard_normal((NQ, DIM), dtype=np.float32)

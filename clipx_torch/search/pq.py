@@ -15,10 +15,13 @@ Device side (torch): ``make_luts`` / ``quantized_luts`` build each query's
 ADC table and its int8 quantization; ``_pq_topk`` scans the codes with the
 PQ kernel (``ops/pq_scan.py``) against the int8 LUT, keeps each chunk's top
 ``4k`` candidates, merges them and rescores the survivors against the f32
-LUT, so returned scores are the full-precision PQ scores. Chunking is
-clipx's: one scan up to ``_PQ_PALLAS_ONESHOT`` rows, ``_PQ_PALLAS_CHUNK``-
-row chunks past it. Every top-k breaks ties lowest index first, so the
-candidates equal those of clipx's XLA path. A flat index on the card replays
+LUT, so returned scores are the full-precision PQ scores. A chunk is as
+many rows as the Q queries' f32 score block allows (``_scan_chunk``): the
+whole capacity while Q x rows stays within ``_PQ_SCORE_BLOCK`` (every
+capacity up to ``_PQ_PALLAS_ONESHOT`` rows at every Q bucket, 2^24 rows at
+Q = 1), else the largest multiple of ``_PQ_PALLAS_CHUNK`` that divides it
+and fits. Every top-k breaks ties lowest index first, so the candidates
+equal those of clipx's XLA path. A flat index on the card replays
 ``_pq_topk`` from a captured CUDA graph (``VectorIndex.search``).
 
 Layout: clipx lane-pairs the device code array (``pack_factor``,
@@ -44,10 +47,14 @@ PQ_RESCORE_MARGIN = 4  # f32-LUT-rescored candidates per requested k
 _PQ_TRAIN_SAMPLE = 1 << 16
 _PQ_ITERS = 15
 _PQ_SEED = 0xC11B9
-# scan chunking: one kernel call up to this many rows (the (Q, n) f32 score
-# block peaks at 128 MiB), then chunks of _PQ_PALLAS_CHUNK rows
+# clipx's scan chunking, kept as the port's placement rule: a capacity (or a
+# shard, ``parallel/mips.py::_shard_rows``) past _PQ_PALLAS_ONESHOT rows is
+# a multiple of _PQ_PALLAS_CHUNK rows, and a scan chunk is too
 _PQ_PALLAS_ONESHOT = 1 << 21
 _PQ_PALLAS_CHUNK = 1 << 19
+# the f32 scores one scan chunk may write: 128 MiB, the (16, 2^21) block of
+# clipx's one-shot bound at _MAX_Q, and the (1, 2^25) block at Q = 1
+_PQ_SCORE_BLOCK = 1 << 25
 # clipx's XLA scan chunk: the port scans in the chunks above, but a sharded
 # index aligns its rows a shard to this too, as clipx's does
 # (``parallel/mips.py::_shard_rows``)
@@ -271,6 +278,24 @@ def quantized_luts(queries: torch.Tensor, centroids: torch.Tensor
     return lut, luti, scale
 
 
+def _scan_chunk(n: int, nq: int) -> int:
+    """Rows a scan chunk of ``_pq_topk`` covers, for ``nq`` queries over an
+    ``n``-row capacity: all ``n`` while the (nq, n) f32 scores fit
+    ``_PQ_SCORE_BLOCK``, else the largest multiple of ``_PQ_PALLAS_CHUNK``
+    that divides ``n`` and fits (one fits every Q bucket: 16 x 2^19 is a
+    quarter of the block)."""
+    if nq * n <= _PQ_SCORE_BLOCK:
+        return n
+    if n % _PQ_PALLAS_CHUNK:
+        raise ValueError(f"pq capacity {n} not a chunk multiple "
+                         f"({_PQ_PALLAS_CHUNK}) — placement must pad to "
+                         "engine._bucket_rows")
+    units = n // _PQ_PALLAS_CHUNK
+    fit = _PQ_SCORE_BLOCK // (nq * _PQ_PALLAS_CHUNK)
+    return max(u for u in range(1, min(fit, units) + 1)
+               if units % u == 0) * _PQ_PALLAS_CHUNK
+
+
 def _pq_topk(packed: torch.Tensor, centroids: torch.Tensor, valid: int,
              queries: torch.Tensor, k: int, base: int = 0):
     """The PQ search: int8-LUT scan (``pq_scan_scores``) per chunk -> each
@@ -287,10 +312,7 @@ def _pq_topk(packed: torch.Tensor, centroids: torch.Tensor, valid: int,
     nq = queries.shape[0]
     lut, luti, _ = quantized_luts(queries, centroids)       # (Q, M*16)
     lut_t = luti.T.contiguous()                             # (M*16, Q)
-    chunk = n if n <= _PQ_PALLAS_ONESHOT else _PQ_PALLAS_CHUNK
-    if n % chunk:
-        raise ValueError(f"pq capacity {n} not a chunk multiple ({chunk})"
-                         " — placement must pad to engine._bucket_rows")
+    chunk = _scan_chunk(n, nq)
     m_cand = min(PQ_RESCORE_MARGIN * k, chunk)
 
     def scan_chunk(start):

@@ -1934,7 +1934,8 @@ _pq_indexes = {}
 def _pq_card_index(device, rows):
     """A flat pq index on the card straight from seeded codes and
     centroids, ``rows`` below its capacity: 2^20 - 1,000 rows scan in one
-    B11 launch, 2^22 - 3,000 in eight chunks of 2^19. Built once a size;
+    B11 launch, 2^22 - 3,000 in one up to Q = 8 and in two chunks of 2^21
+    at Q = 16 (``pq._scan_chunk``). Built once a size;
     a test that changes it asks for a fresh one (``fresh=True``)."""
     from clipx_torch.search import pq as tpq
 
@@ -2020,26 +2021,53 @@ def test_pq_graph_recaptures_after_an_add(cuda_device, monkeypatch):
     np.testing.assert_array_equal(I, eager[1])
 
 
+@pytest.mark.parametrize("nq,scans", [(1, (1, 1)), (16, (1, 2))],
+                         ids=["q1", "q16"])
 @pytest.mark.parametrize("rows", [(1 << 20) - 1000, (1 << 22) - 3000],
                          ids=["oneshot", "chunked"])
-def test_pq_graph_replay_counts_each_chunk_scan(cuda_device, rows):
+def test_pq_graph_replay_counts_each_chunk_scan(cuda_device, rows, nq,
+                                                scans):
     """A replay adds the launches its graph captured: capacity / chunk B11
-    scans (1 one-shot, 8 chunked) and one pq_search_graph, nothing else."""
+    scans (``pq._scan_chunk``: one at 2^20 rows; at 2^22 one at Q = 1 and
+    two of 2^21 at Q = 16, the 128 MiB score block) and one
+    pq_search_graph, nothing else."""
     from clipx_torch.search import pq as tpq
 
     idx = _pq_shared(cuda_device, rows)
-    queries = _pq_queries(1, seed=11)
+    queries = _pq_queries(nq, seed=11)
     idx.search(queries, 50)
     tps.reset_launches()
     idx.search(queries, 50)
     cap = idx._codes.shape[0]
-    chunk = cap if cap <= tpq._PQ_PALLAS_ONESHOT else tpq._PQ_PALLAS_CHUNK
+    want = scans[rows > tpq._PQ_PALLAS_ONESHOT]
+    assert cap // tpq._scan_chunk(cap, nq) == want
     assert {k: n for k, n in tps.launch_counts().items() if n} == {
-        "pq_scan_scores": cap // chunk, "pq_search_graph": 1}
+        "pq_scan_scores": want, "pq_search_graph": 1}
+
+
+def test_pq_one_scan_replay_equals_the_fixed_chunks(cuda_device,
+                                                    monkeypatch):
+    """At 2^22 - 3,000 rows and Q = 1 the replay scans the capacity in one
+    B11 launch; its (D, I) are bitwise those of the eager search in eight
+    2^19-row chunks, clipx's fixed rule (a score block of one chunk)."""
+    from clipx_torch.search import pq as tpq
+
+    idx = _pq_shared(cuda_device, (1 << 22) - 3000)
+    for seed in (21, 22, 23):
+        queries = _pq_queries(1, seed=seed)
+        for k in (10, 50):
+            replayed = idx.search(queries, k)
+            with monkeypatch.context() as m:
+                m.setattr(tpq, "_PQ_SCORE_BLOCK", tpq._PQ_PALLAS_CHUNK)
+                tps.reset_launches()
+                fixed = _pq_eager(idx, monkeypatch, queries, k)
+                assert tps.launch_counts()["pq_scan_scores"] == 8
+            np.testing.assert_array_equal(replayed[0], fixed[0])
+            np.testing.assert_array_equal(replayed[1], fixed[1])
 
 
 def test_pq_graphs_serve_threads_at_once(cuda_device, monkeypatch):
-    """Four threads on one chunked index, each with its own queries (Q = 1
+    """Four threads on one 2^22-row index, each with its own queries (Q = 1
     or 3), 20 searches each, all at once: every search gets the eager
     search's (D, I) for its own queries, and every one is a replay."""
     idx = _pq_shared(cuda_device, (1 << 22) - 3000)

@@ -323,6 +323,7 @@ def test_pq_chunked_scan_matches_clipx(monkeypatch):
     monkeypatch.setattr(jpq, "_PQ_CHUNK", 2048)
     monkeypatch.setattr(tpq, "_PQ_PALLAS_ONESHOT", 1024)
     monkeypatch.setattr(tpq, "_PQ_PALLAS_CHUNK", 2048)
+    monkeypatch.setattr(tpq, "_PQ_SCORE_BLOCK", 8 * 2048)  # Q bucket 8
     jpq._search_kernel_pq.clear_cache()
     try:
         D, I = _same_results(ref, ours, q, 25)
@@ -330,6 +331,81 @@ def test_pq_chunked_scan_matches_clipx(monkeypatch):
         jpq._search_kernel_pq.clear_cache()
     np.testing.assert_array_equal(I, one_i)
     np.testing.assert_allclose(D, one_d, atol=ATOL, rtol=RTOL)
+
+
+# the scan chunk at the placement's capacities: 2^24 rows as the table of
+# Q buckets halves it, any capacity up to 2^21 rows whole at every Q bucket,
+# and a capacity of an odd number of 2^19 chunks past the Q's block
+_CHUNK_TABLE = (
+    [(1 << 24, q, c) for q, c in ((1, 1 << 24), (2, 1 << 24), (4, 1 << 23),
+                                  (8, 1 << 22), (16, 1 << 21))]
+    + [(n, q, n) for n in (4096, 1 << 20, (1 << 20) + (1 << 19), 1 << 21)
+       for q in (1, 2, 4, 8, 16)]
+    + [(5 << 19, 16, 1 << 19), (12 << 19, 8, 6 << 19), (12 << 19, 16, 1 << 21),
+       (1 << 22, 16, 1 << 21)])
+
+
+@pytest.mark.parametrize("n,nq,chunk", _CHUNK_TABLE)
+def test_scan_chunk_by_q_bucket_and_capacity(n, nq, chunk):
+    """A chunk is the whole capacity while (Q, n) f32 scores fit 128 MiB,
+    else the largest 2^19 multiple dividing it that fits."""
+    got = tpq._scan_chunk(n, nq)
+    assert got == chunk and n % got == 0
+    assert nq * got <= tpq._PQ_SCORE_BLOCK == 1 << 25
+
+
+def test_scan_chunk_refuses_an_unaligned_capacity_past_the_block():
+    with pytest.raises(ValueError, match="not a chunk multiple"):
+        tpq._scan_chunk((1 << 22) + 4096, 16)
+
+
+def _random_pq(n, dim, seed):
+    rng = np.random.default_rng(seed)
+    m = dim // 2
+    packed = torch.from_numpy(
+        rng.integers(-128, 128, (n, m // 2), dtype=np.int8))
+    cent = torch.from_numpy(
+        (0.1 * rng.standard_normal((m, tpq.PQ_K, 2))).astype(np.float32))
+    return packed, cent
+
+
+@pytest.mark.parametrize("base", [0, 3 << 15], ids=["single", "shard"])
+@pytest.mark.parametrize("k", [10, 50])
+@pytest.mark.parametrize("nq,chunks", [(1, 1), (3, 2), (16, 8)])
+def test_pq_topk_by_q_bucket_chunks_equals_the_fixed_chunks(
+        monkeypatch, nq, chunks, k, base):
+    """``_pq_topk`` over 32 units of 1,024 rows, the block two capacities
+    (2^25 against 2^24 rows, scaled down): 1 scan at Q = 1, 2 at Q = 3 and 8
+    at Q = 16 give (D, I) bitwise those of the fixed 32 chunks of clipx's
+    rule (a block of one unit a query), with rows past ``valid`` masked and
+    ids offset by ``base`` as a shard's are."""
+    n = 32 * 1024
+    packed, cent = _random_pq(n, 64, seed=nq * 100 + k)
+    q = torch.from_numpy(_corpus(nq, 64, seed=k + nq))
+    valid = base + n - 1500
+    scans = []
+
+    def counted(p, lut_t):
+        scans.append(p.shape[0])
+        return tscan.pq_scan_scores(p, lut_t)
+
+    monkeypatch.setattr(tpq, "pq_scan_scores", counted)
+    monkeypatch.setattr(tpq, "_PQ_PALLAS_CHUNK", 1024)
+
+    def run(block):
+        monkeypatch.setattr(tpq, "_PQ_SCORE_BLOCK", block)
+        scans.clear()
+        d, i = tpq._pq_topk(packed, cent, valid, q, k, base=base)
+        return d.numpy(), i.numpy(), list(scans)
+
+    d_new, i_new, new_scans = run(2 * n)
+    d_old, i_old, old_scans = run(nq * 1024)
+    assert new_scans == [n // chunks] * chunks
+    assert old_scans == [1024] * 32
+    np.testing.assert_array_equal(i_new, i_old)
+    np.testing.assert_array_equal(d_new, d_old)
+    assert d_new.shape == (nq, k)
+    assert ((i_new >= base) & (i_new < valid)).all()
 
 
 def test_int4_chunked_scan_matches_one_shot(corpus, index_pairs,
